@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each a hard check (any failure exits non-zero):
+
+1. the card: its name, and name and power limit from ``nvidia-smi``;
+2. the build: the CUDA kernels are compiled from ``src/repro_torch/kernels/csrc``;
+3. every kernel against its plain torch version at the main path's shapes
+   (N=5 clients, n=50 candidates, cap=192, d=300; one query point per
+   client for the gradient mean), on inputs built by the port's own GP
+   code, with kernel and plain times and the least time the card could take;
+4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
+   width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
+   settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
+   rounds on the card, with the kernel launch counts of that run; then the
+   same engine at a small size on the card and on the CPU (plain versions)
+   with the same draws, which must agree;
+5. the other route: 2 rounds with the cap tiles pinned below cap, so the
+   cap-tiled kernels run;
+6. one main-path round under ``torch.profiler``: device time by kernel and
+   the device's busy share of the round;
+7. one JSON line describing every kernel, and the result line.
+
+It imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
+#: the tensor cores (the kernels run f32 FMAs, not tensor-core products).
+HBM_BYTES_S = 3.35e12
+F32_FLOPS_S = 67e12
+
+# Main path: Appx. E.1 width and the fig1 full settings.
+D, N_CLIENTS, CAP, CANDS, M = 300, 5, 192, 50, 512
+ROUNDS, OTHER_ROUNDS = 5, 2
+TILE = 64  # the cap tile pinned for the other route
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def cuda_ms(fn, reps: int = 100, warmup: int = 10) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def path_inputs(dev):
+    """Scoring and gradient-mean inputs as the main path builds them: a
+    full ring of points near the iterate, its factor, the masked inverse,
+    the centroid-shifted coordinates and candidates in the 0.01 ball."""
+    from repro_torch.core import gp_surrogate as gp
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    hyper = gp.GPHyper(0.5, 1e-5)
+    center = 0.5 + 0.02 * torch.rand(N_CLIENTS, 1, D, generator=g, device=dev)
+    walk = 0.01 * torch.randn(N_CLIENTS, CAP, D, generator=g, device=dev).cumsum(1) / CAP**0.5
+    xs = (center + walk).clamp(0, 1)
+    ys = torch.randn(N_CLIENTS, CAP, generator=g, device=dev)
+    traj = gp.Trajectory(xs, ys, torch.full((N_CLIENTS,), CAP, dtype=torch.int32, device=dev))
+    factor = gp.factor_init(traj, hyper)
+    cands = (xs[:, -1:] + 0.01 * (2 * torch.rand(N_CLIENTS, CANDS, D, generator=g, device=dev)
+                                  - 1)).clamp(0, 1)
+    masks = traj.valid_mask()
+    binv = gp.factor_inverse(factor) * (masks[:, :, None] * masks[:, None, :])
+    c0 = cands.mean(1)
+    xs_sh = ((xs - c0[:, None]) * masks[:, :, None]).contiguous()
+    pmat = (binv * (xs_sh @ xs_sh.transpose(-1, -2))).contiguous()
+    alpha = gp.gp_alpha_cached_clients(traj, factor).contiguous()
+    prior = D / hyper.lengthscale**2
+    return dict(cands=(cands - c0[:, None]).contiguous(), xs_sh=xs_sh, binv=binv.contiguous(),
+                pmat=pmat, xs=xs.contiguous(), alpha=alpha, query=xs[:, -1:].contiguous(),
+                ls=hyper.lengthscale, prior=prior)
+
+
+def check_kernels(dev):
+    """Phase 3: each kernel against its plain version; returns the rows of
+    the kernels line (without launch counts)."""
+    from repro_torch.kernels import autotune, gp_grad, gp_score, ops, ref
+
+    p = path_inputs(dev)
+    ls, prior = p["ls"], p["prior"]
+    bn_s, _ = autotune.select_blocks("score", n=CANDS, cap=CAP, d=D)
+    bn_g, _ = autotune.select_blocks("grad", n=1, cap=CAP, d=D)
+    c_pad = ops._pad_axis(p["cands"], 1, -(-CANDS // bn_s) * bn_s).contiguous()
+    score_args = (c_pad, p["xs_sh"], p["binv"], p["pmat"])
+    grad_args = (p["query"], p["xs"], p["alpha"])
+    f64 = lambda args: tuple(a.double() for a in args)
+
+    score_bytes = 4 * N_CLIENTS * (2 * CAP * CAP + CAP * D + CANDS * D + CANDS)
+    score_flops = N_CLIENTS * CANDS * (2 * CAP * D + 4 * CAP * CAP + 6 * CAP + 2 * D)
+    grad_bytes = 4 * N_CLIENTS * (CAP * D + CAP + 2 * D)
+    grad_flops = N_CLIENTS * (4 * CAP * D + 6 * CAP + 2 * D)
+    specs = [
+        ("score_resident", "gp_score.cu", "src/repro/kernels/gp_score.py:180",
+         lambda: gp_score.uncertainty_scores_resident(*score_args, lengthscale=ls, prior=prior,
+                                                      block_n=bn_s),
+         lambda a: ref.uncertainty_scores_clients_fused(*a, ls, prior),
+         score_args, score_bytes, score_flops),
+        ("score_tiled", "gp_score.cu", "src/repro/kernels/gp_score.py:381",
+         lambda: gp_score.uncertainty_scores_tiled(*score_args, lengthscale=ls, prior=prior,
+                                                   block_n=bn_s, block_cap=TILE),
+         lambda a: gp_score.scores_tiled_plain(*a, ls, prior, TILE),
+         score_args, score_bytes, score_flops),
+        ("grad_resident", "gp_grad.cu", "src/repro/kernels/gp_grad.py:142",
+         lambda: gp_grad.grad_mean_resident(*grad_args, lengthscale=ls, block_n=bn_g),
+         lambda a: ref.grad_mean_clients(*a, ls),
+         grad_args, grad_bytes, grad_flops),
+        ("grad_tiled", "gp_grad.cu", "src/repro/kernels/gp_grad.py:317",
+         lambda: gp_grad.grad_mean_tiled(*grad_args, lengthscale=ls, block_n=bn_g,
+                                         block_cap=TILE),
+         lambda a: gp_grad.grad_mean_tiled_plain(*a, ls, TILE),
+         grad_args, grad_bytes, grad_flops),
+    ]
+    rows = []
+    for name, src, replaces, kernel, plain, args, nbytes, flops in specs:
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain(args)
+        truth = plain(f64(args))
+        err = (got - want).abs().max().item()
+        plain_err = (want.double() - truth).abs().max().item()
+        scale = max(truth.abs().max().item(), 1.0)
+        # Both are f32 sums of the same terms in other orders: the kernel may
+        # differ from the plain version by 3x the plain version's own f32
+        # error against float64 (each at most that far from the truth, the
+        # kernel allowed twice as far), plus 1e-6 of the output scale.
+        tol = 3.0 * plain_err + 1e-6 * scale
+        kernel_err = (got.double() - truth).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and got.shape == want.shape and err <= tol
+        print(f"[kernel] {name}: shape {tuple(got.shape)} max|kernel-plain|={err:.3e} "
+              f"tol={tol:.3e} (plain vs f64 {plain_err:.3e}, kernel vs f64 {kernel_err:.3e}, "
+              f"scale {scale:.4g}) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version")
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(lambda: plain(args))
+        bound_b, bound_f = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_b, bound_f),
+            "bound_by": "bytes" if bound_b >= bound_f else "operations",
+            "library_ms": None,
+        })
+        print(f"[kernel] {name}: {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+              f"{max(bound_b, bound_f):.6f} ms ({rows[-1]['bound_by']})", flush=True)
+    return rows
+
+
+def main_config(**pins):
+    from repro_torch.core import algorithms as alg
+
+    return alg.AlgoConfig(
+        name="fzoos", dim=D, n_clients=N_CLIENTS, local_steps=10, eta=0.005, q=20,
+        fd_lambda=5e-3, n_features=M, traj_capacity=CAP, active_per_iter=5,
+        active_candidates=CANDS, active_round_end=5, lengthscale=0.5, noise=1e-5, **pins)
+
+
+def reset_counts():
+    from repro_torch.kernels import gp_grad, gp_score
+
+    for table in (gp_score.LAUNCHES, gp_grad.LAUNCHES):
+        for k in table:
+            table[k] = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import gp_grad, gp_score
+
+    return {**gp_score.LAUNCHES, **gp_grad.LAUNCHES}
+
+
+def run_path(cfg, cobjs, rounds, dev):
+    """``simulate`` with the launch counts set to 0 just before and read just
+    after; returns (result, seconds, counts)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import objectives as obj
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = alg.simulate(cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value, rounds,
+                       device=dev)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counts()
+
+
+def check_result(res, cfg, rounds, label):
+    f = res.f_values.cpu()
+    print(f"[{label}] F per round: {[round(v, 6) for v in f.tolist()]}", flush=True)
+    print(f"[{label}] queries/client: {res.queries.cpu().tolist()}", flush=True)
+    print(f"[{label}] repair rate per round: {res.repair_rate.cpu().tolist()}", flush=True)
+    if f.shape != (rounds + 1,) or not bool(torch.isfinite(f).all()):
+        fail(f"{label}: F is not finite or has the wrong shape")
+    if not f[-1] < f[0]:
+        fail(f"{label}: F did not decrease ({f[0].item()} -> {f[-1].item()})")
+    if res.queries[-1].item() != rounds * cfg.queries_per_round():
+        fail(f"{label}: {res.queries[-1].item()} queries, expected "
+             f"{rounds} x {cfg.queries_per_round()}")
+
+
+class SameDraws:
+    """Replays one draw source's draws on another device, so a run on the
+    card and a run on the CPU see the same random numbers."""
+
+    def __init__(self, base, device):
+        self.base, self.device = base, device
+
+    def bank(self, m, d):
+        return tuple(t.to(self.device) for t in self.base.bank(m, d))
+
+    def deltas(self, n, d, radius):
+        return self.base.deltas(n, d, radius).to(self.device)
+
+    def noise(self, k):
+        return self.base.noise(k).to(self.device)
+
+
+def check_small_against_cpu(dev):
+    """The engine on the card (kernels) and on the CPU (plain versions) on
+    the same small input and draws: F within 1e-3, x within 1e-2 per round,
+    the bound tests/test_torch_algorithms.py holds the port to against the
+    JAX reference."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import objectives as obj
+
+    cfg = alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
+                         n_features=32, traj_capacity=16, active_candidates=12,
+                         active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5)
+    out = {}
+    for where in ("cpu", dev):
+        q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=where)
+        draws = SameDraws(alg.ClientDraws(2, range(3), "cpu"), where)
+        out[str(where)] = alg.simulate(cfg, 2, q, obj.quadratic_query,
+                                       obj.quadratic_global_value, 3, draws=draws, device=where)
+    cpu, gpu = out["cpu"], out[str(dev)]
+    df = (cpu.f_values - gpu.f_values.cpu()).abs().max().item()
+    dx = (cpu.xs - gpu.xs.cpu()).abs().max().item()
+    print(f"[small] card vs CPU on the same draws: max|dF|={df:.3e} max|dx|={dx:.3e}",
+          flush=True)
+    if not (df <= 1e-3 and dx <= 1e-2) or not torch.equal(cpu.queries, gpu.queries.cpu()):
+        fail("the engine on the card disagrees with the engine on the CPU")
+
+
+def profile_round(cfg, cobjs, dev) -> None:
+    """One main-path round under ``torch.profiler``: device time by kernel
+    (top 25) and device busy time against the round's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import objectives as obj
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        alg.simulate(cfg, 3, cobjs, obj.quadratic_query, obj.quadratic_global_value, 1,
+                     device=dev)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(events.table(sort_by="self_device_time_total", row_limit=25), flush=True)
+    print(f"[profile] one round: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches} device kernels", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from repro_torch.core import objectives as obj
+    from repro_torch.kernels import loader
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"[card] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    loader.library()
+    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    rows = check_kernels(dev)
+
+    cfg = main_config()
+    cobjs = obj.make_quadratic(0, N_CLIENTS, D, 5.0, 0.001, device=dev)
+    run_path(cfg, cobjs, 1, dev)  # warm-up: library handles, allocator
+    res, secs, main_counts = run_path(cfg, cobjs, ROUNDS, dev)
+    print(f"[main] d={D} N={N_CLIENTS} M={M} cap={CAP} T={cfg.local_steps}: {ROUNDS} rounds in "
+          f"{secs:.3f} s, {1e3 * secs / ROUNDS:.3f} ms/round; launches {main_counts}", flush=True)
+    check_result(res, cfg, ROUNDS, "main")
+    steps = ROUNDS * cfg.local_steps
+    want = {"score_resident": steps + ROUNDS, "grad_resident": steps,
+            "score_tiled": 0, "grad_tiled": 0}
+    if main_counts != want:
+        fail(f"main path launches {main_counts}, expected {want}")
+    check_small_against_cpu(dev)
+    profile_round(cfg, cobjs, dev)
+
+    ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)
+    ores, osecs, other_counts = run_path(ocfg, cobjs, OTHER_ROUNDS, dev)
+    print(f"[other] cap tiles of {TILE}: {OTHER_ROUNDS} rounds in {osecs:.3f} s; launches "
+          f"{other_counts}", flush=True)
+    check_result(ores, ocfg, OTHER_ROUNDS, "other")
+    osteps = OTHER_ROUNDS * ocfg.local_steps
+    owant = {"score_resident": 0, "grad_resident": 0,
+             "score_tiled": osteps + OTHER_ROUNDS, "grad_tiled": osteps}
+    if other_counts != owant:
+        fail(f"other route launches {other_counts}, expected {owant}")
+
+    for row in rows:  # each kernel's launches, from the run of the route it serves
+        row["launches"] = main_counts[row["name"]] or other_counts[row["name"]]
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,78 @@
+"""Carry parameters and state across from the JAX reference.
+
+The reference's pytrees are handed over as numpy arrays (for example
+``jax.tree_util.tree_map(np.asarray, state)``); the functions here read
+them by field name, so this module needs neither JAX nor the reference
+package, and return the port's tensors on the chosen device.  The
+reference's per-client PRNG keys have no torch counterpart: a client's
+generator is seeded from ``(seed, client_id)`` instead
+(``core.algorithms.ClientDraws``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import algorithms as alg
+from repro_torch.core import gp_surrogate as gp
+from repro_torch.core import objectives as obj
+from repro_torch.core import rff as rfflib
+from repro_torch.optim.optimizers import AdamState
+
+
+def tensor(a, device) -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor of the same dtype."""
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _fields(src, cls, device):
+    return cls(*(tensor(getattr(src, f), device) for f in cls._fields))
+
+
+def quadratic(src, device) -> obj.QuadraticClient:
+    """A stacked reference ``QuadraticClient``."""
+    return _fields(src, obj.QuadraticClient, device)
+
+
+def rff(src, device) -> rfflib.RFFParams:
+    """A reference ``RFFParams`` (the shared feature bank)."""
+    return _fields(src, rfflib.RFFParams, device)
+
+
+def trajectory(src, device) -> gp.Trajectory:
+    """A stacked reference ``Trajectory``."""
+    return _fields(src, gp.Trajectory, device)
+
+
+def gram_factor(src, device) -> gp.GramFactor:
+    """A stacked reference ``GramFactor``."""
+    return _fields(src, gp.GramFactor, device)
+
+
+def client_state(src, device) -> alg.ClientState:
+    """A stacked reference ``ClientState`` with an Adam optimizer state
+    (``opt.inner`` holds mu, nu and step).  The key is dropped."""
+    inner = src.opt.inner
+    t = lambda a: tensor(a, device)
+    return alg.ClientState(
+        x=t(src.x),
+        traj=trajectory(src.traj, device),
+        factor=gram_factor(src.factor, device),
+        w_local=t(src.w_local),
+        w_global=t(src.w_global),
+        c_local=t(src.c_local),
+        c_global=t(src.c_global),
+        fd_bank=t(src.fd_bank),
+        fd_accum=t(src.fd_accum),
+        opt=AdamState(mu=t(inner.mu), nu=t(inner.nu), step=t(inner.step)),
+        queries=t(src.queries),
+        client_id=t(src.client_id),
+        quarantined=t(src.quarantined),
+    )
+
+
+def client_draws(seed: int, client_ids, device) -> alg.ClientDraws:
+    """The draw source of the given clients: generators seeded from
+    ``(seed, client_id)``."""
+    return alg.ClientDraws(seed, [int(i) for i in np.asarray(client_ids)], device)

@@ -1,0 +1,69 @@
+"""Random Fourier features and the transferable global surrogate (port of
+``repro.core.rff``: paper Sec. 4.2.1 + Appx. B).
+
+phi(x) = sqrt(2/M) cos(V x + b),  V_j ~ N(0, I/l^2),  b_j ~ U[0, 2pi],
+
+and the M-dim weights w = Phi (Khat + s^2 I)^{-1} y (eq. 6) that each
+client sends to the server.  These contractions are plain matrix products;
+they stay plain torch, as the reference leaves them to XLA on this path.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import gp_surrogate as gp
+
+
+class RFFParams(NamedTuple):
+    v: torch.Tensor  # (M, d) frequencies
+    b: torch.Tensor  # (M,) phases
+
+    @property
+    def n_features(self) -> int:
+        return self.v.shape[0]
+
+
+def make_rff(draws, n_features: int, dim: int, lengthscale: float) -> RFFParams:
+    """The shared feature bank, from the draw source's standard-normal
+    (M, d) and uniform [0, 2 pi) (M,) bank draws."""
+    z, b = draws.bank(n_features, dim)
+    return RFFParams(v=z / lengthscale, b=b)
+
+
+def features(params: RFFParams, xs: torch.Tensor) -> torch.Tensor:
+    """phi(X): (..., n, d) -> (..., n, M)."""
+    proj = xs @ params.v.T + params.b
+    return math.sqrt(2.0 / params.n_features) * torch.cos(proj)
+
+
+def grad_features_t_w_rows(params: RFFParams, xs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """Per-row weights: xs (n, d), ws (n, M) -> (n, d); row i is
+    grad phi(x_i)^T w_i = -sqrt(2/M) (sin(V x_i + b) o w_i) V."""
+    s = torch.sin(xs @ params.v.T + params.b)
+    return -math.sqrt(2.0 / params.n_features) * ((s * ws) @ params.v)
+
+
+def fit_w_chol(params: RFFParams, traj: gp.Trajectory, hyper: gp.GPHyper,
+               factor: gp.GramFactor) -> torch.Tensor:
+    """Eq. 6 per client by Cholesky: (N, M).
+
+    If a live pivot of the RFF Gram dips below the pivot floor, that client
+    takes the solve through its cached exact-GP factor instead (selected
+    with ``torch.where``, no eigh), as in the reference.
+    """
+    mask = traj.valid_mask()
+    phi = features(params, traj.xs) * mask[..., None]  # (N, cap, M)
+    jitter = gp._jitter_of(hyper)
+    gram = phi @ phi.transpose(-1, -2) + torch.diag_embed(jitter * mask + (1.0 - mask))
+    chol, info = torch.linalg.cholesky_ex(gram)
+    ok = gp._factor_health(chol, mask, jitter, info)
+    ys_m = traj.ys * mask
+    safe = torch.where(ok[:, None, None], chol, gp._eye_like(gram))
+    alpha = torch.cholesky_solve(ys_m[..., None], safe, upper=False)[..., 0]
+    alpha_fb = gp.factor_solve(factor, ys_m)
+    alpha = torch.where(ok[:, None], alpha, alpha_fb)
+    return (phi.transpose(-1, -2) @ alpha[..., None])[..., 0]

@@ -1,0 +1,76 @@
+"""Wrappers of the client-batched gradient-mean kernels (csrc/gp_grad.cu).
+
+``grad_mean_resident`` and ``grad_mean_tiled`` take already padded inputs
+(``kernels.ops`` pads and routes): query points (N, n, d) with n a
+multiple of ``block_n``, trajectory xs (N, cap, d) and alpha (N, cap) with
+the validity mask folded in, and for the tiled route cap a multiple of
+``block_cap``.  They return grad mu (N, n, d).
+
+On CPU tensors each wrapper computes its kernel's plain version; on CUDA
+tensors it launches the kernel (building it on first use) or raises.
+``LAUNCHES`` counts the kernel launches of each wrapper.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import loader, ref
+
+LAUNCHES = {"grad_resident": 0, "grad_tiled": 0}
+
+
+def _checked(name, cands, xs, alpha, block_n, block_cap=None):
+    nb, n, d = cands.shape
+    cap = xs.shape[1]
+    loader.check_inputs(name, {
+        "cands": (cands, (nb, n, d)), "xs": (xs, (nb, cap, d)), "alpha": (alpha, (nb, cap)),
+    })
+    if n % block_n:
+        raise ValueError(f"{name}: n={n} is not a multiple of block_n={block_n}")
+    if block_cap is not None and cap % block_cap:
+        raise ValueError(f"{name}: cap={cap} is not a multiple of block_cap={block_cap}")
+    return nb, n, cap, d
+
+
+def grad_mean_resident(cands, xs, alpha, *, lengthscale, block_n):
+    """Gradient mean with w = h o alpha over the whole trajectory on chip."""
+    nb, n, cap, d = _checked("grad_resident", cands, xs, alpha, block_n)
+    if loader.on_cpu(cands, xs, alpha):
+        return ref.grad_mean_clients(cands, xs, alpha, lengthscale)
+    out = torch.empty((nb, n, d), dtype=torch.float32, device=cands.device)
+    l2 = float(lengthscale) ** 2
+    err = loader.library().fz_grad_resident(
+        cands.data_ptr(), xs.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+        nb, n, cap, d, block_n, 0.5 / l2, 1.0 / l2, loader.stream())
+    loader.check(err, "grad_resident")
+    LAUNCHES["grad_resident"] += 1
+    return out
+
+
+def grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap):
+    """Plain version of the tiled kernel: the product and the weight sum
+    accumulated over cap tiles."""
+    acc = torch.zeros_like(cands)
+    s = torch.zeros_like(cands[..., :1])
+    for t0 in range(0, xs.shape[1], block_cap):
+        x = xs[:, t0:t0 + block_cap]
+        w = ref._h_cross(cands, x, lengthscale)[0] * alpha[:, None, t0:t0 + block_cap]
+        acc = acc + w @ x
+        s = s + torch.sum(w, dim=-1, keepdim=True)
+    return (acc - s * cands) / (lengthscale**2)
+
+
+def grad_mean_tiled(cands, xs, alpha, *, lengthscale, block_n, block_cap):
+    """Gradient mean accumulated over cap tiles of block_cap rows."""
+    nb, n, cap, d = _checked("grad_tiled", cands, xs, alpha, block_n, block_cap)
+    if loader.on_cpu(cands, xs, alpha):
+        return grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap)
+    out = torch.empty((nb, n, d), dtype=torch.float32, device=cands.device)
+    l2 = float(lengthscale) ** 2
+    err = loader.library().fz_grad_tiled(
+        cands.data_ptr(), xs.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+        nb, n, cap, d, block_n, block_cap, 0.5 / l2, 1.0 / l2, loader.stream())
+    loader.check(err, "grad_tiled")
+    LAUNCHES["grad_tiled"] += 1
+    return out

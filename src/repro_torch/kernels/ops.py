@@ -1,0 +1,105 @@
+"""Public wrappers of the client-batched GP kernels (port of the client
+functions of ``repro.kernels.ops``).
+
+Each call picks block sizes (``kernels.autotune`` unless pinned; pinned
+pairs are validated), zero-pads the candidate axis to a ``block_n``
+multiple, and routes: ``block_cap >= cap`` to the resident kernel, a
+smaller ``block_cap`` to the cap-tiled kernel with the trajectory axis
+zero-padded to a tile multiple.  Padded slots contribute exactly zero
+(zero B/P rows and columns for the scores, zero alpha for the gradient
+mean); padded candidate rows are sliced away.  A CPU tensor runs the
+kernel's plain version, a CUDA tensor the kernel.  Lengthscale and prior
+are runtime scalars, so the kernels run on the jitted-free main path.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import autotune, gp_grad, gp_score
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _pad_axis(a: torch.Tensor, axis: int, target: int) -> torch.Tensor:
+    """Zero-pad one axis to ``target`` (returns ``a`` itself when no pad)."""
+    pad = target - a.shape[axis]
+    if pad == 0:
+        return a
+    widths = [0, 0] * (a.dim() - axis - 1) + [0, pad]
+    return F.pad(a, widths)
+
+
+def _pad_gram(a: torch.Tensor, target: int) -> torch.Tensor:
+    """Zero-pad both trailing axes of a (..., cap, cap) array."""
+    return _pad_axis(_pad_axis(a, a.dim() - 1, target), a.dim() - 2, target)
+
+
+def _resolve_blocks(kind, n, cap, d, block_n, block_cap):
+    """Unset block sizes come from the tuner; pinned ones are validated."""
+    pinned = block_n is not None or block_cap is not None
+    if block_n is None or block_cap is None:
+        bn, bc = autotune.select_blocks(kind, n=n, cap=cap, d=d)
+        block_n = bn if block_n is None else block_n
+        block_cap = bc if block_cap is None else block_cap
+    if pinned:
+        autotune.validate_blocks(kind, block_n=block_n, block_cap=block_cap, cap=cap, d=d)
+    return block_n, block_cap
+
+
+def uncertainty_scores_clients(
+    cands: torch.Tensor,
+    xs: torch.Tensor,
+    binv: torch.Tensor,
+    pmat: torch.Tensor,
+    *,
+    lengthscale: float,
+    prior: float,
+    block_n: int | None = None,
+    block_cap: int | None = None,
+) -> torch.Tensor:
+    """Client-batched uncertainty scores: (N, n, d) -> (N, n)."""
+    n, d = cands.shape[1:]
+    cap = xs.shape[1]
+    block_n, block_cap = _resolve_blocks("score", n, cap, d, block_n, block_cap)
+    c = _pad_axis(cands, 1, _round_up(n, block_n)).contiguous()
+    if block_cap >= cap:
+        out = gp_score.uncertainty_scores_resident(
+            c, xs.contiguous(), binv.contiguous(), pmat.contiguous(),
+            lengthscale=lengthscale, prior=prior, block_n=block_n)
+    else:
+        cpad = _round_up(cap, block_cap)
+        out = gp_score.uncertainty_scores_tiled(
+            c, _pad_axis(xs, 1, cpad).contiguous(), _pad_gram(binv, cpad).contiguous(),
+            _pad_gram(pmat, cpad).contiguous(), lengthscale=lengthscale, prior=prior,
+            block_n=block_n, block_cap=block_cap)
+    return out[:, :n]
+
+
+def grad_mean_clients(
+    cands: torch.Tensor,
+    xs: torch.Tensor,
+    alpha: torch.Tensor,
+    *,
+    lengthscale: float,
+    block_n: int | None = None,
+    block_cap: int | None = None,
+) -> torch.Tensor:
+    """Client-batched gradient mean: (N, n, d) -> (N, n, d); ``alpha`` (N, cap)
+    must already carry each client's validity mask."""
+    n, d = cands.shape[1:]
+    cap = xs.shape[1]
+    block_n, block_cap = _resolve_blocks("grad", n, cap, d, block_n, block_cap)
+    c = _pad_axis(cands, 1, _round_up(n, block_n)).contiguous()
+    if block_cap >= cap:
+        out = gp_grad.grad_mean_resident(
+            c, xs.contiguous(), alpha.contiguous(), lengthscale=lengthscale, block_n=block_n)
+    else:
+        cpad = _round_up(cap, block_cap)
+        out = gp_grad.grad_mean_tiled(
+            c, _pad_axis(xs, 1, cpad).contiguous(), _pad_axis(alpha, 1, cpad).contiguous(),
+            lengthscale=lengthscale, block_n=block_n, block_cap=block_cap)
+    return out[:, :n, :]
