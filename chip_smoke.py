@@ -7,10 +7,12 @@ Phases, each a hard check (any failure exits non-zero):
 
 1. the card: its name, and name and power limit from ``nvidia-smi``;
 2. the build: the CUDA kernels are compiled from ``src/repro_torch/kernels/csrc``;
-3. every kernel against its plain torch version at the main path's shapes
+3. every kernel against its plain torch version on inputs built by the
+   port's own GP code, with kernel and plain times and the least time the
+   card could take: the client-batched kernels at the main path's shapes
    (N=5 clients, n=50 candidates, cap=192, d=300; one query point per
-   client for the gradient mean), on inputs built by the port's own GP
-   code, with kernel and plain times and the least time the card could take;
+   client for the gradient mean), the single-client ones at the per-client
+   engine's (one client, the same n, cap and d);
 4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
    width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
    settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
@@ -21,7 +23,13 @@ Phases, each a hard check (any failure exits non-zero):
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel and
    the device's busy share of the round;
-7. one JSON line describing every kernel, and the result line.
+7. the per-client engine (``defer_repair=False``) at the main path's width,
+   3 rounds, and 1 round on the pinned cap tiles, with exact launch counts
+   of the single-client kernels; the small card-vs-CPU check for it and for
+   the seed engine (``use_factor_cache=False``); one of its rounds profiled;
+8. the FD baselines (fedzo, fedprox, scaffold1, scaffold2) at d=300, N=5,
+   q=20, 2 rounds each;
+9. one JSON line describing every kernel, and the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -47,6 +55,7 @@ F32_FLOPS_S = 67e12
 # Main path: Appx. E.1 width and the fig1 full settings.
 D, N_CLIENTS, CAP, CANDS, M = 300, 5, 192, 50, 512
 ROUNDS, OTHER_ROUNDS = 5, 2
+PER_CLIENT_ROUNDS, FD_ROUNDS = 3, 2
 TILE = 64  # the cap tile pinned for the other route
 
 
@@ -110,30 +119,57 @@ def check_kernels(dev):
     grad_args = (p["query"], p["xs"], p["alpha"])
     f64 = lambda args: tuple(a.double() for a in args)
 
-    score_bytes = 4 * N_CLIENTS * (2 * CAP * CAP + CAP * D + CANDS * D + CANDS)
-    score_flops = N_CLIENTS * CANDS * (2 * CAP * D + 4 * CAP * CAP + 6 * CAP + 2 * D)
-    grad_bytes = 4 * N_CLIENTS * (CAP * D + CAP + 2 * D)
-    grad_flops = N_CLIENTS * (4 * CAP * D + 6 * CAP + 2 * D)
+    # one client's inputs for the single-client kernels
+    score_one = tuple(a[0] for a in score_args)
+    grad_one = tuple(a[0] for a in grad_args)
+    batched = lambda plain: (lambda a: plain(tuple(t[None] for t in a))[0])
+
+    # bytes and operations of one client; the client-batched kernels do N times as much
+    score_bytes = 4 * (2 * CAP * CAP + CAP * D + CANDS * D + CANDS)
+    score_flops = CANDS * (2 * CAP * D + 4 * CAP * CAP + 6 * CAP + 2 * D)
+    grad_bytes = 4 * (CAP * D + CAP + 2 * D)
+    grad_flops = 4 * CAP * D + 6 * CAP + 2 * D
+    nc = N_CLIENTS
     specs = [
         ("score_resident", "gp_score.cu", "src/repro/kernels/gp_score.py:180",
          lambda: gp_score.uncertainty_scores_resident(*score_args, lengthscale=ls, prior=prior,
                                                       block_n=bn_s),
          lambda a: ref.uncertainty_scores_clients_fused(*a, ls, prior),
-         score_args, score_bytes, score_flops),
+         score_args, nc * score_bytes, nc * score_flops),
         ("score_tiled", "gp_score.cu", "src/repro/kernels/gp_score.py:381",
          lambda: gp_score.uncertainty_scores_tiled(*score_args, lengthscale=ls, prior=prior,
                                                    block_n=bn_s, block_cap=TILE),
          lambda a: gp_score.scores_tiled_plain(*a, ls, prior, TILE),
-         score_args, score_bytes, score_flops),
+         score_args, nc * score_bytes, nc * score_flops),
         ("grad_resident", "gp_grad.cu", "src/repro/kernels/gp_grad.py:142",
          lambda: gp_grad.grad_mean_resident(*grad_args, lengthscale=ls, block_n=bn_g),
          lambda a: ref.grad_mean_clients(*a, ls),
-         grad_args, grad_bytes, grad_flops),
+         grad_args, nc * grad_bytes, nc * grad_flops),
         ("grad_tiled", "gp_grad.cu", "src/repro/kernels/gp_grad.py:317",
          lambda: gp_grad.grad_mean_tiled(*grad_args, lengthscale=ls, block_n=bn_g,
                                          block_cap=TILE),
          lambda a: gp_grad.grad_mean_tiled_plain(*a, ls, TILE),
-         grad_args, grad_bytes, grad_flops),
+         grad_args, nc * grad_bytes, nc * grad_flops),
+        ("score_single_resident", "gp_score.cu", "src/repro/kernels/gp_score.py:118",
+         lambda: gp_score.uncertainty_scores_single_resident(*score_one, lengthscale=ls,
+                                                             prior=prior, block_n=bn_s),
+         lambda a: ref.uncertainty_scores(*a, ls, prior),
+         score_one, score_bytes, score_flops),
+        ("score_single_tiled", "gp_score.cu", "src/repro/kernels/gp_score.py:298",
+         lambda: gp_score.uncertainty_scores_single_tiled(*score_one, lengthscale=ls,
+                                                          prior=prior, block_n=bn_s,
+                                                          block_cap=TILE),
+         batched(lambda a: gp_score.scores_tiled_plain(*a, ls, prior, TILE)),
+         score_one, score_bytes, score_flops),
+        ("grad_single_resident", "gp_grad.cu", "src/repro/kernels/gp_grad.py:92",
+         lambda: gp_grad.grad_mean_single_resident(*grad_one, lengthscale=ls, block_n=bn_g),
+         lambda a: ref.grad_mean_batch(*a, ls),
+         grad_one, grad_bytes, grad_flops),
+        ("grad_single_tiled", "gp_grad.cu", "src/repro/kernels/gp_grad.py:242",
+         lambda: gp_grad.grad_mean_single_tiled(*grad_one, lengthscale=ls, block_n=bn_g,
+                                                block_cap=TILE),
+         batched(lambda a: gp_grad.grad_mean_tiled_plain(*a, ls, TILE)),
+         grad_one, grad_bytes, grad_flops),
     ]
     rows = []
     for name, src, replaces, kernel, plain, args, nbytes, flops in specs:
@@ -172,13 +208,13 @@ def check_kernels(dev):
     return rows
 
 
-def main_config(**pins):
+def main_config(name="fzoos", **kw):
     from repro_torch.core import algorithms as alg
 
     return alg.AlgoConfig(
-        name="fzoos", dim=D, n_clients=N_CLIENTS, local_steps=10, eta=0.005, q=20,
+        name=name, dim=D, n_clients=N_CLIENTS, local_steps=10, eta=0.005, q=20,
         fd_lambda=5e-3, n_features=M, traj_capacity=CAP, active_per_iter=5,
-        active_candidates=CANDS, active_round_end=5, lengthscale=0.5, noise=1e-5, **pins)
+        active_candidates=CANDS, active_round_end=5, lengthscale=0.5, noise=1e-5, **kw)
 
 
 def reset_counts():
@@ -193,6 +229,11 @@ def read_counts() -> dict:
     from repro_torch.kernels import gp_grad, gp_score
 
     return {**gp_score.LAUNCHES, **gp_grad.LAUNCHES}
+
+
+def expect(**counts) -> dict:
+    """The launch counts of a run: the named ones, every other kernel 0."""
+    return {k: counts.get(k, 0) for k in read_counts()}
 
 
 def run_path(cfg, cobjs, rounds, dev):
@@ -210,18 +251,22 @@ def run_path(cfg, cobjs, rounds, dev):
     return res, time.perf_counter() - t0, read_counts()
 
 
-def check_result(res, cfg, rounds, label):
+def check_result(res, cfg, rounds, label, must_fall=True):
+    """F finite, falling over the run where ``must_fall``, and exactly
+    ``queries_per_round()`` queries per client in every round."""
     f = res.f_values.cpu()
     print(f"[{label}] F per round: {[round(v, 6) for v in f.tolist()]}", flush=True)
     print(f"[{label}] queries/client: {res.queries.cpu().tolist()}", flush=True)
     print(f"[{label}] repair rate per round: {res.repair_rate.cpu().tolist()}", flush=True)
+    print(f"[{label}] eigh-fallback rate per round: {res.refactor_rate.cpu().tolist()}",
+          flush=True)
     if f.shape != (rounds + 1,) or not bool(torch.isfinite(f).all()):
         fail(f"{label}: F is not finite or has the wrong shape")
-    if not f[-1] < f[0]:
+    if must_fall and not f[-1] < f[0]:
         fail(f"{label}: F did not decrease ({f[0].item()} -> {f[-1].item()})")
-    if res.queries[-1].item() != rounds * cfg.queries_per_round():
-        fail(f"{label}: {res.queries[-1].item()} queries, expected "
-             f"{rounds} x {cfg.queries_per_round()}")
+    want_q = [float((r + 1) * cfg.queries_per_round()) for r in range(rounds)]
+    if res.queries.cpu().tolist() != want_q:
+        fail(f"{label}: queries/client {res.queries.cpu().tolist()}, expected {want_q}")
 
 
 class SameDraws:
@@ -241,8 +286,8 @@ class SameDraws:
         return self.base.noise(k).to(self.device)
 
 
-def check_small_against_cpu(dev):
-    """The engine on the card (kernels) and on the CPU (plain versions) on
+def check_small_against_cpu(dev, label="small", **engine):
+    """An engine on the card (kernels) and on the CPU (plain versions) on
     the same small input and draws: F within 1e-3, x within 1e-2 per round,
     the bound tests/test_torch_algorithms.py holds the port to against the
     JAX reference."""
@@ -251,7 +296,8 @@ def check_small_against_cpu(dev):
 
     cfg = alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
                          n_features=32, traj_capacity=16, active_candidates=12,
-                         active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5)
+                         active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5,
+                         **engine)
     out = {}
     for where in ("cpu", dev):
         q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=where)
@@ -261,15 +307,15 @@ def check_small_against_cpu(dev):
     cpu, gpu = out["cpu"], out[str(dev)]
     df = (cpu.f_values - gpu.f_values.cpu()).abs().max().item()
     dx = (cpu.xs - gpu.xs.cpu()).abs().max().item()
-    print(f"[small] card vs CPU on the same draws: max|dF|={df:.3e} max|dx|={dx:.3e}",
+    print(f"[{label}] card vs CPU on the same draws: max|dF|={df:.3e} max|dx|={dx:.3e}",
           flush=True)
     if not (df <= 1e-3 and dx <= 1e-2) or not torch.equal(cpu.queries, gpu.queries.cpu()):
         fail("the engine on the card disagrees with the engine on the CPU")
 
 
-def profile_round(cfg, cobjs, dev) -> None:
-    """One main-path round under ``torch.profiler``: device time by kernel
-    (top 25) and device busy time against the round's wall time."""
+def profile_round(cfg, cobjs, dev, label="profile") -> None:
+    """One round under ``torch.profiler``: device time by kernel (top 25)
+    and device busy time against the round's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import algorithms as alg
@@ -287,8 +333,57 @@ def profile_round(cfg, cobjs, dev) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     print(events.table(sort_by="self_device_time_total", row_limit=25), flush=True)
-    print(f"[profile] one round: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
+    print(f"[{label}] one round: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {launches} device kernels", flush=True)
+
+
+def check_per_client(cobjs, dev) -> dict:
+    """Phase 7: the per-client engine at the main path's width; returns the
+    launch counts of its resident and tiled runs."""
+    cfg = main_config(defer_repair=False)
+    run_path(cfg, cobjs, 1, dev)  # warm-up: the eigh and solver handles
+    res, secs, counts = run_path(cfg, cobjs, PER_CLIENT_ROUNDS, dev)
+    print(f"[per-client] d={D} N={N_CLIENTS} M={M} cap={CAP} T={cfg.local_steps}: "
+          f"{PER_CLIENT_ROUNDS} rounds in {secs:.3f} s, "
+          f"{1e3 * secs / PER_CLIENT_ROUNDS:.3f} ms/round; launches {counts}", flush=True)
+    check_result(res, cfg, PER_CLIENT_ROUNDS, "per-client", must_fall=False)
+    if res.repair_rate.abs().max().item() != 0.0:
+        fail("per-client: the inline engine flagged a repair")
+    steps = N_CLIENTS * PER_CLIENT_ROUNDS * cfg.local_steps
+    want = expect(score_single_resident=steps + N_CLIENTS * PER_CLIENT_ROUNDS,
+                  grad_single_resident=steps)
+    if counts != want:
+        fail(f"per-client launches {counts}, expected {want}")
+
+    tcfg = main_config(defer_repair=False, score_block_cap=TILE, grad_block_cap=TILE)
+    tres, tsecs, tcounts = run_path(tcfg, cobjs, 1, dev)
+    print(f"[per-client tiled] cap tiles of {TILE}: 1 round in {tsecs:.3f} s; launches "
+          f"{tcounts}", flush=True)
+    check_result(tres, tcfg, 1, "per-client tiled", must_fall=False)
+    twant = expect(score_single_tiled=N_CLIENTS * (tcfg.local_steps + 1),
+                   grad_single_tiled=N_CLIENTS * tcfg.local_steps)
+    if tcounts != twant:
+        fail(f"per-client tiled launches {tcounts}, expected {twant}")
+
+    check_small_against_cpu(dev, "small per-client", defer_repair=False)
+    check_small_against_cpu(dev, "small seed", use_factor_cache=False)
+    profile_round(cfg, cobjs, dev, "per-client profile")
+    return {**counts, **{k: v for k, v in tcounts.items() if v}}
+
+
+def check_fd_baselines(dev) -> None:
+    """Phase 8: the FD baselines at the main path's width, q=20."""
+    from repro_torch.core import objectives as obj
+
+    cobjs = obj.make_quadratic(0, N_CLIENTS, D, 5.0, 0.001, device=dev)
+    for name in ("fedzo", "fedprox", "scaffold1", "scaffold2"):
+        cfg = main_config(name)
+        res, secs, counts = run_path(cfg, cobjs, FD_ROUNDS, dev)
+        print(f"[{name}] d={D} N={N_CLIENTS} q={cfg.q}: {FD_ROUNDS} rounds in {secs:.3f} s, "
+              f"{1e3 * secs / FD_ROUNDS:.3f} ms/round", flush=True)
+        check_result(res, cfg, FD_ROUNDS, name, must_fall=False)
+        if any(counts.values()):
+            fail(f"{name} launched GP kernels: {counts}")
 
 
 def main() -> int:
@@ -320,8 +415,7 @@ def main() -> int:
           f"{secs:.3f} s, {1e3 * secs / ROUNDS:.3f} ms/round; launches {main_counts}", flush=True)
     check_result(res, cfg, ROUNDS, "main")
     steps = ROUNDS * cfg.local_steps
-    want = {"score_resident": steps + ROUNDS, "grad_resident": steps,
-            "score_tiled": 0, "grad_tiled": 0}
+    want = expect(score_resident=steps + ROUNDS, grad_resident=steps)
     if main_counts != want:
         fail(f"main path launches {main_counts}, expected {want}")
     check_small_against_cpu(dev)
@@ -333,13 +427,16 @@ def main() -> int:
           f"{other_counts}", flush=True)
     check_result(ores, ocfg, OTHER_ROUNDS, "other")
     osteps = OTHER_ROUNDS * ocfg.local_steps
-    owant = {"score_resident": 0, "grad_resident": 0,
-             "score_tiled": osteps + OTHER_ROUNDS, "grad_tiled": osteps}
+    owant = expect(score_tiled=osteps + OTHER_ROUNDS, grad_tiled=osteps)
     if other_counts != owant:
         fail(f"other route launches {other_counts}, expected {owant}")
 
+    single_counts = check_per_client(cobjs, dev)
+    check_fd_baselines(dev)
+
     for row in rows:  # each kernel's launches, from the run of the route it serves
-        row["launches"] = main_counts[row["name"]] or other_counts[row["name"]]
+        row["launches"] = (main_counts[row["name"]] or other_counts[row["name"]]
+                           or single_counts[row["name"]])
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -35,6 +35,11 @@ def quadratic(src, device) -> obj.QuadraticClient:
     return _fields(src, obj.QuadraticClient, device)
 
 
+def sinquad(src, device) -> obj.SinQuadClient:
+    """A stacked reference ``SinQuadClient``."""
+    return _fields(src, obj.SinQuadClient, device)
+
+
 def rff(src, device) -> rfflib.RFFParams:
     """A reference ``RFFParams`` (the shared feature bank)."""
     return _fields(src, rfflib.RFFParams, device)

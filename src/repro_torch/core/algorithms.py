@@ -1,17 +1,50 @@
-"""The federated FZooS round engine (port of ``repro.core.algorithms``,
-the deferred client-batched fzoos path of ``simulate(..., chunk=0)``).
+"""The federated round engines (port of ``repro.core.algorithms``, the
+single-process ``simulate(..., chunk=0)`` without faults or cohorts).
 
-Each round: T collective-free local steps for the whole client batch
-(query, append + deferred factor update, active-query scoring, surrogate
-gradient mean + RFF correction, Adam), one mean of the iterates, the
-round-end active queries, the eq. 6 RFF fit and one mean of the weights.
-The FD baselines, the non-deferred engines, faults, the scan, pool and
-distributed engines are not ported yet: ``run_round`` raises for them.
+Each round: T collective-free local steps for the whole client batch, one
+mean of the iterates, then the round-end work and the second mean.  All
+five algorithms of the reference run:
 
-Every random draw of the engine goes through one draw source
-(``ClientDraws``): per client, candidate deltas and query noise, and the
-RFF bank.  It is backed by one ``torch.Generator`` per client, seeded
-from ``(seed, client_id)``; tests substitute recorded draws.
+* fzoos: query the iterate, append it and maintain the Gram factor, score
+  active-query candidates, query and append the picks, surrogate gradient
+  mean + RFF correction (eq. 2/8), Adam; at round end active queries
+  around the new server iterate, the eq. 6 RFF fit, the mean of w.  Three
+  engines, as in the reference:
+
+  - deferred (``use_factor_cache``, ``defer_repair``; the default):
+    branch-free factor updates, one launch of the client-batched scoring
+    and gradient-mean kernels per step for the whole batch, the Cholesky
+    RFF fit; flagged factors are repaired between rounds;
+  - per-client (``defer_repair=False``): the inline factor update with its
+    clamped-eigh fallback, and per client one launch of the single-client
+    scoring and gradient-mean kernels (N launches per step); the
+    clamped-eigh RFF fit;
+  - seed (``use_factor_cache=False``): the GP refactorized from scratch by
+    eigh at every scoring and gradient, per client, in plain torch;
+
+  ``rff_fit_exact`` fits w through the cached exact-GP factor instead.
+* fedzo, fedprox, scaffold1, scaffold2: a finite-difference estimate per
+  step, plus the proximal term (fedprox) or the control variates
+  (scaffold1: an extra FD estimate at the round's start; scaffold2: the
+  round's mean FD gradient).
+
+The port keeps all clients in one stacked state (leading axis N) in every
+engine; only the per-client engine's surrogate calls loop over clients.
+
+Every random draw goes through one draw source (``ClientDraws``): per
+client, candidate deltas, query noise and FD directions, and the RFF bank.
+It is backed by one ``torch.Generator`` per client, seeded from
+``(seed, client_id)``; tests substitute the reference's recorded draws,
+so the order of the calls is part of the engine's contract:
+
+* ``simulate``: ``bank(M, d)`` once, for fzoos only;
+* a fzoos local step (every engine): ``noise(1)`` for the iterate's
+  query; when ``active_per_iter > 0``, ``deltas(n_cand, d, radius)`` then
+  ``noise(active_per_iter)``; a fzoos round end: when
+  ``active_round_end > 0``, ``deltas`` then ``noise(active_round_end)``;
+* an FD local step: ``directions(q, d)`` then ``noise(q + 1)``, the noise of
+  the query at x first; scaffold1's round start draws the same pair once
+  before the local steps.
 """
 
 from __future__ import annotations
@@ -63,8 +96,10 @@ class AlgoConfig:
     use_factor_cache: bool = True
     defer_repair: bool = True
     rff_fit_exact: bool = False
-    # Block-size pins of the scoring / gradient-mean kernels (kernels/ops.py);
-    # None leaves them to kernels/autotune.py.
+    # Block-size pins of the scoring / gradient-mean kernels (kernels/ops.py)
+    # of both cached engines: the client-batched kernels of the deferred
+    # engine and the single-client ones of the per-client engine.  None
+    # leaves them to kernels/autotune.py.
     score_block_n: Optional[int] = None
     score_block_cap: Optional[int] = None
     grad_block_n: Optional[int] = None
@@ -190,6 +225,11 @@ class ClientDraws:
         """Standard-normal query noise, (N, k)."""
         return torch.stack([torch.randn(k, generator=g, device=self.device) for g in self.gens])
 
+    def directions(self, q: int, d: int) -> torch.Tensor:
+        """Standard-normal FD directions, (N, q, d)."""
+        return torch.stack([torch.randn(q, d, generator=g, device=self.device)
+                            for g in self.gens])
+
 
 def _hyper_of(cfg: AlgoConfig) -> gp.GPHyper:
     return gp.GPHyper(float(cfg.lengthscale), float(cfg.noise))
@@ -224,36 +264,107 @@ def init_states(cfg: AlgoConfig, x0: torch.Tensor) -> ClientState:
     )
 
 
-def _local_phase_clients(cfg, rff, query_fn, cobjs, sts: ClientState, draws, diag_global_grad):
-    """T local FZooS steps for the whole client batch (deferred factors)."""
+def _extend(cfg, hyper, traj, factor, xs, ys):
+    """Append (N, k, d) queries; maintain the factors where they are cached."""
+    if cfg.use_factor_cache:
+        return gp.traj_extend_clients(traj, factor, xs, ys, hyper, deferred=cfg.defer_repair)
+    return gp.traj_append_batch(traj, xs, ys), factor
+
+
+def _select(cfg, hyper, deltas, traj, factor, centers, n_select):
+    """Every client's active-query picks, (N, n_select, d)."""
+    pins = dict(block_n=cfg.score_block_n, block_cap=cfg.score_block_cap)
+    if cfg.deferred:
+        return gp.select_active_queries_cached_clients(
+            deltas, traj, factor, hyper, centers, n_select, cfg.lo, cfg.hi, **pins)
+    picks = []
+    for i in range(centers.shape[0]):
+        tr = gp.client(traj, i)
+        if cfg.use_factor_cache:
+            picks.append(gp.select_active_queries_cached(
+                deltas[i], tr, gp.client(factor, i), hyper, centers[i], n_select, cfg.lo,
+                cfg.hi, **pins))
+        else:
+            picks.append(gp.select_active_queries(deltas[i], tr, hyper, centers[i], n_select,
+                                                  cfg.lo, cfg.hi))
+    return torch.stack(picks)
+
+
+def _grad_mean(cfg, hyper, traj, factor, x):
+    """Every client's surrogate gradient mean at its iterate, (N, d)."""
+    pins = dict(block_n=cfg.grad_block_n, block_cap=cfg.grad_block_cap)
+    if cfg.deferred:
+        return gp.grad_mean_cached_clients(traj, factor, hyper, x, **pins)
+    out = []
+    for i in range(x.shape[0]):
+        tr = gp.client(traj, i)
+        if cfg.use_factor_cache:
+            out.append(gp.grad_mean_cached(tr, gp.client(factor, i), hyper, x[i], **pins))
+        else:
+            out.append(gp.grad_mean(tr, hyper, x[i]))
+    return torch.stack(out)
+
+
+def _active(cfg, hyper, query_fn, cobjs, draws, traj, factor, centers, n_select):
+    """Pick ``n_select`` active queries around each center, query and append them."""
+    deltas = draws.deltas(cfg.active_candidates, cfg.dim, cfg.active_radius)
+    cands = _select(cfg, hyper, deltas, traj, factor, centers, n_select)
+    ys = query_fn(cobjs, cands, draws.noise(n_select))
+    return _extend(cfg, hyper, traj, factor, cands, ys)
+
+
+def _estimate_gradient(cfg, rff, query_fn, cobjs, sts: ClientState, server_x, t, draws):
+    """ghat per eq. (2)/(8) for every client, (N, d), and the state with the
+    estimate's queries counted."""
+    x = sts.x
+    if cfg.is_fzoos:
+        g_loc = _grad_mean(cfg, _hyper_of(cfg), sts.traj, sts.factor, x)
+        corr = (rfflib.grad_features_t_w_rows(rff, x, sts.w_global)
+                - rfflib.grad_features_t_w_rows(rff, x, sts.w_local))
+        gamma = np.float32(1.0) / np.float32(t) if cfg.gamma_mode == "inv_t" \
+            else np.float32(cfg.gamma_const)
+        return g_loc + float(gamma) * corr, sts
+    g_fd, sts = _fd_estimate(cfg, query_fn, cobjs, sts, x, draws)
+    if cfg.name == "fedzo":
+        return g_fd, sts
+    if cfg.name == "fedprox":
+        return g_fd + cfg.prox_mu * (x - server_x), sts
+    # scaffold1 / scaffold2: gamma = 1 control-variate correction
+    sts = sts._replace(fd_accum=sts.fd_accum + g_fd)
+    return g_fd + (sts.c_global - sts.c_local), sts
+
+
+def _fd_estimate(cfg, query_fn, cobjs, sts: ClientState, x, draws):
+    """One FD estimate per client at x (N, d) with fresh directions."""
+    dirs = draws.directions(cfg.q, cfg.dim)
+    nq = fdlib.fd_queries(cfg.q)
+    g = fdlib.fd_grad(query_fn, cobjs, x, draws.noise(nq), dirs, cfg.fd_lambda)
+    return g, sts._replace(queries=sts.queries + nq)
+
+
+def _local_phase(cfg, rff, query_fn, cobjs, sts: ClientState, server_x, draws,
+                 diag_global_grad):
+    """T local steps for the whole client batch; returns (states, sum_cos,
+    sum_disparity) with per-client sums over the steps."""
     _, opt_update = make_optimizer(cfg.optimizer)
     hyper = _hyper_of(cfg)
-    n, d = sts.x.shape
+    n = sts.x.shape[0]
     sum_cos = torch.zeros((n,), dtype=torch.float32, device=sts.x.device)
     sum_disp = torch.zeros_like(sum_cos)
     for t in range(1, cfg.local_steps + 1):
-        y = query_fn(cobjs, sts.x[:, None, :], draws.noise(1))
-        traj, factor = gp.traj_extend_clients(sts.traj, sts.factor, sts.x[:, None, :], y, hyper)
-        n_q = 1
-        if cfg.active_per_iter > 0:
-            cands = gp.select_active_queries_cached_clients(
-                draws.deltas(cfg.active_candidates, d, cfg.active_radius), traj, factor, hyper,
-                sts.x, cfg.active_per_iter, cfg.lo, cfg.hi,
-                block_n=cfg.score_block_n, block_cap=cfg.score_block_cap)
-            ys = query_fn(cobjs, cands, draws.noise(cfg.active_per_iter))
-            traj, factor = gp.traj_extend_clients(traj, factor, cands, ys, hyper)
-            n_q += cfg.active_per_iter
-        sts = sts._replace(traj=traj, factor=factor, queries=sts.queries + n_q)
+        if cfg.is_fzoos:
+            # query the iterate (+ active queries) BEFORE estimating: the
+            # estimate is conditioned on D_{r,t-1}
+            y = query_fn(cobjs, sts.x[:, None, :], draws.noise(1))
+            traj, factor = _extend(cfg, hyper, sts.traj, sts.factor, sts.x[:, None, :], y)
+            n_q = 1
+            if cfg.active_per_iter > 0:
+                traj, factor = _active(cfg, hyper, query_fn, cobjs, draws, traj, factor, sts.x,
+                                       cfg.active_per_iter)
+                n_q += cfg.active_per_iter
+            sts = sts._replace(traj=traj, factor=factor, queries=sts.queries + n_q)
 
-        # eq. (2): batched surrogate mean + per-client RFF correction
-        g_loc = gp.grad_mean_cached_clients(traj, factor, hyper, sts.x,
-                                            block_n=cfg.grad_block_n, block_cap=cfg.grad_block_cap)
-        corr = (rfflib.grad_features_t_w_rows(rff, sts.x, sts.w_global)
-                - rfflib.grad_features_t_w_rows(rff, sts.x, sts.w_local))
-        gamma = np.float32(1.0) / np.float32(t) if cfg.gamma_mode == "inv_t" \
-            else np.float32(cfg.gamma_const)
-        ghat = g_loc + float(gamma) * corr
-
+        ghat, sts = _estimate_gradient(cfg, rff, query_fn, cobjs, sts, server_x, t, draws)
         new_x, new_opt = opt_update(sts.opt, ghat, sts.x, cfg.eta)
         new_x = torch.clamp(new_x, cfg.lo, cfg.hi)
         if diag_global_grad is not None:
@@ -265,25 +376,38 @@ def _local_phase_clients(cfg, rff, query_fn, cobjs, sts: ClientState, draws, dia
     return sts, sum_cos, sum_disp
 
 
-def _post_phase_clients(cfg, rff, query_fn, cobjs, sts: ClientState, new_server_x, draws):
-    """Round-end active queries and the eigh-free RFF fit of every client."""
-    hyper = _hyper_of(cfg)
+def _post_phase(cfg, rff, query_fn, cobjs, sts: ClientState, new_server_x, draws):
+    """Round-end work of every client at the new server iterate: FZooS's
+    active queries and eq. 6 fit, scaffold2's control variate."""
     sts = sts._replace(x=new_server_x.expand_as(sts.x).clone())
-    traj, factor = sts.traj, sts.factor
-    if cfg.active_round_end > 0:
-        cands = gp.select_active_queries_cached_clients(
-            draws.deltas(cfg.active_candidates, cfg.dim, cfg.active_radius), traj, factor, hyper,
-            sts.x, cfg.active_round_end, cfg.lo, cfg.hi,
-            block_n=cfg.score_block_n, block_cap=cfg.score_block_cap)
-        ys = query_fn(cobjs, cands, draws.noise(cfg.active_round_end))
-        traj, factor = gp.traj_extend_clients(traj, factor, cands, ys, hyper)
-        sts = sts._replace(traj=traj, factor=factor, queries=sts.queries + cfg.active_round_end)
-    return sts._replace(w_local=rfflib.fit_w_chol(rff, traj, hyper, factor))
+    if cfg.is_fzoos:
+        hyper = _hyper_of(cfg)
+        traj, factor = sts.traj, sts.factor
+        if cfg.active_round_end > 0:
+            traj, factor = _active(cfg, hyper, query_fn, cobjs, draws, traj, factor, sts.x,
+                                   cfg.active_round_end)
+            sts = sts._replace(traj=traj, factor=factor,
+                               queries=sts.queries + cfg.active_round_end)
+        if cfg.rff_fit_exact:
+            w = rfflib.fit_w_from_factor(rff, traj, factor)
+        elif cfg.deferred:
+            w = rfflib.fit_w_chol(rff, traj, hyper, factor)
+        else:
+            w = rfflib.fit_w(rff, traj, hyper)
+        return sts._replace(w_local=w)
+    if cfg.name == "scaffold2":
+        return sts._replace(c_local=sts.fd_accum / cfg.local_steps)
+    return sts
+
+
+def _broadcast_mean(a: torch.Tensor) -> torch.Tensor:
+    """The server mean over clients, replicated to every client."""
+    return torch.mean(a, dim=0).expand_as(a).clone()
 
 
 def run_round(
     cfg: AlgoConfig,
-    rff: rfflib.RFFParams,
+    rff: Optional[rfflib.RFFParams],
     query_fn: QueryFn,
     cobjs,
     states: ClientState,
@@ -295,20 +419,22 @@ def run_round(
 
     ``diag_global_grad`` maps the stacked iterates (N, d) to grad F (N, d).
     """
-    if not cfg.deferred or cfg.rff_fit_exact:
-        raise NotImplementedError(
-            "repro_torch ports the deferred fzoos engine only (name='fzoos', "
-            "use_factor_cache, defer_repair, rff_fit_exact=False)")
     opt_init, _ = make_optimizer(cfg.optimizer)
     x = server_x.expand_as(states.x).clone()
     states = states._replace(x=x, opt=opt_init(x), fd_accum=torch.zeros_like(x))
+    if cfg.name == "scaffold1":
+        # c_i <- FD estimate at x_{r-1}: one extra transmission (Appx. D)
+        c_i, states = _fd_estimate(cfg, query_fn, cobjs, states, x, draws)
+        states = states._replace(c_local=c_i, c_global=_broadcast_mean(c_i))
 
-    states, sum_cos, sum_disp = _local_phase_clients(
-        cfg, rff, query_fn, cobjs, states, draws, diag_global_grad)
+    states, sum_cos, sum_disp = _local_phase(
+        cfg, rff, query_fn, cobjs, states, server_x, draws, diag_global_grad)
     new_server_x = torch.mean(states.x, dim=0)
-    states = _post_phase_clients(cfg, rff, query_fn, cobjs, states, new_server_x, draws)
-    w_glob = torch.mean(states.w_local, dim=0)
-    states = states._replace(w_global=w_glob.expand_as(states.w_global).clone())
+    states = _post_phase(cfg, rff, query_fn, cobjs, states, new_server_x, draws)
+    if cfg.is_fzoos:
+        states = states._replace(w_global=_broadcast_mean(states.w_local))
+    elif cfg.name == "scaffold2":
+        states = states._replace(c_global=_broadcast_mean(states.c_local))
 
     f32 = lambda v: v.to(torch.float32)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -343,10 +469,11 @@ def simulate(
     """Run ``rounds`` communication rounds, one Python loop iteration each.
 
     The draw source defaults to ``ClientDraws(seed, range(N), device)``; the
-    RFF bank comes from it, and the clients start fresh at ``x0`` (0.5
-    everywhere by default).  ``diag_global_grad`` maps the stacked iterates
-    (N, d) to grad F (N, d) for the cos/disparity diagnostics.  After every
-    round the clients flagged ``needs_repair`` are repaired.
+    RFF bank (fzoos) comes from it, and the clients start fresh at ``x0``
+    (0.5 everywhere by default).  ``diag_global_grad`` maps the stacked
+    iterates (N, d) to grad F (N, d) for the cos/disparity diagnostics.
+    After every round of the deferred engine the clients flagged
+    ``needs_repair`` are repaired.
     """
     dev = resolve_device(device)
     if eval_every < 1:
@@ -356,7 +483,8 @@ def simulate(
     x0 = x0.to(dev)
     if draws is None:
         draws = ClientDraws(seed, range(cfg.n_clients), dev)
-    rff = rfflib.make_rff(draws, cfg.n_features, cfg.dim, cfg.lengthscale)
+    rff = rfflib.make_rff(draws, cfg.n_features, cfg.dim, cfg.lengthscale) \
+        if cfg.is_fzoos else None
     states = init_states(cfg, x0)
 
     xs, fvals = [x0], [global_value_fn(cobjs, x0)]

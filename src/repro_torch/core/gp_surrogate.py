@@ -1,21 +1,32 @@
 """Trajectory-informed derived-GP gradient surrogate with the cached Gram
-factor (port of ``repro.core.gp_surrogate``, the deferred-repair path).
+factor (port of ``repro.core.gp_surrogate``).
 
-Every tensor here carries a leading client axis N: the port's engine keeps
-all clients in one stacked state, and each function below is the batched
-form of the reference function of the same name (where the reference
-vmaps, the batch dimension is written out).  Only the branch-free
-deferred update is ported: an unhealthy factor update raises
-``needs_repair`` and freezes the factor until ``factor_repair_masked``
-(driven by ``core.rounds.repair_flagged_clients``) refactorizes the exact
-cached Gram with a clamped eigh.
+The factor cache and the ``*_clients`` functions carry a leading client
+axis N: the port's engines keep all clients in one stacked state, and each
+of these is the batched form of the reference function of the same name
+(where the reference vmaps, the batch dimension is written out).  Two
+factor updates are ported:
+
+* ``factor_update_deferred`` (the deferred engine): branch-free; an
+  unhealthy update raises ``needs_repair`` and freezes the factor until
+  ``factor_repair_masked`` (driven by ``core.rounds.repair_flagged_clients``)
+  refactorizes the exact cached Gram with a clamped eigh;
+* ``factor_update`` (the per-client engine): an unhealthy update falls back
+  to the clamped eigh at once, for the failing clients only.
 
 As under the reference's client vmap, both factor candidates (border
 extension and full refresh) are computed and selected per client with
-``torch.where``; no host sync happens on the per-step path.  Cholesky,
-eigh and the triangular solves go to ``torch.linalg``;
-``cholesky_ex``'s ``info`` is the branch-free non-PD signal that the
-reference reads from NaN pivots.
+``torch.where``.  Cholesky, eigh and the triangular solves go to
+``torch.linalg``; ``cholesky_ex``'s ``info`` is the branch-free non-PD
+signal that the reference reads from NaN pivots.
+
+The single-client functions (``gp_alpha_cached``, ``grad_mean_cached``,
+``grad_uncertainty_batch_cached``, ``select_active_queries_cached``) take
+one client's trajectory and factor (no leading axis; ``client`` cuts one
+out of a stacked batch) and run the single-client kernels.  The seed
+eigh path (``gp_alpha``, ``grad_mean``, ``grad_uncertainty_batch``,
+``select_active_queries``, ...) refactorizes from scratch on every call,
+single-client and in plain torch, as the reference does.
 """
 
 from __future__ import annotations
@@ -87,6 +98,11 @@ def traj_init(n_clients: int, capacity: int, dim: int, device, dtype=torch.float
     )
 
 
+def client(batch, i: int):
+    """Client ``i`` of a stacked ``Trajectory`` or ``GramFactor`` (views)."""
+    return type(batch)(*(a[i] for a in batch))
+
+
 def _rows(n: int, device) -> torch.Tensor:
     return torch.arange(n, device=device)[:, None]
 
@@ -149,6 +165,86 @@ def _eye_like(gram: torch.Tensor) -> torch.Tensor:
 def _clamped_eigh(gram: torch.Tensor, jitter: float) -> tuple[torch.Tensor, torch.Tensor]:
     w, v = torch.linalg.eigh(gram)
     return v, torch.clamp(w, min=jitter)
+
+
+def dkdx(x: torch.Tensor, xs: torch.Tensor, lengthscale: float) -> torch.Tensor:
+    """d_x k(x, X) for the SE kernel: x (..., d), xs (cap, d) -> (..., cap, d),
+    row t = -(x - x_t)/l^2 k(x, x_t)."""
+    diff = x[..., None, :] - xs
+    k = torch.exp(-0.5 * torch.sum(diff * diff, dim=-1) / (lengthscale**2))
+    return (-diff / (lengthscale**2)) * k[..., None]
+
+
+def _masked_gram_chol(traj: Trajectory, hyper: GPHyper):
+    """Clamped-eigh factors of one client's padded Gram, from scratch:
+    ((eigvecs, eigvals), mask).  The from-scratch oracle of the seed path."""
+    gram, mask = _padded_gram(traj, hyper)
+    return _clamped_eigh(gram, _jitter_of(hyper)), mask
+
+
+def _gram_solve(factors, b: torch.Tensor) -> torch.Tensor:
+    """(K + jitter)^-1 b through clamped eigh factors; b (cap,) or (..., cap, m)."""
+    v, w = factors
+    if b.dim() == 1:
+        return v @ ((v.T @ b) / w)
+    return v @ ((v.T @ b) / w[:, None])
+
+
+def gp_alpha(traj: Trajectory, hyper: GPHyper) -> torch.Tensor:
+    """alpha = (K + s^2 I)^{-1} y of one client, refactorized: (cap,)."""
+    factors, mask = _masked_gram_chol(traj, hyper)
+    return _gram_solve(factors, traj.ys * mask)
+
+
+def grad_mean(traj: Trajectory, hyper: GPHyper, x: torch.Tensor,
+              alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Posterior gradient mean (eq. 5) of one client: x (..., d) -> (..., d)."""
+    if alpha is None:
+        alpha = gp_alpha(traj, hyper)
+    j = dkdx(x, traj.xs, hyper.lengthscale) * traj.valid_mask()[:, None]
+    return torch.einsum("...cd,c->...d", j, alpha)
+
+
+def grad_mean_batch(traj: Trajectory, hyper: GPHyper, xs: torch.Tensor) -> torch.Tensor:
+    """``grad_mean`` at (n, d) points with one alpha: (n, d)."""
+    return grad_mean(traj, hyper, xs, gp_alpha(traj, hyper))
+
+
+def grad_uncertainty_trace(traj: Trajectory, hyper: GPHyper, x: torch.Tensor,
+                           chol_mask=None) -> torch.Tensor:
+    """tr d_sigma2(x) = d/l^2 - sum J (K + s^2 I)^{-1} J, J = d_x k(x, X),
+    clamped at 0: x (..., d) -> (...)."""
+    factors, mask = _masked_gram_chol(traj, hyper) if chol_mask is None else chol_mask
+    j = dkdx(x, traj.xs, hyper.lengthscale) * mask[:, None]
+    corr = torch.sum(j * _gram_solve(factors, j), dim=(-2, -1))
+    return torch.clamp(x.shape[-1] / (hyper.lengthscale**2) - corr, min=0.0)
+
+
+def grad_uncertainty_batch(traj: Trajectory, hyper: GPHyper, xs: torch.Tensor) -> torch.Tensor:
+    """Uncertainty scores of (n, d) candidates with one factorization: (n,)."""
+    return grad_uncertainty_trace(traj, hyper, xs, _masked_gram_chol(traj, hyper))
+
+
+def _top(scores: torch.Tensor, cands: torch.Tensor, n_select: int) -> torch.Tensor:
+    """The ``n_select`` highest-scoring candidates, (..., n, d) -> (..., n_select, d);
+    ties keep the lower candidate index first, as ``lax.top_k`` does."""
+    top = torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :n_select]
+    return torch.gather(cands, -2, top[..., None].expand(*top.shape, cands.shape[-1]))
+
+
+def select_active_queries(deltas: torch.Tensor, traj: Trajectory, hyper: GPHyper,
+                          center: torch.Tensor, n_select: int, lo: float = 0.0,
+                          hi: float = 1.0) -> torch.Tensor:
+    """The ``n_select`` most uncertain of the candidates ``center + deltas``
+    (deltas (n, d) uniform in [-radius, radius]), scored from scratch."""
+    cands = torch.clamp(center + deltas, lo, hi)
+    return _top(grad_uncertainty_batch(traj, hyper, cands), cands, n_select)
+
+
+def mean_value(traj: Trajectory, hyper: GPHyper, x: torch.Tensor) -> torch.Tensor:
+    """Posterior mean of f itself at one point x (d,)."""
+    kvec = sqexp(x[None], traj.xs, hyper.lengthscale)[0] * traj.valid_mask()
+    return kvec @ gp_alpha(traj, hyper)
 
 
 def factor_init(traj: Trajectory, hyper: GPHyper) -> GramFactor:
@@ -218,6 +314,53 @@ def _gram_replace_rows(factor: GramFactor, traj_new: Trajectory, hyper: GPHyper,
     return gram
 
 
+def _candidate(factor: GramFactor, gram, old_count, k: int, jitter: float, use_border):
+    """Each client's candidate factor, the border extension where
+    ``use_border`` and the full refresh elsewhere, and its ``info``."""
+    b_chol, b_info = _border_extend(factor.chol, gram, old_count, k, jitter)
+    r_chol, r_info = torch.linalg.cholesky_ex(gram)
+    cand = torch.where(use_border[:, None, None], b_chol, r_chol)
+    return cand, torch.where(use_border, b_info, r_info)
+
+
+def factor_update(factor: GramFactor, traj_new: Trajectory, hyper: GPHyper, k: int,
+                  old_count: torch.Tensor) -> GramFactor:
+    """Factor maintenance with the inline clamped-eigh fallback (the
+    per-client engine; ``traj_new`` is ``traj_append_batch`` of k rows).
+
+    A healthy candidate (border before the ring wraps, refresh after) is
+    adopted; an unhealthy one is replaced at once by the clamped eigh of
+    the exact cached Gram, which the solves then route through.  The eigh
+    runs only for the failing clients: their (N,) health flags are read on
+    the host, one sync per append event, which this oracle engine accepts.
+    ``n_refactors`` counts the fallbacks; ``needs_repair`` stays False.
+    """
+    cap = traj_new.capacity
+    if k > cap:
+        raise ValueError(f"append event of {k} rows exceeds capacity {cap}")
+    jitter = _jitter_of(hyper)
+    mask = traj_new.valid_mask()
+    gram = _gram_replace_rows(factor, traj_new, hyper, k, old_count)
+    use_border = (old_count + k <= cap) & factor.exact
+    cand, info = _candidate(factor, gram, old_count, k, jitter, use_border)
+    ok = _factor_health(cand, mask, jitter, info)
+    v, w = factor.eigvecs, factor.eigvals
+    bad = torch.nonzero(~ok).flatten()
+    if bad.numel():
+        v, w = v.clone(), w.clone()
+        v[bad], w[bad] = _clamped_eigh(gram[bad], jitter)
+    return GramFactor(
+        gram=gram,
+        chol=torch.where(ok[:, None, None], cand, _eye_like(gram)),
+        eigvecs=v,
+        eigvals=w,
+        exact=ok,
+        n_updates=factor.n_updates + 1,
+        n_refactors=factor.n_refactors + (~ok).to(torch.int32),
+        needs_repair=torch.zeros_like(factor.needs_repair),
+    )
+
+
 def factor_update_deferred(factor: GramFactor, traj_new: Trajectory, hyper: GPHyper, k: int,
                            old_count: torch.Tensor) -> GramFactor:
     """Branch-free Cholesky-only factor maintenance (no eigh, ever).
@@ -232,13 +375,8 @@ def factor_update_deferred(factor: GramFactor, traj_new: Trajectory, hyper: GPHy
     jitter = _jitter_of(hyper)
     mask = traj_new.valid_mask()
     gram = _gram_replace_rows(factor, traj_new, hyper, k, old_count)
-
-    fits = old_count + k <= cap
-    use_border = fits & factor.exact & ~factor.needs_repair
-    b_chol, b_info = _border_extend(factor.chol, gram, old_count, k, jitter)
-    r_chol, r_info = torch.linalg.cholesky_ex(gram)
-    cand = torch.where(use_border[:, None, None], b_chol, r_chol)
-    info = torch.where(use_border, b_info, r_info)
+    use_border = (old_count + k <= cap) & factor.exact & ~factor.needs_repair
+    cand, info = _candidate(factor, gram, old_count, k, jitter, use_border)
     ok = _factor_health(cand, mask, jitter, info)
     adopt = ok & ~factor.needs_repair
     return GramFactor(
@@ -276,37 +414,97 @@ def factor_repair_gated(factor: GramFactor, jitter: float) -> GramFactor:
 
 
 def factor_solve(factor: GramFactor, b: torch.Tensor) -> torch.Tensor:
-    """(K + jitter)^-1 b per client, b (N, cap) or (N, cap, m), through the
-    Cholesky factor when ``exact`` and the clamped eigh factors otherwise."""
+    """(K + jitter)^-1 b, b (..., cap) or (..., cap, m), for a stacked or a
+    single-client factor: through the Cholesky factor when ``exact`` and
+    the clamped eigh factors otherwise."""
     vec = b.dim() == factor.gram.dim() - 1
     bb = b[..., None] if vec else b
     from_chol = torch.cholesky_solve(bb, factor.chol, upper=False)
     v, w = factor.eigvecs, factor.eigvals
     from_eigh = v @ ((v.transpose(-1, -2) @ bb) / w[..., None])
-    out = torch.where(factor.exact[:, None, None], from_chol, from_eigh)
+    out = torch.where(factor.exact[..., None, None], from_chol, from_eigh)
     return out[..., 0] if vec else out
 
 
 def factor_inverse(factor: GramFactor) -> torch.Tensor:
-    """Explicit (K + jitter)^-1 per client, (N, cap, cap)."""
+    """Explicit (K + jitter)^-1, (..., cap, cap)."""
     eye = _eye_like(factor.gram)
     from_chol = torch.cholesky_solve(eye, factor.chol, upper=False)
     v, w = factor.eigvecs, factor.eigvals
     from_eigh = (v / w[..., None, :]) @ v.transpose(-1, -2)
-    return torch.where(factor.exact[:, None, None], from_chol, from_eigh)
+    return torch.where(factor.exact[..., None, None], from_chol, from_eigh)
 
 
 def traj_extend_clients(trajs: Trajectory, factors: GramFactor, xs: torch.Tensor,
-                        ys: torch.Tensor, hyper: GPHyper) -> tuple[Trajectory, GramFactor]:
-    """Append (N, k, d) / (N, k) queries and maintain the factors (deferred)."""
+                        ys: torch.Tensor, hyper: GPHyper,
+                        deferred: bool = True) -> tuple[Trajectory, GramFactor]:
+    """Append (N, k, d) / (N, k) queries and maintain the factors, with
+    ``factor_update_deferred`` (the default: the port's main path) or, for
+    ``deferred=False``, the inline ``factor_update``."""
     old_count = trajs.count
     traj2 = traj_append_batch(trajs, xs, ys)
-    return traj2, factor_update_deferred(factors, traj2, hyper, xs.shape[1], old_count)
+    upd = factor_update_deferred if deferred else factor_update
+    return traj2, upd(factors, traj2, hyper, xs.shape[1], old_count)
 
 
 def gp_alpha_cached_clients(trajs: Trajectory, factors: GramFactor) -> torch.Tensor:
     """alpha = (K + s^2 I)^{-1} y per client, (N, cap)."""
     return factor_solve(factors, trajs.ys * trajs.valid_mask())
+
+
+def _score_inputs(trajs: Trajectory, factors: GramFactor, xs_q: torch.Tensor):
+    """The scoring kernels' inputs, stacked or for one client: candidates
+    and trajectory in coordinates shifted to the candidate centroid
+    (distances, hence the scores, are shift-invariant; the expansion's
+    terms cancel less in f32 there, DESIGN.md Sec. 2.4), the masked
+    inverse B and P = B o XX^T."""
+    masks = trajs.valid_mask()
+    binv = factor_inverse(factors) * (masks[..., :, None] * masks[..., None, :])
+    c0 = torch.mean(xs_q, dim=-2, keepdim=True)
+    xs_sh = (trajs.xs - c0) * masks[..., None]
+    pmat = binv * (xs_sh @ xs_sh.transpose(-1, -2))
+    return xs_q - c0, xs_sh, binv, pmat
+
+
+def gp_alpha_cached(traj: Trajectory, factor: GramFactor, hyper: GPHyper) -> torch.Tensor:
+    """alpha = (K + s^2 I)^{-1} y of one client through its cached factor: (cap,)."""
+    del hyper  # the hyperparameters are in the factor
+    return factor_solve(factor, traj.ys * traj.valid_mask())
+
+
+def grad_mean_cached(traj: Trajectory, factor: GramFactor, hyper: GPHyper, x: torch.Tensor,
+                     *, block_n: Optional[int] = None,
+                     block_cap: Optional[int] = None) -> torch.Tensor:
+    """Posterior gradient mean of one client at x (d,): one launch of the
+    single-client kernel.  alpha is masked here: the eigh route does not
+    leave exact zeros on padded slots."""
+    alpha = gp_alpha_cached(traj, factor, hyper) * traj.valid_mask()
+    return ops.grad_mean_batch(x[None], traj.xs, alpha, lengthscale=hyper.lengthscale,
+                               block_n=block_n, block_cap=block_cap)[0]
+
+
+def grad_uncertainty_batch_cached(traj: Trajectory, factor: GramFactor, hyper: GPHyper,
+                                  xs_q: torch.Tensor, *, block_n: Optional[int] = None,
+                                  block_cap: Optional[int] = None) -> torch.Tensor:
+    """Uncertainty scores of one client's candidates (n, d) -> (n,): one
+    launch of the single-client kernel, in centroid-shifted coordinates."""
+    cands, xs_sh, binv, pmat = _score_inputs(traj, factor, xs_q)
+    return ops.uncertainty_scores(cands, xs_sh, binv, pmat, lengthscale=hyper.lengthscale,
+                                  prior=traj.dim / (hyper.lengthscale**2),
+                                  block_n=block_n, block_cap=block_cap)
+
+
+def select_active_queries_cached(deltas: torch.Tensor, traj: Trajectory, factor: GramFactor,
+                                 hyper: GPHyper, center: torch.Tensor, n_select: int,
+                                 lo: float = 0.0, hi: float = 1.0, *,
+                                 block_n: Optional[int] = None,
+                                 block_cap: Optional[int] = None) -> torch.Tensor:
+    """The ``n_select`` most uncertain of one client's candidates
+    ``center + deltas`` (deltas (n, d)), scored through its cached factor."""
+    cands = torch.clamp(center + deltas, lo, hi)
+    scores = grad_uncertainty_batch_cached(traj, factor, hyper, cands, block_n=block_n,
+                                           block_cap=block_cap)
+    return _top(scores, cands, n_select)
 
 
 def grad_mean_cached_clients(trajs: Trajectory, factors: GramFactor, hyper: GPHyper,
@@ -323,21 +521,12 @@ def grad_uncertainty_batch_cached_clients(trajs: Trajectory, factors: GramFactor
                                           hyper: GPHyper, xs_q: torch.Tensor, *,
                                           block_n: Optional[int] = None,
                                           block_cap: Optional[int] = None) -> torch.Tensor:
-    """Uncertainty scores of per-client candidates: (N, nc, d) -> (N, nc).
-
-    The contraction runs in coordinates shifted to each client's candidate
-    centroid (distances, hence the scores, are shift-invariant; the
-    expansion's terms cancel less in f32 there, DESIGN.md Sec. 2.4).
-    """
-    masks = trajs.valid_mask()
-    binv = factor_inverse(factors) * (masks[:, :, None] * masks[:, None, :])
-    c0 = torch.mean(xs_q, dim=1)
-    xs_sh = (trajs.xs - c0[:, None, :]) * masks[:, :, None]
-    pmat = binv * torch.einsum("ncd,nkd->nck", xs_sh, xs_sh)
-    prior = trajs.dim / (hyper.lengthscale**2)
+    """Uncertainty scores of per-client candidates: (N, nc, d) -> (N, nc),
+    one launch of the client-batched kernel (see ``_score_inputs``)."""
+    cands, xs_sh, binv, pmat = _score_inputs(trajs, factors, xs_q)
     return ops.uncertainty_scores_clients(
-        xs_q - c0[:, None, :], xs_sh, binv, pmat, lengthscale=hyper.lengthscale, prior=prior,
-        block_n=block_n, block_cap=block_cap)
+        cands, xs_sh, binv, pmat, lengthscale=hyper.lengthscale,
+        prior=trajs.dim / (hyper.lengthscale**2), block_n=block_n, block_cap=block_cap)
 
 
 def select_active_queries_cached_clients(
@@ -353,12 +542,8 @@ def select_active_queries_cached_clients(
     block_n: Optional[int] = None,
     block_cap: Optional[int] = None,
 ) -> torch.Tensor:
-    """The ``n_select`` most uncertain candidates around each center: (N, n_select, d).
-
-    Ties keep the lower candidate index first, as ``lax.top_k`` does.
-    """
+    """The ``n_select`` most uncertain candidates around each center: (N, n_select, d)."""
     cands = torch.clamp(centers[:, None, :] + deltas, lo, hi)
     scores = grad_uncertainty_batch_cached_clients(
         trajs, factors, hyper, cands, block_n=block_n, block_cap=block_cap)
-    top = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :n_select]
-    return torch.gather(cands, 1, top[:, :, None].expand(-1, -1, cands.shape[-1]))
+    return _top(scores, cands, n_select)

@@ -4,7 +4,9 @@
 phi(x) = sqrt(2/M) cos(V x + b),  V_j ~ N(0, I/l^2),  b_j ~ U[0, 2pi],
 
 and the M-dim weights w = Phi (Khat + s^2 I)^{-1} y (eq. 6) that each
-client sends to the server.  These contractions are plain matrix products;
+client sends to the server: ``fit_w_chol`` (the deferred engine), ``fit_w``
+(the clamped eigh of the per-client engines) and ``fit_w_from_factor``
+(``rff_fit_exact``), each for a stacked client batch.  These contractions are plain matrix products;
 they stay plain torch, as the reference leaves them to XLA on this path.
 """
 
@@ -40,6 +42,16 @@ def features(params: RFFParams, xs: torch.Tensor) -> torch.Tensor:
     return math.sqrt(2.0 / params.n_features) * torch.cos(proj)
 
 
+def grad_features_t_w(params: RFFParams, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """grad phi(x)^T w: x (d,), w (M,) -> (d,)."""
+    return grad_features_t_w_batch(params, x[None], w)[0]
+
+
+def grad_features_t_w_batch(params: RFFParams, xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One weight vector for every row: xs (n, d), w (M,) -> (n, d)."""
+    return grad_features_t_w_rows(params, xs, w[None, :])
+
+
 def grad_features_t_w_rows(params: RFFParams, xs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """Per-row weights: xs (n, d), ws (n, M) -> (n, d); row i is
     grad phi(x_i)^T w_i = -sqrt(2/M) (sin(V x_i + b) o w_i) V."""
@@ -66,4 +78,27 @@ def fit_w_chol(params: RFFParams, traj: gp.Trajectory, hyper: gp.GPHyper,
     alpha = torch.cholesky_solve(ys_m[..., None], safe, upper=False)[..., 0]
     alpha_fb = gp.factor_solve(factor, ys_m)
     alpha = torch.where(ok[:, None], alpha, alpha_fb)
+    return (phi.transpose(-1, -2) @ alpha[..., None])[..., 0]
+
+
+def fit_w(params: RFFParams, traj: gp.Trajectory, hyper: gp.GPHyper) -> torch.Tensor:
+    """Eq. 6 per client by the clamped eigh of the RFF Gram (the per-client
+    engines' round-end fit): (N, M).  Invalid slots contribute nothing."""
+    mask = traj.valid_mask()
+    phi = features(params, traj.xs) * mask[..., None]  # (N, cap, M)
+    jitter = gp._jitter_of(hyper)
+    gram = phi @ phi.transpose(-1, -2) + torch.diag_embed(jitter * mask + (1.0 - mask))
+    v, w = gp._clamped_eigh(gram, jitter)
+    vb = v.transpose(-1, -2) @ (traj.ys * mask)[..., None]
+    alpha = v @ (vb / w[..., None])
+    return (phi.transpose(-1, -2) @ alpha)[..., 0]
+
+
+def fit_w_from_factor(params: RFFParams, traj: gp.Trajectory,
+                      factor: gp.GramFactor) -> torch.Tensor:
+    """w = Phi (K + s^2 I)^{-1} y per client through the cached exact-GP
+    factor (``AlgoConfig.rff_fit_exact``): (N, M)."""
+    mask = traj.valid_mask()
+    alpha = gp.factor_solve(factor, traj.ys * mask)
+    phi = features(params, traj.xs) * mask[..., None]
     return (phi.transpose(-1, -2) @ alpha[..., None])[..., 0]

@@ -13,6 +13,7 @@ def repair_flagged_clients(states, cfg):
 
     Reads the (N,) flag vector to the host; when clients are flagged, one
     batched clamped eigh over exactly those clients' Grams restores them.
+    A no-op for the engines that do not defer repairs (they never flag).
     """
     if not cfg.deferred:
         return states, 0

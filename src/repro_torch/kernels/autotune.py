@@ -1,10 +1,12 @@
-"""Block sizes of the client-batched GP kernels on Hopper.
+"""Block sizes of the GP kernels on Hopper.
 
 ``select_blocks(kind, ...)`` returns ``(block_n, block_cap)`` for the
 scoring ("score") or gradient-mean ("grad") kernels; ``block_cap >= cap``
 routes to the resident kernel, a smaller one to the cap-tiled kernel
-(``kernels.ops``).  The choice is a pure function of the shape, so it is
-deterministic and needs no cache.  The budget is the shared memory one
+(``kernels.ops``).  The choice is a pure function of the per-client shape
+(n, cap, d), so it is deterministic, needs no cache, and serves the
+single-client kernels (one client) and the client-batched ones alike: a
+block never spans clients.  The budget is the shared memory one
 block may use on an H100 (227 KB); what a block keeps there is the
 candidate tile (block_n x d), and per route
 

@@ -1,8 +1,11 @@
-// Client-batched derived-GP gradient mean (paper eq. 5) on Hopper.
+// Derived-GP gradient mean (paper eq. 5) on Hopper, client-batched and
+// single-client.
 //
 // Replaces the Pallas TPU kernels
 //   repro/kernels/gp_grad.py  grad_mean_clients_kernel        (resident)
 //   repro/kernels/gp_grad.py  grad_mean_tiled_clients_kernel  (cap-tiled)
+//   repro/kernels/gp_grad.py  grad_mean_kernel                (single client)
+//   repro/kernels/gp_grad.py  grad_mean_tiled_kernel          (single, cap-tiled)
 // and computes, per query point c of client b,
 //   grad_mu(c) = ( (h o alpha) @ X - (h . alpha) c ) / l^2,
 //   h_t = exp(-|c - x_t|^2 / 2 l^2),
@@ -16,7 +19,9 @@
 // is only N blocks, so the launch latency and one SM's share of the
 // bandwidth dominate; the design reads X twice per block (once for h, once
 // for the product; the second pass mostly hits L2) and keeps w = h o alpha
-// in shared memory so that nothing of size cap ever goes to HBM.
+// in shared memory so that nothing of size cap ever goes to HBM.  The
+// single-client entries at n = 1 (the per-client engine) read a fifth of
+// those bytes (0.07 us at full rate) in one block: latency-bound.
 //
 //  * resident: w for the whole trajectory (BN x cap) stays in shared memory.
 //  * tiled: bc trajectory rows at a time; the (BN x d) product and the
@@ -177,5 +182,21 @@ extern "C" int fz_grad_tiled(const float* c, const float* x, const float* alpha,
                              int nb, int n, int cap, int d, int bn, int bc, float inv_two_l2,
                              float inv_l2, void* stream) {
   FZ_DISPATCH_BN(bn, fz::launch_grad_tiled, c, x, alpha, out, nb, n, cap, d, bc, inv_two_l2,
+                 inv_l2, (cudaStream_t)stream)
+}
+
+// Single-client entries: the client body above launched with one client
+// (grid (n / bn, 1)).  Shapes: c (n, d), x (cap, d), alpha (cap), out (n, d).
+extern "C" int fz_grad_single_resident(const float* c, const float* x, const float* alpha,
+                                       float* out, int n, int cap, int d, int bn,
+                                       float inv_two_l2, float inv_l2, void* stream) {
+  FZ_DISPATCH_BN(bn, fz::launch_grad_resident, c, x, alpha, out, 1, n, cap, d, inv_two_l2,
+                 inv_l2, (cudaStream_t)stream)
+}
+
+extern "C" int fz_grad_single_tiled(const float* c, const float* x, const float* alpha,
+                                    float* out, int n, int cap, int d, int bn, int bc,
+                                    float inv_two_l2, float inv_l2, void* stream) {
+  FZ_DISPATCH_BN(bn, fz::launch_grad_tiled, c, x, alpha, out, 1, n, cap, d, bc, inv_two_l2,
                  inv_l2, (cudaStream_t)stream)
 }

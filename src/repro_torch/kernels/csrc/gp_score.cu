@@ -1,8 +1,10 @@
-// Client-batched active-query uncertainty scoring on Hopper.
+// Active-query uncertainty scoring on Hopper, client-batched and single-client.
 //
 // Replaces the Pallas TPU kernels
 //   repro/kernels/gp_score.py  uncertainty_scores_clients_kernel        (resident)
 //   repro/kernels/gp_score.py  uncertainty_scores_tiled_clients_kernel  (cap-tiled)
+//   repro/kernels/gp_score.py  uncertainty_scores_kernel                (single client)
+//   repro/kernels/gp_score.py  uncertainty_scores_tiled_kernel          (single, cap-tiled)
 // and computes, per candidate c of client b,
 //   score(c) = max(prior - corr(c), 0),
 //   corr(c) * l^4 = sum_k [ (hP)_k - (2 c.x_k - |c|^2) (hB)_k ] h_k,
@@ -12,7 +14,10 @@
 // What bounds it on the card: per launch it must read N (2 cap^2 + cap d
 // + n d) floats and do about N n (2 cap d + 4 cap^2) flops, so at the main
 // path's shapes (N=5, n=50, cap=192, d=300) both bounds are about 1 us and
-// the launch itself costs more.  The design keeps every intermediate on
+// the launch itself costs more.  The single-client entries (one client,
+// n=50) need a fifth of that, about 0.2 us, and get only n / BN = 7 blocks
+// on 132 SMs: launch latency and one SM's share of the bandwidth bound
+// them.  The design keeps every intermediate on
 // chip: one block per (client, tile of BN candidates), the h and c.x
 // tiles in shared memory, the B/P sweep as coalesced row reads with the
 // per-candidate accumulators in registers.  Each block reads B and P once;
@@ -177,6 +182,24 @@ extern "C" int fz_score_tiled(const float* c, const float* x, const float* bm, c
                               float* out, int nb, int n, int cap, int d, int bn, int bc,
                               float inv_two_l2, float inv_l4, float prior, void* stream) {
   FZ_DISPATCH_BN(bn, fz::launch_tiled, c, x, bm, pm, out, nb, n, cap, d, bc, inv_two_l2, inv_l4,
+                 prior, (cudaStream_t)stream)
+}
+
+// Single-client entries: the client body above launched with one client
+// (grid (n / bn, 1)).  Shapes: c (n, d), x (cap, d), bm/pm (cap, cap), out (n).
+extern "C" int fz_score_single_resident(const float* c, const float* x, const float* bm,
+                                        const float* pm, float* out, int n, int cap, int d,
+                                        int bn, float inv_two_l2, float inv_l4, float prior,
+                                        void* stream) {
+  FZ_DISPATCH_BN(bn, fz::launch_resident, c, x, bm, pm, out, 1, n, cap, d, inv_two_l2, inv_l4,
+                 prior, (cudaStream_t)stream)
+}
+
+extern "C" int fz_score_single_tiled(const float* c, const float* x, const float* bm,
+                                     const float* pm, float* out, int n, int cap, int d, int bn,
+                                     int bc, float inv_two_l2, float inv_l4, float prior,
+                                     void* stream) {
+  FZ_DISPATCH_BN(bn, fz::launch_tiled, c, x, bm, pm, out, 1, n, cap, d, bc, inv_two_l2, inv_l4,
                  prior, (cudaStream_t)stream)
 }
 

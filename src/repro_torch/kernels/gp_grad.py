@@ -1,10 +1,12 @@
-"""Wrappers of the client-batched gradient-mean kernels (csrc/gp_grad.cu).
+"""Wrappers of the gradient-mean kernels (csrc/gp_grad.cu).
 
-``grad_mean_resident`` and ``grad_mean_tiled`` take already padded inputs
-(``kernels.ops`` pads and routes): query points (N, n, d) with n a
-multiple of ``block_n``, trajectory xs (N, cap, d) and alpha (N, cap) with
-the validity mask folded in, and for the tiled route cap a multiple of
-``block_cap``.  They return grad mu (N, n, d).
+The client-batched wrappers ``grad_mean_resident`` and ``grad_mean_tiled``
+take already padded inputs (``kernels.ops`` pads and routes): query points
+(N, n, d) with n a multiple of ``block_n``, trajectory xs (N, cap, d) and
+alpha (N, cap) with the validity mask folded in, and for the tiled route
+cap a multiple of ``block_cap``.  They return grad mu (N, n, d).  The
+``*_single_*`` wrappers take one client's inputs, the same shapes without
+N, and return (n, d).
 
 On CPU tensors each wrapper computes its kernel's plain version; on CUDA
 tensors it launches the kernel (building it on first use) or raises.
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.kernels import loader, ref
 
-LAUNCHES = {"grad_resident": 0, "grad_tiled": 0}
+LAUNCHES = {"grad_resident": 0, "grad_tiled": 0,
+            "grad_single_resident": 0, "grad_single_tiled": 0}
 
 
 def _checked(name, cands, xs, alpha, block_n, block_cap=None):
@@ -30,22 +33,30 @@ def _checked(name, cands, xs, alpha, block_n, block_cap=None):
         raise ValueError(f"{name}: n={n} is not a multiple of block_n={block_n}")
     if block_cap is not None and cap % block_cap:
         raise ValueError(f"{name}: cap={cap} is not a multiple of block_cap={block_cap}")
-    return nb, n, cap, d
+
+
+def _launch(name, cands, xs, alpha, lengthscale, block_n, block_cap=None):
+    """One launch of the kernel behind ``name`` on checked client-batched
+    CUDA tensors; the single-client entries take no client count."""
+    nb, n, d = cands.shape
+    out = torch.empty((nb, n, d), dtype=torch.float32, device=cands.device)
+    l2 = float(lengthscale) ** 2
+    sizes = (n,) if name.startswith("grad_single") else (nb, n)
+    sizes += (xs.shape[1], d, block_n) + (() if block_cap is None else (block_cap,))
+    err = getattr(loader.library(), "fz_" + name)(
+        cands.data_ptr(), xs.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+        *sizes, 0.5 / l2, 1.0 / l2, loader.stream())
+    loader.check(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def grad_mean_resident(cands, xs, alpha, *, lengthscale, block_n):
     """Gradient mean with w = h o alpha over the whole trajectory on chip."""
-    nb, n, cap, d = _checked("grad_resident", cands, xs, alpha, block_n)
+    _checked("grad_resident", cands, xs, alpha, block_n)
     if loader.on_cpu(cands, xs, alpha):
         return ref.grad_mean_clients(cands, xs, alpha, lengthscale)
-    out = torch.empty((nb, n, d), dtype=torch.float32, device=cands.device)
-    l2 = float(lengthscale) ** 2
-    err = loader.library().fz_grad_resident(
-        cands.data_ptr(), xs.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-        nb, n, cap, d, block_n, 0.5 / l2, 1.0 / l2, loader.stream())
-    loader.check(err, "grad_resident")
-    LAUNCHES["grad_resident"] += 1
-    return out
+    return _launch("grad_resident", cands, xs, alpha, lengthscale, block_n)
 
 
 def grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap):
@@ -63,14 +74,25 @@ def grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap):
 
 def grad_mean_tiled(cands, xs, alpha, *, lengthscale, block_n, block_cap):
     """Gradient mean accumulated over cap tiles of block_cap rows."""
-    nb, n, cap, d = _checked("grad_tiled", cands, xs, alpha, block_n, block_cap)
+    _checked("grad_tiled", cands, xs, alpha, block_n, block_cap)
     if loader.on_cpu(cands, xs, alpha):
         return grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap)
-    out = torch.empty((nb, n, d), dtype=torch.float32, device=cands.device)
-    l2 = float(lengthscale) ** 2
-    err = loader.library().fz_grad_tiled(
-        cands.data_ptr(), xs.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-        nb, n, cap, d, block_n, block_cap, 0.5 / l2, 1.0 / l2, loader.stream())
-    loader.check(err, "grad_tiled")
-    LAUNCHES["grad_tiled"] += 1
-    return out
+    return _launch("grad_tiled", cands, xs, alpha, lengthscale, block_n, block_cap)
+
+
+def grad_mean_single_resident(cands, xs, alpha, *, lengthscale, block_n):
+    """One client's gradient mean, resident route: (n, d) -> (n, d)."""
+    args = (cands[None], xs[None], alpha[None])
+    _checked("grad_single_resident", *args, block_n)
+    if loader.on_cpu(cands, xs, alpha):
+        return ref.grad_mean_batch(cands, xs, alpha, lengthscale)
+    return _launch("grad_single_resident", *args, lengthscale, block_n)[0]
+
+
+def grad_mean_single_tiled(cands, xs, alpha, *, lengthscale, block_n, block_cap):
+    """One client's gradient mean over cap tiles: (n, d) -> (n, d)."""
+    args = (cands[None], xs[None], alpha[None])
+    _checked("grad_single_tiled", *args, block_n, block_cap)
+    if loader.on_cpu(cands, xs, alpha):
+        return grad_mean_tiled_plain(*args, lengthscale, block_cap)[0]
+    return _launch("grad_single_tiled", *args, lengthscale, block_n, block_cap)[0]

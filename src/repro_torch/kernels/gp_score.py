@@ -1,10 +1,12 @@
-"""Wrappers of the client-batched uncertainty-scoring kernels (csrc/gp_score.cu).
+"""Wrappers of the uncertainty-scoring kernels (csrc/gp_score.cu).
 
-``uncertainty_scores_resident`` and ``uncertainty_scores_tiled`` take
-already padded inputs (``kernels.ops`` pads and routes): candidates
-(N, n, d) with n a multiple of ``block_n``, trajectory xs (N, cap, d), the
-masked Gram inverse B and P = B o XX^T (N, cap, cap), and for the tiled
-route cap a multiple of ``block_cap``.  They return the scores (N, n).
+The client-batched wrappers ``uncertainty_scores_resident`` and
+``uncertainty_scores_tiled`` take already padded inputs (``kernels.ops``
+pads and routes): candidates (N, n, d) with n a multiple of ``block_n``,
+trajectory xs (N, cap, d), the masked Gram inverse B and P = B o XX^T
+(N, cap, cap), and for the tiled route cap a multiple of ``block_cap``.
+They return the scores (N, n).  The ``*_single_*`` wrappers take one
+client's inputs, the same shapes without N, and return (n,).
 
 On CPU tensors each wrapper computes its kernel's plain version; on CUDA
 tensors it launches the kernel (building it on first use) or raises.
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.kernels import loader, ref
 
-LAUNCHES = {"score_resident": 0, "score_tiled": 0}
+LAUNCHES = {"score_resident": 0, "score_tiled": 0,
+            "score_single_resident": 0, "score_single_tiled": 0}
 
 
 def _checked(name, cands, xs, binv, pmat, block_n, block_cap=None):
@@ -31,27 +34,30 @@ def _checked(name, cands, xs, binv, pmat, block_n, block_cap=None):
         raise ValueError(f"{name}: n={n} is not a multiple of block_n={block_n}")
     if block_cap is not None and cap % block_cap:
         raise ValueError(f"{name}: cap={cap} is not a multiple of block_cap={block_cap}")
-    return nb, n, cap, d
 
 
-def _scalars(lengthscale: float, prior: float):
+def _launch(name, cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap=None):
+    """One launch of the kernel behind ``name`` on checked client-batched
+    CUDA tensors; the single-client entries take no client count."""
+    nb, n, d = cands.shape
+    out = torch.empty((nb, n), dtype=torch.float32, device=cands.device)
     l2 = float(lengthscale) ** 2
-    return 0.5 / l2, 1.0 / (l2 * l2), float(prior)
+    sizes = (n,) if name.startswith("score_single") else (nb, n)
+    sizes += (xs.shape[1], d, block_n) + (() if block_cap is None else (block_cap,))
+    err = getattr(loader.library(), "fz_" + name)(
+        cands.data_ptr(), xs.data_ptr(), binv.data_ptr(), pmat.data_ptr(), out.data_ptr(),
+        *sizes, 0.5 / l2, 1.0 / (l2 * l2), float(prior), loader.stream())
+    loader.check(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def uncertainty_scores_resident(cands, xs, binv, pmat, *, lengthscale, prior, block_n):
     """Scores with h over the whole trajectory kept on chip: (N, n) ."""
-    nb, n, cap, d = _checked("score_resident", cands, xs, binv, pmat, block_n)
+    _checked("score_resident", cands, xs, binv, pmat, block_n)
     if loader.on_cpu(cands, xs, binv, pmat):
         return ref.uncertainty_scores_clients_fused(cands, xs, binv, pmat, lengthscale, prior)
-    out = torch.empty((nb, n), dtype=torch.float32, device=cands.device)
-    inv_two_l2, inv_l4, pr = _scalars(lengthscale, prior)
-    err = loader.library().fz_score_resident(
-        cands.data_ptr(), xs.data_ptr(), binv.data_ptr(), pmat.data_ptr(), out.data_ptr(),
-        nb, n, cap, d, block_n, inv_two_l2, inv_l4, pr, loader.stream())
-    loader.check(err, "score_resident")
-    LAUNCHES["score_resident"] += 1
-    return out
+    return _launch("score_resident", cands, xs, binv, pmat, lengthscale, prior, block_n)
 
 
 def scores_tiled_plain(cands, xs, binv, pmat, lengthscale, prior, block_cap):
@@ -71,14 +77,26 @@ def scores_tiled_plain(cands, xs, binv, pmat, lengthscale, prior, block_cap):
 
 def uncertainty_scores_tiled(cands, xs, binv, pmat, *, lengthscale, prior, block_n, block_cap):
     """Scores over (block_cap x block_cap) cells of B and P: (N, n)."""
-    nb, n, cap, d = _checked("score_tiled", cands, xs, binv, pmat, block_n, block_cap)
+    _checked("score_tiled", cands, xs, binv, pmat, block_n, block_cap)
     if loader.on_cpu(cands, xs, binv, pmat):
         return scores_tiled_plain(cands, xs, binv, pmat, lengthscale, prior, block_cap)
-    out = torch.empty((nb, n), dtype=torch.float32, device=cands.device)
-    inv_two_l2, inv_l4, pr = _scalars(lengthscale, prior)
-    err = loader.library().fz_score_tiled(
-        cands.data_ptr(), xs.data_ptr(), binv.data_ptr(), pmat.data_ptr(), out.data_ptr(),
-        nb, n, cap, d, block_n, block_cap, inv_two_l2, inv_l4, pr, loader.stream())
-    loader.check(err, "score_tiled")
-    LAUNCHES["score_tiled"] += 1
-    return out
+    return _launch("score_tiled", cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap)
+
+
+def uncertainty_scores_single_resident(cands, xs, binv, pmat, *, lengthscale, prior, block_n):
+    """One client's scores, resident route: (n, d) -> (n,)."""
+    args = (cands[None], xs[None], binv[None], pmat[None])
+    _checked("score_single_resident", *args, block_n)
+    if loader.on_cpu(cands, xs, binv, pmat):
+        return ref.uncertainty_scores(cands, xs, binv, pmat, lengthscale, prior)
+    return _launch("score_single_resident", *args, lengthscale, prior, block_n)[0]
+
+
+def uncertainty_scores_single_tiled(cands, xs, binv, pmat, *, lengthscale, prior, block_n,
+                                    block_cap):
+    """One client's scores over (block_cap x block_cap) cells: (n, d) -> (n,)."""
+    args = (cands[None], xs[None], binv[None], pmat[None])
+    _checked("score_single_tiled", *args, block_n, block_cap)
+    if loader.on_cpu(cands, xs, binv, pmat):
+        return scores_tiled_plain(*args, lengthscale, prior, block_cap)[0]
+    return _launch("score_single_tiled", *args, lengthscale, prior, block_n, block_cap)[0]

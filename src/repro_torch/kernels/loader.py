@@ -41,6 +41,10 @@ SIGNATURES = {
     "fz_score_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     "fz_grad_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "fz_grad_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "fz_score_single_resident": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    "fz_score_single_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    "fz_grad_single_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "fz_grad_single_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

@@ -1,5 +1,6 @@
-"""Public wrappers of the client-batched GP kernels (port of the client
-functions of ``repro.kernels.ops``).
+"""Public wrappers of the GP kernels (port of the scoring and gradient-mean
+functions of ``repro.kernels.ops``): client-batched (``*_clients``) and
+single-client (``uncertainty_scores``, ``grad_mean_batch``).
 
 Each call picks block sizes (``kernels.autotune`` unless pinned; pinned
 pairs are validated), zero-pads the candidate axis to a ``block_n``
@@ -50,6 +51,40 @@ def _resolve_blocks(kind, n, cap, d, block_n, block_cap):
     return block_n, block_cap
 
 
+def _scores(resident, tiled, cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap):
+    """Pad, route and slice back the scoring of ``cands`` (..., n, d)."""
+    n, d = cands.shape[-2:]
+    cap = xs.shape[-2]
+    block_n, block_cap = _resolve_blocks("score", n, cap, d, block_n, block_cap)
+    c = _pad_axis(cands, cands.dim() - 2, _round_up(n, block_n)).contiguous()
+    if block_cap >= cap:
+        out = resident(c, xs.contiguous(), binv.contiguous(), pmat.contiguous(),
+                       lengthscale=lengthscale, prior=prior, block_n=block_n)
+    else:
+        cpad = _round_up(cap, block_cap)
+        out = tiled(c, _pad_axis(xs, xs.dim() - 2, cpad).contiguous(),
+                    _pad_gram(binv, cpad).contiguous(), _pad_gram(pmat, cpad).contiguous(),
+                    lengthscale=lengthscale, prior=prior, block_n=block_n, block_cap=block_cap)
+    return out[..., :n]
+
+
+def _grad(resident, tiled, cands, xs, alpha, lengthscale, block_n, block_cap):
+    """Pad, route and slice back the gradient mean at ``cands`` (..., n, d)."""
+    n, d = cands.shape[-2:]
+    cap = xs.shape[-2]
+    block_n, block_cap = _resolve_blocks("grad", n, cap, d, block_n, block_cap)
+    c = _pad_axis(cands, cands.dim() - 2, _round_up(n, block_n)).contiguous()
+    if block_cap >= cap:
+        out = resident(c, xs.contiguous(), alpha.contiguous(), lengthscale=lengthscale,
+                       block_n=block_n)
+    else:
+        cpad = _round_up(cap, block_cap)
+        out = tiled(c, _pad_axis(xs, xs.dim() - 2, cpad).contiguous(),
+                    _pad_axis(alpha, alpha.dim() - 1, cpad).contiguous(),
+                    lengthscale=lengthscale, block_n=block_n, block_cap=block_cap)
+    return out[..., :n, :]
+
+
 def uncertainty_scores_clients(
     cands: torch.Tensor,
     xs: torch.Tensor,
@@ -62,21 +97,26 @@ def uncertainty_scores_clients(
     block_cap: int | None = None,
 ) -> torch.Tensor:
     """Client-batched uncertainty scores: (N, n, d) -> (N, n)."""
-    n, d = cands.shape[1:]
-    cap = xs.shape[1]
-    block_n, block_cap = _resolve_blocks("score", n, cap, d, block_n, block_cap)
-    c = _pad_axis(cands, 1, _round_up(n, block_n)).contiguous()
-    if block_cap >= cap:
-        out = gp_score.uncertainty_scores_resident(
-            c, xs.contiguous(), binv.contiguous(), pmat.contiguous(),
-            lengthscale=lengthscale, prior=prior, block_n=block_n)
-    else:
-        cpad = _round_up(cap, block_cap)
-        out = gp_score.uncertainty_scores_tiled(
-            c, _pad_axis(xs, 1, cpad).contiguous(), _pad_gram(binv, cpad).contiguous(),
-            _pad_gram(pmat, cpad).contiguous(), lengthscale=lengthscale, prior=prior,
-            block_n=block_n, block_cap=block_cap)
-    return out[:, :n]
+    return _scores(gp_score.uncertainty_scores_resident, gp_score.uncertainty_scores_tiled,
+                   cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap)
+
+
+def uncertainty_scores(
+    cands: torch.Tensor,
+    xs: torch.Tensor,
+    binv: torch.Tensor,
+    pmat: torch.Tensor,
+    *,
+    lengthscale: float,
+    prior: float,
+    block_n: int | None = None,
+    block_cap: int | None = None,
+) -> torch.Tensor:
+    """One client's uncertainty scores: (n, d) candidates, xs (cap, d),
+    B and P (cap, cap) -> (n,)."""
+    return _scores(gp_score.uncertainty_scores_single_resident,
+                   gp_score.uncertainty_scores_single_tiled,
+                   cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap)
 
 
 def grad_mean_clients(
@@ -90,16 +130,20 @@ def grad_mean_clients(
 ) -> torch.Tensor:
     """Client-batched gradient mean: (N, n, d) -> (N, n, d); ``alpha`` (N, cap)
     must already carry each client's validity mask."""
-    n, d = cands.shape[1:]
-    cap = xs.shape[1]
-    block_n, block_cap = _resolve_blocks("grad", n, cap, d, block_n, block_cap)
-    c = _pad_axis(cands, 1, _round_up(n, block_n)).contiguous()
-    if block_cap >= cap:
-        out = gp_grad.grad_mean_resident(
-            c, xs.contiguous(), alpha.contiguous(), lengthscale=lengthscale, block_n=block_n)
-    else:
-        cpad = _round_up(cap, block_cap)
-        out = gp_grad.grad_mean_tiled(
-            c, _pad_axis(xs, 1, cpad).contiguous(), _pad_axis(alpha, 1, cpad).contiguous(),
-            lengthscale=lengthscale, block_n=block_n, block_cap=block_cap)
-    return out[:, :n, :]
+    return _grad(gp_grad.grad_mean_resident, gp_grad.grad_mean_tiled,
+                 cands, xs, alpha, lengthscale, block_n, block_cap)
+
+
+def grad_mean_batch(
+    cands: torch.Tensor,
+    xs: torch.Tensor,
+    alpha: torch.Tensor,
+    *,
+    lengthscale: float,
+    block_n: int | None = None,
+    block_cap: int | None = None,
+) -> torch.Tensor:
+    """One client's gradient mean: (n, d) queries, xs (cap, d) -> (n, d);
+    ``alpha`` (cap,) must already carry the validity mask."""
+    return _grad(gp_grad.grad_mean_single_resident, gp_grad.grad_mean_single_tiled,
+                 cands, xs, alpha, lengthscale, block_n, block_cap)

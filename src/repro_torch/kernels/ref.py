@@ -1,10 +1,11 @@
-"""Plain torch oracles of the client-batched GP kernels (port of
-``repro.kernels.ref``).
+"""Plain torch oracles of the GP kernels (port of ``repro.kernels.ref``).
 
 They are the numerical ground truth of the port's CUDA kernels and the
-path a CPU tensor takes through ``kernels.ops``.  Shapes carry a leading
-client axis N: candidates (N, n, d), trajectory xs (N, cap, d), the masked
-Gram inverse B and P = B o XX^T (N, cap, cap), alpha (N, cap).
+path a CPU tensor takes through ``kernels.ops``.  The ``*_clients`` forms
+carry a leading client axis N: candidates (N, n, d), trajectory xs
+(N, cap, d), the masked Gram inverse B and P = B o XX^T (N, cap, cap),
+alpha (N, cap).  ``uncertainty_scores`` and ``grad_mean_batch`` are the
+single-client forms: the same shapes without N.
 """
 
 from __future__ import annotations
@@ -61,3 +62,15 @@ def grad_mean_clients(cands, xs, alpha, lengthscale: float):
     w = h * alpha[:, None, :]
     out = torch.einsum("bnc,bcd->bnd", w, xs) - torch.sum(w, dim=-1, keepdim=True) * cands
     return (out / (lengthscale**2)).to(cands.dtype)
+
+
+def uncertainty_scores(cands, xs, binv, pmat, lengthscale: float, prior: float):
+    """Single-client textbook scores: (n, d) -> (n,)."""
+    return uncertainty_scores_clients(cands[None], xs[None], binv[None], pmat[None],
+                                      lengthscale, prior)[0]
+
+
+def grad_mean_batch(cands, xs, alpha, lengthscale: float):
+    """Single-client posterior gradient mean J(c)^T alpha (eq. 5):
+    (n, d) -> (n, d), with the validity mask already folded into alpha."""
+    return grad_mean_clients(cands[None], xs[None], alpha[None], lengthscale)[0]

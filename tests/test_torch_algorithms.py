@@ -1,15 +1,18 @@
-"""The port's FZooS engine against the reference, end to end.
+"""The port's round engines against the reference, end to end.
 
 Torch cannot replay JAX's threefry streams, so the reference's draws are
 recorded from its own key schedule and injected into the port through its
 draw source: ``simulate``'s split into (init, rff, rounds) keys,
-``init_states``' per-client split, the local step's 4-way split (noise of
-the iterate's query from the 2nd key, candidate deltas from the 3rd, the
-picks' noise from ``split(fold_in(k_act, 1))``), the round end's 2-way
-split (``fold_in(k_act, 2)``), and ``normal(key, ())`` for every query's
-noise.  With the same draws, the same objective and the same bank, the two
-engines differ only in f32 reassociation, which can move a near-tied
-candidate pick; query accounting must match exactly.
+``init_states``' per-client split, the local step's 4-way split (FZooS:
+noise of the iterate's query from the 2nd key, candidate deltas from the
+3rd, the picks' noise from ``split(fold_in(k_act, 1))``; the FD family:
+the 4th key split into the estimate's key and the directions' key, then
+``fd_grad``'s split into the base query's key and the Q perturbed ones),
+the FZooS round end's 2-way split (``fold_in(k_act, 2)``), scaffold1's
+3-way prologue split, and ``normal(key, ())`` for every query's noise.
+With the same draws, the same objective and the same bank, the two sides
+differ only in f32 reassociation, which can move a near-tied candidate
+pick; query accounting must match exactly.
 
 Divergence bound: |F_port - F_ref| <= 1e-3 and |x_port - x_ref| <= 1e-2 per
 round.  At these sizes the observed divergence is about 2e-5 in F and 3e-4
@@ -45,7 +48,7 @@ class RecordedDraws:
 
     def __init__(self, bank=None):
         self.banks = [] if bank is None else [bank]
-        self.deltas_, self.noise_ = [], []
+        self.deltas_, self.noise_, self.directions_ = [], [], []
 
     def bank(self, m, d):
         return self.banks.pop(0)
@@ -60,28 +63,71 @@ class RecordedDraws:
         assert out.shape == (N, k)
         return out
 
+    def directions(self, q, d):
+        out = self.directions_.pop(0)
+        assert out.shape == (N, q, d)
+        return out
+
     def exhausted(self):
-        return not (self.banks or self.deltas_ or self.noise_)
+        return not (self.banks or self.deltas_ or self.noise_ or self.directions_)
+
+
+_split = lambda keys, n: jax.vmap(lambda k: jax.random.split(k, n))(keys)
+_normal = jax.vmap(jax.vmap(lambda k: jax.random.normal(k, ())))
+
+
+def _record_fd(cfg, kd, kf, rec):
+    """One FD estimate's draws: ``sample_directions(kd)`` and ``fd_grad``'s
+    split of kf into the base query's key and the Q perturbed queries' keys."""
+    rec.directions_.append(T(jax.vmap(lambda k: jax.random.normal(k, (cfg.q, cfg.dim)))(kd)))
+    kb = _split(kf, 2)
+    rec.noise_.append(T(jnp.concatenate(
+        [_normal(kb[:, :1]), _normal(_split(kb[:, 1], cfg.q))], axis=1)))
 
 
 def _record_round(cfg, keys, rec):
     """Append one round of the reference's draws; return the advanced keys."""
+    if not cfg.is_fzoos:
+        if cfg.name == "scaffold1":  # the prologue's 3-way split
+            ks = _split(keys, 3)
+            keys = ks[:, 0]
+            _record_fd(cfg, ks[:, 1], ks[:, 2], rec)
+        for _ in range(cfg.local_steps):
+            ks = _split(keys, 4)
+            keys = ks[:, 0]
+            k_est = _split(ks[:, 3], 2)  # (key, kd) of _estimate_gradient
+            _record_fd(cfg, k_est[:, 1], k_est[:, 0], rec)
+        return keys
     unif = jax.vmap(lambda k: jax.random.uniform(
         k, (cfg.active_candidates, cfg.dim), minval=-cfg.active_radius,
         maxval=cfg.active_radius))
-    normal = jax.vmap(jax.vmap(lambda k: jax.random.normal(k, ())))
     picks = lambda ks, salt, n: jax.vmap(
         lambda k: jax.random.split(jax.random.fold_in(k, salt), n))(ks)
     for _ in range(cfg.local_steps):
-        ks = jax.vmap(lambda k: jax.random.split(k, 4))(keys)
+        ks = _split(keys, 4)
         keys = ks[:, 0]
-        rec.noise_.append(T(normal(ks[:, 1][:, None])))
+        rec.noise_.append(T(_normal(ks[:, 1][:, None])))
         rec.deltas_.append(T(unif(ks[:, 2])))
-        rec.noise_.append(T(normal(picks(ks[:, 2], 1, cfg.active_per_iter))))
-    ks = jax.vmap(lambda k: jax.random.split(k, 2))(keys)
+        rec.noise_.append(T(_normal(picks(ks[:, 2], 1, cfg.active_per_iter))))
+    ks = _split(keys, 2)
     rec.deltas_.append(T(unif(ks[:, 1])))
-    rec.noise_.append(T(normal(picks(ks[:, 1], 2, cfg.active_round_end))))
+    rec.noise_.append(T(_normal(picks(ks[:, 1], 2, cfg.active_round_end))))
     return ks[:, 0]
+
+
+def _recorded_simulate_draws(cfg, key, rounds):
+    """Every draw of ``simulate(cfg, key, ...)`` on the reference's key schedule."""
+    k_init, k_rff, _ = jax.random.split(key, 3)
+    rec = RecordedDraws()
+    if cfg.is_fzoos:
+        kv, kb = jax.random.split(k_rff)
+        rec.banks.append((T(jax.random.normal(kv, (cfg.n_features, cfg.dim))),
+                          T(jax.random.uniform(kb, (cfg.n_features,), minval=0.0,
+                                               maxval=2.0 * np.pi))))
+    keys = jax.random.split(k_init, cfg.n_clients)
+    for _ in range(rounds):
+        keys = _record_round(cfg, keys, rec)
+    return rec
 
 
 @pytest.fixture(scope="module")
@@ -100,14 +146,7 @@ def test_simulate_matches_reference(setup):
     want = ralg.simulate(rcfg, key, rq, robj.quadratic_query, robj.quadratic_global_value,
                          rounds, chunk=0,
                          diag_global_grad=lambda x: robj.quadratic_global_grad(rq, x))
-    k_init, k_rff, _ = jax.random.split(key, 3)
-    kv, kb = jax.random.split(k_rff)
-    rec = RecordedDraws((T(jax.random.normal(kv, (cfg.n_features, D))),
-                         T(jax.random.uniform(kb, (cfg.n_features,), minval=0.0,
-                                              maxval=2.0 * np.pi))))
-    keys = jax.random.split(k_init, N)
-    for _ in range(rounds):
-        keys = _record_round(cfg, keys, rec)
+    rec = _recorded_simulate_draws(cfg, key, rounds)
     diag = lambda xs: torch.stack([obj.quadratic_global_grad(q, x) for x in xs])
     got = alg.simulate(cfg, 0, q, obj.quadratic_query, obj.quadratic_global_value, rounds,
                        draws=rec, diag_global_grad=diag, device="cpu")
@@ -187,11 +226,57 @@ def test_simulate_with_its_own_draws_descends(setup):
     assert res.queries.tolist() == [11.0, 22.0]
 
 
-def test_other_engines_are_not_ported_yet(setup):
+# The other engines of ``simulate``, each against the reference's own.  The
+# FZooS engines keep the bounds above.  The FD family runs no solve: F and x
+# follow the same f32 arithmetic up to summation order, and are held to
+# 1e-5, the reference's own loop-vs-scan bound (tests/test_rounds.py).
+FD_KW = dict(dim=D, n_clients=N, local_steps=3, eta=0.01, q=4)
+ENGINES = [
+    pytest.param(dict(KW, defer_repair=False), F_TOL, X_TOL, id="fzoos_per_client"),
+    pytest.param(dict(KW, use_factor_cache=False), F_TOL, X_TOL, id="fzoos_seed"),
+    pytest.param(dict(KW, rff_fit_exact=True), F_TOL, X_TOL, id="fzoos_fit_exact"),
+    pytest.param(dict(KW, rff_fit_exact=True, defer_repair=False), F_TOL, X_TOL,
+                 id="fzoos_per_client_fit_exact"),
+    *(pytest.param(dict(FD_KW, name=name), 1e-5, 1e-5, id=name)
+      for name in ("fedzo", "fedprox", "scaffold1", "scaffold2")),
+]
+
+
+@pytest.mark.parametrize("kw,f_tol,x_tol", ENGINES)
+def test_engine_matches_reference(setup, kw, f_tol, x_tol):
+    """Three rounds of each engine on the reference's injected draws; for
+    FZooS the 16-slot ring wraps as in ``test_simulate_matches_reference``."""
+    _, _, rq, q = setup
+    rcfg, cfg = ralg.AlgoConfig(**kw), alg.AlgoConfig(**kw)
+    key, rounds = jax.random.PRNGKey(3), 3
+    want = ralg.simulate(rcfg, key, rq, robj.quadratic_query, robj.quadratic_global_value,
+                         rounds, chunk=0)
+    rec = _recorded_simulate_draws(cfg, key, rounds)
+    got = alg.simulate(cfg, 0, q, obj.quadratic_query, obj.quadratic_global_value, rounds,
+                       draws=rec, device="cpu")
+    assert rec.exhausted()
+    np.testing.assert_array_equal(got.queries.numpy(), N_(want.queries))
+    assert got.queries[-1].item() == rounds * cfg.queries_per_round()
+    assert cfg.queries_per_round() == rcfg.queries_per_round()
+    assert cfg.comm_floats_per_round() == rcfg.comm_floats_per_round()
+    assert np.isfinite(got.f_values.numpy()).all()
+    np.testing.assert_allclose(got.f_values.numpy(), N_(want.f_values), atol=f_tol)
+    np.testing.assert_allclose(got.xs.numpy(), N_(want.xs), atol=x_tol)
+    np.testing.assert_array_equal(got.repair_rate.numpy(), N_(want.repair_rate))
+    np.testing.assert_allclose(got.refactor_rate.numpy(), N_(want.refactor_rate), atol=1e-6)
+
+
+@pytest.mark.parametrize("kw", [dict(defer_repair=False), dict(use_factor_cache=False)],
+                         ids=["per_client", "seed"])
+def test_non_deferred_engines_never_flag_a_repair(setup, kw):
+    """Only the deferred engine defers repairs: the per-client engine falls
+    back to the eigh inline and the seed engine keeps no factor, so their
+    repair rate is 0 in every round, on the port's own draws."""
     _, cfg, _, q = setup
     import dataclasses
-    for kw in (dict(name="fedzo"), dict(defer_repair=False), dict(rff_fit_exact=True)):
-        c = dataclasses.replace(cfg, **kw)
-        with pytest.raises(NotImplementedError):
-            alg.simulate(c, 0, q, obj.quadratic_query, obj.quadratic_global_value, 1,
-                         device="cpu")
+    c = dataclasses.replace(cfg, traj_capacity=8, **kw)  # the ring wraps in round 1
+    res = alg.simulate(c, 5, q, obj.quadratic_query, obj.quadratic_global_value, 2,
+                       device="cpu")
+    assert res.repair_rate.tolist() == [0.0, 0.0]
+    assert np.isfinite(res.f_values.numpy()).all()
+    assert res.queries.tolist() == [11.0, 22.0]

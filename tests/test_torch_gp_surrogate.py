@@ -49,18 +49,22 @@ def _events(seed, n_clients, n_events, batch, d, clustered=False):
 
 _ref_extend = jax.jit(
     lambda tr, fa, xs, ys: rgp.traj_extend_clients(tr, fa, xs, ys, RHYPER, deferred=True))
+_ref_extend_inline = jax.jit(
+    lambda tr, fa, xs, ys: rgp.traj_extend_clients(tr, fa, xs, ys, RHYPER, deferred=False))
 
 
-def _drive_both(seed, n_clients, cap, d, n_events, batch, clustered=False):
-    """The same append events through the reference (vmapped, deferred)
-    and the port; returns both final (traj, factor) pairs."""
+def _drive_both(seed, n_clients, cap, d, n_events, batch, clustered=False, deferred=True):
+    """The same append events through the reference (vmapped) and the
+    port, both with the deferred or both with the inline factor update;
+    returns both final (traj, factor) pairs."""
     rtraj = jax.vmap(lambda _: rgp.traj_init(cap, d))(jnp.arange(n_clients))
     rfac = jax.vmap(lambda tr: rgp.factor_init(tr, RHYPER))(rtraj)
     traj = gp.traj_init(n_clients, cap, d, "cpu")
     fac = gp.factor_init(traj, HYPER)
+    ref_extend = _ref_extend if deferred else _ref_extend_inline
     for xs, ys in _events(seed, n_clients, n_events, batch, d, clustered):
-        rtraj, rfac = _ref_extend(rtraj, rfac, jnp.asarray(xs), jnp.asarray(ys))
-        traj, fac = gp.traj_extend_clients(traj, fac, T(xs), T(ys), HYPER)
+        rtraj, rfac = ref_extend(rtraj, rfac, jnp.asarray(xs), jnp.asarray(ys))
+        traj, fac = gp.traj_extend_clients(traj, fac, T(xs), T(ys), HYPER, deferred=deferred)
     return (rtraj, rfac), (traj, fac)
 
 
@@ -144,6 +148,150 @@ def test_deferred_updates_match_reference(clustered, cap, batch, n_events):
         _dual(p_unc[b], r_unc[b], u64, prior, well)
     if not clustered:
         assert all(t[3] < 1e3 for t in truth)  # the strict branch really ran
+
+
+@pytest.mark.parametrize("clustered", [False, True], ids=["well_posed", "clustered"])
+@pytest.mark.parametrize("cap,batch,n_events", [(12, 3, 9), (12, 3, 3)],
+                         ids=["wraps", "filling"])
+def test_inline_updates_match_reference(clustered, cap, batch, n_events):
+    """The per-client engine's inline update (``deferred=False``) against the
+    reference's: the same Grams, flags and counters, where the clustered
+    ring makes the clamped-eigh fallback fire; then the single-client
+    cached functions of every client under the Sec. 2.4 rule."""
+    d, nb = 3, 2
+    (rtr, rfa), (tr, fa) = _drive_both(4, nb, cap, d, n_events, batch, clustered,
+                                       deferred=False)
+    np.testing.assert_allclose(fa.gram.numpy(), N_(rfa.gram), atol=1e-5)
+    for f in ("exact", "n_updates", "n_refactors", "needs_repair"):
+        np.testing.assert_array_equal(getattr(fa, f).numpy(), N_(getattr(rfa, f)), err_msg=f)
+    assert not fa.needs_repair.any()
+
+    rng = np.random.default_rng(9)
+    u = rng.uniform(size=(nb, 4, d))
+    xq = (0.4 + 0.005 * u if clustered else 3.0 * u).astype(np.float32)
+    truth = _f64(tr.xs.numpy(), tr.ys.numpy(), tr.valid_mask().numpy(), xq)
+    prior = d / LS**2
+    for b, (a64, g64, u64, cond) in enumerate(truth):
+        rt, rf = (jax.tree_util.tree_map(lambda a: a[b], t) for t in (rtr, rfa))
+        pt, pf = gp.client(tr, b), gp.client(fa, b)
+        alpha = gp.gp_alpha_cached(pt, pf, HYPER)
+        grad = torch.stack([gp.grad_mean_cached(pt, pf, HYPER, T(x)) for x in xq[b]])
+        unc = gp.grad_uncertainty_batch_cached(pt, pf, HYPER, T(xq[b]))
+        r_grad = jnp.stack([rgp.grad_mean_cached(rt, rf, RHYPER, jnp.asarray(x))
+                            for x in xq[b]])
+        well = cond < 1e3
+        _dual(alpha, rgp.gp_alpha_cached(rt, rf, RHYPER), a64, 1.0 + np.abs(a64).max(), well)
+        _dual(grad, r_grad, g64, 1.0 + np.abs(g64).max(), well)
+        _dual(unc, rgp.grad_uncertainty_batch_cached(rt, rf, RHYPER, jnp.asarray(xq[b])), u64,
+              prior, well)
+
+
+@pytest.mark.parametrize("clustered", [False, True], ids=["well_posed", "clustered"])
+def test_seed_eigh_path_matches_reference(clustered):
+    """The from-scratch eigh path of ``use_factor_cache=False`` on six
+    wrapped rings: alpha, the gradient mean (one point and a batch), the
+    scores and the posterior mean; the active-query picks where well posed.
+    On the clustered rings (cond ~1e5) each side's f32 error is noise of
+    either sign from ring to ring, so the Sec. 2.4 rule is applied to the
+    largest error over all six rings, not ring by ring."""
+    d, cap, rings = 3, 10, 6
+    rng = np.random.default_rng(3)
+    got, want, truth, conds = {}, {}, {}, []
+    for _ in range(rings):
+        xs = rng.uniform(size=(cap, d))
+        xs = (0.4 + 0.005 * xs if clustered else 3.0 * xs).astype(np.float32)
+        ys = np.sin(3.0 * xs.sum(-1)).astype(np.float32)
+        rtr = rgp.Trajectory(jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(13, jnp.int32))
+        tr = gp.Trajectory(T(xs), T(ys), torch.tensor(13, dtype=torch.int32))
+        xq = (xs[:6] + 0.003 * rng.standard_normal((6, d))).astype(np.float32)
+        rq = jnp.asarray(xq)
+        a64, g64, u64, cond = _f64(xs[None], ys[None], np.ones((1, cap), np.float32), xq[None])[0]
+        k = np.exp(-0.5 * ((xq[2].astype(np.float64) - xs) ** 2).sum(-1) / LS**2)
+        conds.append(cond)
+        for name, p_, r_, t_ in (
+                ("alpha", gp.gp_alpha(tr, HYPER), rgp.gp_alpha(rtr, RHYPER), a64),
+                ("grad", gp.grad_mean(tr, HYPER, T(xq[0])), rgp.grad_mean(rtr, RHYPER, rq[0]),
+                 g64[0]),
+                ("grad_batch", gp.grad_mean_batch(tr, HYPER, T(xq)),
+                 rgp.grad_mean_batch(rtr, RHYPER, rq), g64),
+                ("trace", gp.grad_uncertainty_trace(tr, HYPER, T(xq[1])),
+                 rgp.grad_uncertainty_trace(rtr, RHYPER, rq[1]), u64[1]),
+                ("scores", gp.grad_uncertainty_batch(tr, HYPER, T(xq)),
+                 rgp.grad_uncertainty_batch(rtr, RHYPER, rq), u64),
+                ("mean", gp.mean_value(tr, HYPER, T(xq[2])), rgp.mean_value(rtr, RHYPER, rq[2]),
+                 k @ a64)):
+            got.setdefault(name, []).append(np.ravel(N_(p_)))
+            want.setdefault(name, []).append(np.ravel(N_(r_)))
+            truth.setdefault(name, []).append(np.ravel(t_))
+        if not clustered:  # the picks follow the scores; near-ties make them fragile otherwise
+            key = jax.random.PRNGKey(8)
+            deltas = jax.random.uniform(key, (12, d), minval=-0.5, maxval=0.5)
+            r_pick = rgp.select_active_queries(key, rtr, RHYPER, jnp.asarray(xs[0]), 12, 3, 0.5)
+            p_pick = gp.select_active_queries(T(deltas), tr, HYPER, T(xs[0]), 3)
+            np.testing.assert_allclose(p_pick.numpy(), N_(r_pick), atol=1e-6)
+    well = max(conds) < 1e3
+    assert well != clustered
+    for name in got:
+        t_ = np.concatenate(truth[name])
+        scale = d / LS**2 if name in ("trace", "scores") else 1.0 + np.abs(t_).max()
+        _dual(np.concatenate(got[name]), np.concatenate(want[name]), t_, scale, well)
+
+
+def test_inline_fallback_matches_reference():
+    """The inline update's clamped-eigh fallback, event by event, against
+    the reference's.  Client 0's cached Gram is poisoned indefinite (one
+    off-diagonal pair set to 5), so every refresh fails the health check on
+    both sides until the ring wraps and overwrites the poisoned rows; the
+    f32 Gram of a real clustered ring at these sizes stays above the pivot
+    floor, where a far-off cluster puts it below only by rounding (the
+    firing events then differ between any two f32 implementations).
+    Client 1 keeps bordering, then refreshes after the wrap."""
+    cap, d = 12, 3
+    (rtr, rfa), (tr, fa) = _drive_both(5, 2, cap, d, 3, 2, deferred=False)
+    bad = fa.gram.clone()
+    bad[0, 0, 1] = bad[0, 1, 0] = 5.0
+    exact = torch.tensor([False, True])
+    fa = fa._replace(gram=bad, exact=exact)
+    rfa = rfa._replace(gram=jnp.asarray(bad.numpy()), exact=jnp.asarray(exact.numpy()))
+    rng = np.random.default_rng(6)
+    fired = []
+    for step in range(8):  # counts 6 -> 14: the ring wraps at the 7th event
+        xs = rng.uniform(size=(2, 1, d)).astype(np.float32)
+        ys = xs.sum(-1)
+        rtr, rfa = _ref_extend_inline(rtr, rfa, jnp.asarray(xs), jnp.asarray(ys))
+        tr, fa = gp.traj_extend_clients(tr, fa, T(xs), T(ys), HYPER, deferred=False)
+        for f in ("exact", "n_updates", "n_refactors", "needs_repair"):
+            np.testing.assert_array_equal(getattr(fa, f).numpy(), N_(getattr(rfa, f)),
+                                          err_msg=f"{f} at step {step}")
+        np.testing.assert_allclose(fa.gram.numpy(), N_(rfa.gram), atol=1e-5)
+        # the solves, against a float64 clamped-eigh solve of the same Gram
+        b = (tr.ys * tr.valid_mask()).numpy()
+        got = gp.factor_solve(fa, T(b)).numpy()
+        want = N_(jax.vmap(rgp.factor_solve)(rfa, jnp.asarray(b)))
+        for c in range(2):
+            w, v = np.linalg.eigh(fa.gram[c].double().numpy())
+            truth = v @ ((v.T @ b[c]) / np.maximum(w, max(NOISE, 1e-4)))
+            _dual(got[c], want[c], truth, 1.0 + np.abs(truth).max(),
+                  well_posed=np.abs(w).max() / np.maximum(np.abs(w).min(), 1e-4) < 1e3)
+        fired.append(fa.exact.tolist())
+    assert fired[0] == [False, True] and fired[-1] == [True, True]
+    assert fa.n_refactors.tolist()[1] == 0 and fa.n_refactors.tolist()[0] >= 6
+
+
+def test_single_client_selection_matches_reference():
+    """``select_active_queries_cached`` of one client, deltas from the
+    reference's key, on the resident and a pinned tiled route."""
+    cap, d = 12, 3
+    (rtr, rfa), (tr, fa) = _drive_both(2, 1, cap, d, 3, 3, deferred=False)
+    rt, rf = (jax.tree_util.tree_map(lambda a: a[0], t) for t in (rtr, rfa))
+    key = jax.random.PRNGKey(6)
+    center = jnp.asarray(rt.xs[4])
+    want = rgp.select_active_queries_cached(key, rt, rf, RHYPER, center, 16, 4, 0.5)
+    deltas = T(jax.random.uniform(key, (16, d), minval=-0.5, maxval=0.5))
+    for pins in (dict(), dict(block_n=4, block_cap=8)):
+        got = gp.select_active_queries_cached(deltas, gp.client(tr, 0), gp.client(fa, 0), HYPER,
+                                              T(center), 4, **pins)
+        np.testing.assert_allclose(got.numpy(), N_(want), atol=1e-6)
 
 
 class _States(NamedTuple):

@@ -1,4 +1,5 @@
-"""Port parity of the client-batched GP kernels (B1-B4) and their wrappers.
+"""Port parity of the GP kernels, client-batched (B1-B4) and single-client
+(B7, B8), and their wrappers.
 
 The same numpy inputs go through the reference ``repro.kernels.ops`` (its
 Pallas kernels in interpret mode via ``force_pallas=True``, and its jnp
@@ -89,6 +90,37 @@ def test_grad_mean_matches_reference(nb, n, d, cap, block_cap):
     _close(got, oracle)
 
 
+@pytest.mark.parametrize("nb,n,d,cap,block_cap", ROUTES)
+def test_single_client_scores_match_reference(nb, n, d, cap, block_cap):
+    """``ops.uncertainty_scores`` (B7a resident, B7b tiled) for one client."""
+    cands, xs, binv, pmat, _ = (a[0] for a in _inputs(1, n, d, cap, seed=cap + 3 * n))
+    prior = d / LS**2
+    bn = None if block_cap is None else 4
+    got = ops.uncertainty_scores(T(cands), T(xs), T(binv), T(pmat), lengthscale=LS,
+                                 prior=prior, block_n=bn, block_cap=block_cap)
+    assert got.shape == (n,)
+    pallas = rops.uncertainty_scores(
+        jnp.asarray(cands), jnp.asarray(xs), jnp.asarray(binv), jnp.asarray(pmat),
+        lengthscale=LS, prior=prior, block_n=8, block_cap=block_cap, force_pallas=True)
+    _close(got, pallas)
+    _close(got, rref.uncertainty_scores(cands, xs, binv, pmat, LS, prior))
+
+
+@pytest.mark.parametrize("nb,n,d,cap,block_cap", ROUTES)
+def test_single_client_grad_mean_matches_reference(nb, n, d, cap, block_cap):
+    """``ops.grad_mean_batch`` (B8a resident, B8b tiled) for one client."""
+    cands, xs, _, _, alpha = (a[0] for a in _inputs(1, n, d, cap, seed=cap + 4 * n))
+    bn = None if block_cap is None else 2
+    got = ops.grad_mean_batch(T(cands), T(xs), T(alpha), lengthscale=LS, block_n=bn,
+                              block_cap=block_cap)
+    assert got.shape == (n, d)
+    pallas = rops.grad_mean_batch(jnp.asarray(cands), jnp.asarray(xs), jnp.asarray(alpha),
+                                  lengthscale=LS, block_n=8, block_cap=block_cap,
+                                  force_pallas=True)
+    _close(got, pallas)
+    _close(got, rref.grad_mean_batch(cands, xs, alpha, LS))
+
+
 def test_torch_oracles_match_reference_oracles():
     """ref.py: textbook and fused scores and the gradient mean, torch vs jnp."""
     cands, xs, binv, pmat, alpha = _inputs(3, 7, 5, 24, seed=11)
@@ -99,6 +131,10 @@ def test_torch_oracles_match_reference_oracles():
            rref.uncertainty_scores_clients_fused(cands, xs, binv, pmat, LS, prior))
     _close(ref.grad_mean_clients(T(cands), T(xs), T(alpha), LS),
            rref.grad_mean_clients(cands, xs, alpha, LS))
+    _close(ref.uncertainty_scores(T(cands[1]), T(xs[1]), T(binv[1]), T(pmat[1]), LS, prior),
+           rref.uncertainty_scores(cands[1], xs[1], binv[1], pmat[1], LS, prior))
+    _close(ref.grad_mean_batch(T(cands[2]), T(xs[2]), T(alpha[2]), LS),
+           rref.grad_mean_batch(cands[2], xs[2], alpha[2], LS))
 
 
 def test_padded_slots_contribute_zero():
@@ -117,11 +153,32 @@ def test_padded_slots_contribute_zero():
     _close(gp_, g)
 
 
+def test_single_client_padded_slots_contribute_zero():
+    """Zero-padding one client's trajectory axis leaves the single-client
+    tiled wrappers' results unchanged."""
+    cands, xs, binv, pmat, alpha = (T(a[0]) for a in _inputs(1, 4, 3, 12, seed=7))
+    kw = dict(lengthscale=LS, prior=3 / LS**2, block_n=4)
+    base = gp_score.uncertainty_scores_single_tiled(cands, xs, binv, pmat, block_cap=12, **kw)
+    padded = gp_score.uncertainty_scores_single_tiled(
+        cands, ops._pad_axis(xs, 0, 16), ops._pad_gram(binv, 16), ops._pad_gram(pmat, 16),
+        block_cap=8, **kw)
+    _close(padded, base)
+    g = gp_grad.grad_mean_single_tiled(cands, xs, alpha, lengthscale=LS, block_n=2,
+                                       block_cap=12)
+    g_pad = gp_grad.grad_mean_single_tiled(cands, ops._pad_axis(xs, 0, 16),
+                                           ops._pad_axis(alpha, 0, 16), lengthscale=LS,
+                                           block_n=2, block_cap=8)
+    _close(g_pad, g)
+
+
 def test_cpu_tensors_launch_nothing():
     cands, xs, binv, pmat, alpha = _inputs(2, 3, 3, 8, seed=1)
     before = dict(gp_score.LAUNCHES), dict(gp_grad.LAUNCHES)
     ops.uncertainty_scores_clients(T(cands), T(xs), T(binv), T(pmat), lengthscale=LS, prior=4.0)
     ops.grad_mean_clients(T(cands), T(xs), T(alpha), lengthscale=LS, block_cap=4, block_n=1)
+    ops.uncertainty_scores(T(cands[0]), T(xs[0]), T(binv[0]), T(pmat[0]), lengthscale=LS,
+                           prior=4.0, block_cap=4, block_n=1)
+    ops.grad_mean_batch(T(cands[1]), T(xs[1]), T(alpha[1]), lengthscale=LS)
     assert (dict(gp_score.LAUNCHES), dict(gp_grad.LAUNCHES)) == before
 
 
@@ -141,6 +198,20 @@ def test_wrappers_check_arguments():
     with pytest.raises(ValueError):
         gp_grad.grad_mean_resident(T(cands), T(xs).transpose(1, 2).contiguous().transpose(1, 2),
                                    T(alpha), lengthscale=LS, block_n=4)
+    with pytest.raises(TypeError):  # the single-client wrappers check the same
+        gp_score.uncertainty_scores_single_tiled(T(cands[0]), T(xs[0]).double(), T(binv[0]),
+                                                 T(pmat[0]), lengthscale=LS, prior=1.0,
+                                                 block_n=4, block_cap=4)
+    with pytest.raises(ValueError):  # binv is not (cap, cap)
+        gp_score.uncertainty_scores_single_resident(T(cands[0]), T(xs[0]), T(binv[0])[:4],
+                                                    T(pmat[0]), lengthscale=LS, prior=1.0,
+                                                    block_n=4)
+    with pytest.raises(ValueError):  # cap=8 is not a multiple of block_cap=3
+        gp_grad.grad_mean_single_tiled(T(cands[0]), T(xs[0]), T(alpha[0]), lengthscale=LS,
+                                       block_n=4, block_cap=3)
+    with pytest.raises(ValueError):  # alpha is not (cap,)
+        gp_grad.grad_mean_single_resident(T(cands[0]), T(xs[0]), T(alpha), lengthscale=LS,
+                                          block_n=4)
 
 
 def test_autotune_is_deterministic_and_fits():
@@ -185,3 +256,15 @@ def test_cuda_kernels_match_plain_versions(block_cap):
     g = ops.grad_mean_clients(c(cands), c(xs), c(alpha), lengthscale=LS, block_n=bn,
                               block_cap=block_cap)
     _close(g.cpu(), ref.grad_mean_clients(T(cands), T(xs), T(alpha), LS))
+    # the single-client kernels (B7, B8) on client 1's inputs
+    before = dict(gp_score.LAUNCHES), dict(gp_grad.LAUNCHES)
+    s1 = ops.uncertainty_scores(c(cands[1]), c(xs[1]), c(binv[1]), c(pmat[1]), lengthscale=LS,
+                                prior=6 / LS**2, block_n=bn, block_cap=block_cap)
+    _close(s1.cpu(), ref.uncertainty_scores(T(cands[1]), T(xs[1]), T(binv[1]), T(pmat[1]), LS,
+                                            6 / LS**2))
+    g1 = ops.grad_mean_batch(c(cands[1]), c(xs[1]), c(alpha[1]), lengthscale=LS, block_n=bn,
+                             block_cap=block_cap)
+    _close(g1.cpu(), ref.grad_mean_batch(T(cands[1]), T(xs[1]), T(alpha[1]), LS))
+    route = "resident" if block_cap is None else "tiled"
+    assert gp_score.LAUNCHES[f"score_single_{route}"] == before[0][f"score_single_{route}"] + 1
+    assert gp_grad.LAUNCHES[f"grad_single_{route}"] == before[1][f"grad_single_{route}"] + 1
