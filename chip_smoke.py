@@ -8,17 +8,22 @@ Phases, each a hard check (any failure exits non-zero):
 1. the card: its name, and name and power limit from ``nvidia-smi``;
 2. the build: the CUDA kernels are compiled from ``src/repro_torch/kernels/csrc``;
 3. every kernel against its plain torch version on inputs built by the
-   port's own GP code, with kernel and plain times and the least time the
-   card could take: the client-batched kernels at the main path's shapes
+   port's own GP code, with kernel and plain times (CUDA events; and the
+   kernel's device time from the profiler) and the least time the card
+   could take: the client-batched kernels at the main path's shapes
    (N=5 clients, n=50 candidates, cap=192, d=300; one query point per
    client for the gradient mean), the single-client ones at the per-client
-   engine's (one client, the same n, cap and d);
+   engine's (one client, the same n, cap and d), the RFF gradient (B5),
+   the RFF features (B6) and the SE Gram (B9) at the main path's shapes
+   (see ``rff_and_gram_specs``);
 4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
    width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
    settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
-   rounds on the card, with the kernel launch counts of that run; then the
-   same engine at a small size on the card and on the CPU (plain versions)
-   with the same draws, which must agree;
+   rounds on the card, with the kernel launch counts of that run (B5, B6
+   and B9 included, ``fzoos_counts``); then the same engine at a small size
+   on the card and on the CPU (plain versions) with the same draws, which
+   must agree (printed beside it: each side's eigh fallbacks per round and
+   the coordinates of x that differ by more than eta/2);
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel and
@@ -26,9 +31,12 @@ Phases, each a hard check (any failure exits non-zero):
 7. the per-client engine (``defer_repair=False``) at the main path's width,
    3 rounds, and 1 round on the pinned cap tiles, with exact launch counts
    of the single-client kernels; the small card-vs-CPU check for it and for
-   the seed engine (``use_factor_cache=False``); one of its rounds profiled;
+   the seed engine (``use_factor_cache=False``); B5, B6 and B9 on the
+   small per-client engine's own inputs, each no less accurate than its
+   plain version against float64 (``check_engine_inputs``); one of its
+   rounds profiled;
 8. the FD baselines (fedzo, fedprox, scaffold1, scaffold2) at d=300, N=5,
-   q=20, 2 rounds each;
+   q=20, 2 rounds each, with no launch but factor_init's SE Gram;
 9. one JSON line describing every kernel, and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -75,6 +83,24 @@ def cuda_ms(fn, reps: int = 100, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of the kernels ``fn()`` launches, per call, summed from a
+    ``torch.profiler`` trace of ``reps`` calls.  Unlike ``cuda_ms`` it does
+    not count the host's time between launches, which bounds ``cuda_ms``
+    from below for kernels shorter than a call's Python and ctypes work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == cuda)
+    return us / 1e3 / reps
 
 
 def path_inputs(dev):
@@ -170,6 +196,7 @@ def check_kernels(dev):
                                                 block_cap=TILE),
          batched(lambda a: gp_grad.grad_mean_tiled_plain(*a, ls, TILE)),
          grad_one, grad_bytes, grad_flops),
+        *rff_and_gram_specs(dev, p),
     ]
     rows = []
     for name, src, replaces, kernel, plain, args, nbytes, flops in specs:
@@ -192,8 +219,11 @@ def check_kernels(dev):
               f"scale {scale:.4g}) {'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
             fail(f"{name} disagrees with its plain version")
+        if "[" in name:  # a further shape of a kernel timed under its own name
+            continue
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(lambda: plain(args))
+        dev_ms = device_ms(kernel)
         bound_b, bound_f = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
         rows.append({
             "name": name, "route": "cuda",
@@ -201,11 +231,73 @@ def check_kernels(dev):
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_b, bound_f),
             "bound_by": "bytes" if bound_b >= bound_f else "operations",
-            "library_ms": None,
+            "library_ms": None, "device_ms": dev_ms,
         })
         print(f"[kernel] {name}: {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
-              f"{max(bound_b, bound_f):.6f} ms ({rows[-1]['bound_by']})", flush=True)
+              f"{max(bound_b, bound_f):.6f} ms ({rows[-1]['bound_by']}); device time "
+              f"{dev_ms:.6f} ms per call (profiler)", flush=True)
     return rows
+
+
+def rff_and_gram_specs(dev, p):
+    """Phase 3 for B5, B6 and B9 at the main path's shapes: the RFF gradient
+    at the N iterates with per-row w (n=5, M=512, d=300), the features of
+    the whole ring (5 x 192 rows) and the SE Gram of an append event (5 new
+    rows against the (5, 192, 300) ring) at l=0.5; the Gram is also held at
+    the iterate's append event (1 row) and at factor_init's (5, 192, 192)
+    init Gram, which are not timed.  Also times the cuBLAS product inside
+    each (the yardstick for a later redesign; no single library call
+    computes these functions)."""
+    from repro_torch.kernels import ref, rff_features, rff_grad, sqexp
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    v = (torch.randn(M, D, generator=g, device=dev) / p["ls"]).contiguous()
+    b = (2 * torch.pi * torch.rand(M, generator=g, device=dev)).contiguous()
+    ws = torch.randn(N_CLIENTS, M, generator=g, device=dev).contiguous()
+    xs = p["xs"]
+    x_it = xs[:, -1].contiguous()  # one iterate per client: (5, 300)
+    rows = xs.reshape(-1, D).contiguous()  # the ring's rows: (960, 300)
+    k_new = xs[:, -5:].contiguous()  # an append event's rows: (5, 5, 300)
+    k_one = xs[:, -1:].contiguous()  # the iterate's append event: (5, 1, 300)
+    ls = p["ls"]
+    n, nr, k = N_CLIENTS, N_CLIENTS * CAP, 5
+    grad_bytes = 4 * (2 * n * D + M * D + M + n * M)
+    feat_bytes = 4 * (nr * D + M * D + M + nr * M)
+    gram_bytes = lambda a, c: 4 * n * (a * D + c * D + a * c)
+    gram_flops = lambda a, c: n * (2 * a * c * D + 2 * (a + c) * D)
+    for name, fn in (
+        ("rff_grad", lambda: torch.addmm(b, x_it, v.T)),
+        ("rff_features", lambda: torch.addmm(b, rows, v.T)),
+        ("sqexp", lambda: torch.bmm(k_new, xs.transpose(1, 2))),
+    ):
+        print(f"[kernel] {name}: its cuBLAS product alone ({'bmm' if name == 'sqexp' else 'addmm'}"
+              f" at the same shapes) {cuda_ms(fn):.6f} ms", flush=True)
+    return [
+        ("rff_grad", "rff_grad.cu", "src/repro/kernels/rff_grad.py:52",
+         lambda: rff_grad.rff_grad_rows(x_it, v, b, ws),
+         lambda a: ref.rff_grad_rows(*a), (x_it, v, b, ws), grad_bytes, 4 * n * M * D),
+        ("rff_features", "rff_features.cu", "src/repro/kernels/rff_features.py:38",
+         lambda: rff_features.rff_features(rows, v, b),
+         lambda a: ref.rff_features(*a), (rows, v, b), feat_bytes, 2 * nr * M * D),
+        ("sqexp", "sqexp.cu", "src/repro/kernels/sqexp.py:33",
+         lambda: sqexp.sqexp_clients(k_new, xs, lengthscale=ls),
+         lambda a: ref.sqexp(*a, ls), (k_new, xs), gram_bytes(k, CAP), gram_flops(k, CAP)),
+        ("sqexp[1 row]", "sqexp.cu", "",
+         lambda: sqexp.sqexp_clients(k_one, xs, lengthscale=ls),
+         lambda a: ref.sqexp(*a, ls), (k_one, xs), 0, 0),
+        ("sqexp[init Gram]", "sqexp.cu", "",
+         lambda: sqexp.sqexp_clients(xs, xs, lengthscale=ls),
+         lambda a: ref.sqexp(*a, ls), (xs, xs), 0, 0),
+    ]
+
+
+def fzoos_counts(cfg, rounds) -> dict:
+    """B5, B6 and B9 launches of ``rounds`` rounds of any FZooS engine: two
+    RFF gradients per local step (on w_global and on w_local), one RFF fit
+    per round, and an SE Gram at factor_init and at every append event (the
+    iterate and the active queries of each step, the round end's)."""
+    t = cfg.local_steps
+    return dict(rff_grad=2 * t * rounds, rff_features=rounds, sqexp=1 + (2 * t + 1) * rounds)
 
 
 def main_config(name="fzoos", **kw):
@@ -218,17 +310,19 @@ def main_config(name="fzoos", **kw):
 
 
 def reset_counts():
-    from repro_torch.kernels import gp_grad, gp_score
+    from repro_torch.kernels import gp_grad, gp_score, rff_features, rff_grad, sqexp
 
-    for table in (gp_score.LAUNCHES, gp_grad.LAUNCHES):
+    for table in (gp_score.LAUNCHES, gp_grad.LAUNCHES, rff_features.LAUNCHES,
+                  rff_grad.LAUNCHES, sqexp.LAUNCHES):
         for k in table:
             table[k] = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import gp_grad, gp_score
+    from repro_torch.kernels import gp_grad, gp_score, rff_features, rff_grad, sqexp
 
-    return {**gp_score.LAUNCHES, **gp_grad.LAUNCHES}
+    return {**gp_score.LAUNCHES, **gp_grad.LAUNCHES, **rff_features.LAUNCHES,
+            **rff_grad.LAUNCHES, **sqexp.LAUNCHES}
 
 
 def expect(**counts) -> dict:
@@ -286,6 +380,17 @@ class SameDraws:
         return self.base.noise(k).to(self.device)
 
 
+def fallback_events(res, cfg) -> list:
+    """Eigh fallbacks of each round, summed over clients, from the history's
+    cumulative rate (n_refactors / n_updates, every client updated at each
+    append event): the per-client engine's inline fallbacks, the deferred
+    engine's repairs; the seed engine keeps no factor (0)."""
+    per_round = cfg.local_steps * (1 + (cfg.active_per_iter > 0)) + (cfg.active_round_end > 0)
+    totals = [0] + [round(rate * cfg.n_clients * per_round * (r + 1))
+                    for r, rate in enumerate(res.refactor_rate.cpu().tolist())]
+    return [b - a for a, b in zip(totals, totals[1:])]
+
+
 def check_small_against_cpu(dev, label="small", **engine):
     """An engine on the card (kernels) and on the CPU (plain versions) on
     the same small input and draws: F within 1e-3, x within 1e-2 per round,
@@ -309,8 +414,81 @@ def check_small_against_cpu(dev, label="small", **engine):
     dx = (cpu.xs - gpu.xs.cpu()).abs().max().item()
     print(f"[{label}] card vs CPU on the same draws: max|dF|={df:.3e} max|dx|={dx:.3e}",
           flush=True)
+    for side, res in (("CPU", cpu), ("card", gpu)):
+        print(f"[{label}] {side} eigh fallbacks per round: {fallback_events(res, cfg)}",
+              flush=True)
+    far = ((cpu.xs - gpu.xs.cpu()).abs() > cfg.eta / 2).sum(-1).tolist()
+    print(f"[{label}] coordinates with |dx| > eta/2 per round: {far}", flush=True)
     if not (df <= 1e-3 and dx <= 1e-2) or not torch.equal(cpu.queries, gpu.queries.cpu()):
         fail("the engine on the card disagrees with the engine on the CPU")
+
+
+def check_engine_inputs(dev, label="engine inputs", **engine):
+    """B5, B6 and B9 on the inputs the small engine of
+    ``check_small_against_cpu`` gives them: every call of one card run is
+    recorded with the kernel's output, then the kernel's output and its
+    plain version's on the card are held against a float64 evaluation of
+    the same call.  A kernel less accurate than its plain version over the
+    run (max error over the calls) fails; so is printed the eq. 8
+    correction, the difference of each step's two B5 calls."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import objectives as obj
+    from repro_torch.kernels import ops, ref
+
+    plain = {
+        "rff_features": lambda x, v, b: ref.rff_features(
+            x.reshape(-1, x.shape[-1]), v, b).reshape(*x.shape[:-1], v.shape[0]),
+        "rff_grad_rows": ref.rff_grad_rows,
+        "sqexp": ref.sqexp,
+    }
+    real = {name: getattr(ops, name) for name in plain}
+    calls = {name: [] for name in plain}
+
+    def recorder(name):
+        def call(*args):
+            out = real[name](*args)
+            keep = lambda a: a.clone() if torch.is_tensor(a) else a
+            calls[name].append((tuple(map(keep, args)), out.clone()))
+            return out
+        return call
+
+    cfg = alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
+                         n_features=32, traj_capacity=16, active_candidates=12,
+                         active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5,
+                         **engine)
+    q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=dev)
+    draws = SameDraws(alg.ClientDraws(2, range(3), "cpu"), dev)
+    try:
+        for name in plain:
+            setattr(ops, name, recorder(name))
+        alg.simulate(cfg, 2, q, obj.quadratic_query, obj.quadratic_global_value, 3,
+                     draws=draws, device=dev)
+    finally:
+        for name in plain:
+            setattr(ops, name, real[name])
+    f64 = lambda args: [a.double() if torch.is_tensor(a) else a for a in args]
+    for name, recs in calls.items():
+        k_err, p_err = [], []
+        for args, out in recs:
+            truth = plain[name](*f64(args))
+            k_err.append((out.double() - truth).abs().max().item())
+            p_err.append((plain[name](*args).double() - truth).abs().max().item())
+        worse = sum(k > p for k, p in zip(k_err, p_err))
+        print(f"[{label}] {name}: {len(recs)} calls, max|out-f64| kernel {max(k_err):.3e} "
+              f"(mean {sum(k_err) / len(k_err):.3e}), plain on the card {max(p_err):.3e} "
+              f"(mean {sum(p_err) / len(p_err):.3e}); kernel less accurate in {worse} calls",
+              flush=True)
+        if max(k_err) > max(p_err):
+            fail(f"{label}: {name} is less accurate than its plain version on the engine's inputs")
+    pairs = calls["rff_grad_rows"]
+    k_err, p_err = [], []
+    for (ag, yg), (al, yl) in zip(pairs[0::2], pairs[1::2]):
+        truth = plain["rff_grad_rows"](*f64(ag)) - plain["rff_grad_rows"](*f64(al))
+        k_err.append(((yg - yl).double() - truth).abs().max().item())
+        diff = plain["rff_grad_rows"](*ag) - plain["rff_grad_rows"](*al)
+        p_err.append((diff.double() - truth).abs().max().item())
+    print(f"[{label}] eq. 8 correction (w_global call - w_local call): max|out-f64| kernel "
+          f"{max(k_err):.3e}, plain on the card {max(p_err):.3e}", flush=True)
 
 
 def profile_round(cfg, cobjs, dev, label="profile") -> None:
@@ -351,7 +529,7 @@ def check_per_client(cobjs, dev) -> dict:
         fail("per-client: the inline engine flagged a repair")
     steps = N_CLIENTS * PER_CLIENT_ROUNDS * cfg.local_steps
     want = expect(score_single_resident=steps + N_CLIENTS * PER_CLIENT_ROUNDS,
-                  grad_single_resident=steps)
+                  grad_single_resident=steps, **fzoos_counts(cfg, PER_CLIENT_ROUNDS))
     if counts != want:
         fail(f"per-client launches {counts}, expected {want}")
 
@@ -361,12 +539,13 @@ def check_per_client(cobjs, dev) -> dict:
           f"{tcounts}", flush=True)
     check_result(tres, tcfg, 1, "per-client tiled", must_fall=False)
     twant = expect(score_single_tiled=N_CLIENTS * (tcfg.local_steps + 1),
-                   grad_single_tiled=N_CLIENTS * tcfg.local_steps)
+                   grad_single_tiled=N_CLIENTS * tcfg.local_steps, **fzoos_counts(tcfg, 1))
     if tcounts != twant:
         fail(f"per-client tiled launches {tcounts}, expected {twant}")
 
     check_small_against_cpu(dev, "small per-client", defer_repair=False)
     check_small_against_cpu(dev, "small seed", use_factor_cache=False)
+    check_engine_inputs(dev, "small per-client engine inputs", defer_repair=False)
     profile_round(cfg, cobjs, dev, "per-client profile")
     return {**counts, **{k: v for k, v in tcounts.items() if v}}
 
@@ -382,8 +561,11 @@ def check_fd_baselines(dev) -> None:
         print(f"[{name}] d={D} N={N_CLIENTS} q={cfg.q}: {FD_ROUNDS} rounds in {secs:.3f} s, "
               f"{1e3 * secs / FD_ROUNDS:.3f} ms/round", flush=True)
         check_result(res, cfg, FD_ROUNDS, name, must_fall=False)
-        if any(counts.values()):
-            fail(f"{name} launched GP kernels: {counts}")
+        # no scoring, gradient-mean or RFF launch; one SE Gram: the init
+        # Gram of factor_init at init_states (cap=1)
+        fd_want = expect(sqexp=1)
+        if counts != fd_want:
+            fail(f"{name} launches {counts}, expected {fd_want}")
 
 
 def main() -> int:
@@ -415,7 +597,8 @@ def main() -> int:
           f"{secs:.3f} s, {1e3 * secs / ROUNDS:.3f} ms/round; launches {main_counts}", flush=True)
     check_result(res, cfg, ROUNDS, "main")
     steps = ROUNDS * cfg.local_steps
-    want = expect(score_resident=steps + ROUNDS, grad_resident=steps)
+    want = expect(score_resident=steps + ROUNDS, grad_resident=steps,
+                  **fzoos_counts(cfg, ROUNDS))
     if main_counts != want:
         fail(f"main path launches {main_counts}, expected {want}")
     check_small_against_cpu(dev)
@@ -427,7 +610,8 @@ def main() -> int:
           f"{other_counts}", flush=True)
     check_result(ores, ocfg, OTHER_ROUNDS, "other")
     osteps = OTHER_ROUNDS * ocfg.local_steps
-    owant = expect(score_tiled=osteps + OTHER_ROUNDS, grad_tiled=osteps)
+    owant = expect(score_tiled=osteps + OTHER_ROUNDS, grad_tiled=osteps,
+                   **fzoos_counts(ocfg, OTHER_ROUNDS))
     if other_counts != owant:
         fail(f"other route launches {other_counts}, expected {owant}")
 

@@ -26,7 +26,11 @@ one client's trajectory and factor (no leading axis; ``client`` cuts one
 out of a stacked batch) and run the single-client kernels.  The seed
 eigh path (``gp_alpha``, ``grad_mean``, ``grad_uncertainty_batch``,
 ``select_active_queries``, ...) refactorizes from scratch on every call,
-single-client and in plain torch, as the reference does.
+single-client, as the reference does; its Jacobians stay plain torch.
+
+Every SE Gram (``sqexp``: the append events' new rows, ``factor_init``,
+the seed path's padded Gram, ``mean_value``) is one launch of the SE Gram
+kernel (B9, ``kernels.ops.sqexp``) in the reference's expanded form.
 """
 
 from __future__ import annotations
@@ -127,12 +131,10 @@ def traj_append_batch(traj: Trajectory, xs: torch.Tensor, ys: torch.Tensor) -> T
 
 
 def sqexp(x1: torch.Tensor, x2: torch.Tensor, lengthscale: float) -> torch.Tensor:
-    """Pairwise SE kernel: (N, a, d), (N, b, d) -> (N, a, b)."""
-    n1 = torch.sum(x1 * x1, dim=-1)
-    n2 = torch.sum(x2 * x2, dim=-1)
-    cross = x1 @ x2.transpose(-1, -2)
-    d2 = torch.clamp(n1[..., :, None] + n2[..., None, :] - 2.0 * cross, min=0.0)
-    return torch.exp(-0.5 * d2 / (lengthscale**2))
+    """Pairwise SE kernel, (N, a, d), (N, b, d) -> (N, a, b) or (a, d),
+    (b, d) -> (a, b): one launch of the SE Gram kernel (B9), in the
+    reference's expanded form max(|x1|^2 + |x2|^2 - 2 x1.x2, 0)."""
+    return ops.sqexp(x1, x2, lengthscale)
 
 
 def _jitter_of(hyper: GPHyper) -> float:

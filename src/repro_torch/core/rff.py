@@ -6,18 +6,26 @@ phi(x) = sqrt(2/M) cos(V x + b),  V_j ~ N(0, I/l^2),  b_j ~ U[0, 2pi],
 and the M-dim weights w = Phi (Khat + s^2 I)^{-1} y (eq. 6) that each
 client sends to the server: ``fit_w_chol`` (the deferred engine), ``fit_w``
 (the clamped eigh of the per-client engines) and ``fit_w_from_factor``
-(``rff_fit_exact``), each for a stacked client batch.  These contractions are plain matrix products;
-they stay plain torch, as the reference leaves them to XLA on this path.
+(``rff_fit_exact``), each for a stacked client batch.
+
+The two contractions with the feature bank run on the port's kernels
+(``kernels.ops``; plain torch on CPU tensors): ``features`` is the RFF
+feature kernel (B6), one launch for a whole (N, cap, d) trajectory batch;
+``grad_features_t_w`` and its ``_batch`` and ``_rows`` forms are the RFF
+gradient kernel (B5).  The eq. 8 correction of the client-batched engine
+takes two ``_rows`` calls per local step, one on ``w_global`` and one on
+``w_local``, with the difference taken after them, as in the reference.
+The Gram solves of the fits stay on ``torch.linalg``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import gp_surrogate as gp
+from repro_torch.kernels import ops
 
 
 class RFFParams(NamedTuple):
@@ -38,8 +46,7 @@ def make_rff(draws, n_features: int, dim: int, lengthscale: float) -> RFFParams:
 
 def features(params: RFFParams, xs: torch.Tensor) -> torch.Tensor:
     """phi(X): (..., n, d) -> (..., n, M)."""
-    proj = xs @ params.v.T + params.b
-    return math.sqrt(2.0 / params.n_features) * torch.cos(proj)
+    return ops.rff_features(xs, params.v, params.b)
 
 
 def grad_features_t_w(params: RFFParams, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -49,14 +56,13 @@ def grad_features_t_w(params: RFFParams, x: torch.Tensor, w: torch.Tensor) -> to
 
 def grad_features_t_w_batch(params: RFFParams, xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One weight vector for every row: xs (n, d), w (M,) -> (n, d)."""
-    return grad_features_t_w_rows(params, xs, w[None, :])
+    return ops.rff_grad(xs, params.v, params.b, w)
 
 
 def grad_features_t_w_rows(params: RFFParams, xs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """Per-row weights: xs (n, d), ws (n, M) -> (n, d); row i is
     grad phi(x_i)^T w_i = -sqrt(2/M) (sin(V x_i + b) o w_i) V."""
-    s = torch.sin(xs @ params.v.T + params.b)
-    return -math.sqrt(2.0 / params.n_features) * ((s * ws) @ params.v)
+    return ops.rff_grad_rows(xs, params.v, params.b, ws)
 
 
 def fit_w_chol(params: RFFParams, traj: gp.Trajectory, hyper: gp.GPHyper,

@@ -1,0 +1,53 @@
+// Squared-exponential Gram on Hopper (B9), client-batched:
+//
+//   K[b][i][j] = exp(-max(|x1_i|^2 + |x2_j|^2 - 2 x1_i . x2_j, 0) / (2 l^2)),
+//   x1 (N, a, d), x2 (N, c, d) -> (N, a, c);  a 2-D call is N = 1.
+//
+// Replaces the Pallas TPU kernel
+//   repro/kernels/sqexp.py  sqexp_kernel
+// and keeps its EXPANDED distance with the clamp at 0 (not direct
+// differences): the reference's padded Gram rounds exactly this way, and
+// with it which append events fail the factor health check.
+//
+// What bounds it on the card: bytes.  At every append event of the main
+// path (N = 5 clients, k = 5 new rows against cap = 192, d = 300) it reads
+// 1.2 MB of trajectory, 0.36 us at 3.35 TB/s, for 2.9 MFLOP.  The body is
+// the product of proj.cuh (its rows kernel for the k <= 16 new rows of an
+// append event: one warp per ring row, the lanes over d; its 64 x 64 tiles
+// at factor_init's cap x cap) with the row norms summed in the same d loop
+// and the distance, clamp and expf fused into the store, so neither the
+// cross products nor the distances go to device memory.
+//
+// Accuracy: the three terms of the expanded distance arrive as compensated
+// pairs (proj.cuh) and are combined by TwoSum, so the distance is rounded
+// once, after the cancellation, where the plain f32 version rounds each
+// term (about 1e-7 of |x|^2 each) before it.  Nearby points are the
+// engine's case: the Gram rows of an append event compare new queries with
+// a ring a few 1e-2 away, and feed a factor of condition 1e5.
+#include "proj.cuh"
+
+namespace fz {
+
+struct SqexpEpilogue {
+  float inv_two_l2;
+  __device__ float operator()(F2 cross, int, int, F2 n1, F2 n2) const {
+    float s1, e1, s2, e2;
+    two_sum(n1.hi, n2.hi, s1, e1);
+    two_sum(s1, -2.f * cross.hi, s2, e2);
+    const float tail = __fadd_rn(__fadd_rn(e1, e2),
+                                 __fadd_rn(__fadd_rn(n1.lo, n2.lo), -2.f * cross.lo));
+    const float d2 = fmaxf(__fadd_rn(s2, tail), 0.f);
+    return expf(-d2 * inv_two_l2);
+  }
+};
+
+}  // namespace fz
+
+// C interface (bound with ctypes by kernels/loader.py).  Shapes: x1 (nb, a, d),
+// x2 (nb, c, d), out (nb, a, c); inv_two_l2 = 1 / (2 l^2).  Returns the
+// cudaError_t of the launch.
+extern "C" int fz_sqexp(const float* x1, const float* x2, float* out, int nb, int a, int c, int d,
+                        float inv_two_l2, void* stream) {
+  return fz::launch_proj<true>(x1, x2, out, nb, a, c, d, fz::SqexpEpilogue{inv_two_l2},
+                               (cudaStream_t)stream);
+}

@@ -25,8 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gp_score.cu", "gp_grad.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("gp_score.cu", "gp_grad.cu", "rff_features.cu", "rff_grad.cu", "sqexp.cu")
+HEADERS = ("common.cuh", "proj.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,6 +45,9 @@ SIGNATURES = {
     "fz_score_single_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     "fz_grad_single_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     "fz_grad_single_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "fz_rff_features": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "fz_rff_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "fz_sqexp": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -1,6 +1,15 @@
-"""Public wrappers of the GP kernels (port of the scoring and gradient-mean
-functions of ``repro.kernels.ops``): client-batched (``*_clients``) and
-single-client (``uncertainty_scores``, ``grad_mean_batch``).
+"""Public wrappers of the port's kernels (port of ``repro.kernels.ops``).
+
+The RFF and SE Gram kernels take their inputs as they are (the kernels
+mask ragged shapes): ``rff_features`` flattens leading axes into rows, so
+one launch covers a whole (N, cap, d) trajectory batch; ``rff_grad`` and
+``rff_grad_rows`` take one w or one w per row; ``sqexp`` takes 2-D or
+client-batched (N, a, d) inputs.  Each makes its inputs contiguous and
+raises ``TypeError`` on inputs that are not f32.
+
+The GP scoring and gradient-mean kernels come client-batched
+(``*_clients``) and single-client (``uncertainty_scores``,
+``grad_mean_batch``).
 
 Each call picks block sizes (``kernels.autotune`` unless pinned; pinned
 pairs are validated), zero-pads the candidate axis to a ``block_n``
@@ -19,6 +28,40 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import autotune, gp_grad, gp_score
+from repro_torch.kernels import rff_features as _rff_features
+from repro_torch.kernels import rff_grad as _rff_grad
+from repro_torch.kernels import sqexp as _sqexp
+
+
+def rff_features(x: torch.Tensor, v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """phi(X) = sqrt(2/M) cos(X V^T + b): (..., n, d) -> (..., n, M), one launch."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    out = _rff_features.rff_features(x.reshape(-1, d).contiguous(), v.contiguous(),
+                                     b.contiguous())
+    return out.reshape(*lead, v.shape[0])
+
+
+def rff_grad(x: torch.Tensor, v: torch.Tensor, b: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """grad phi(X)^T w with one w (M,) for every row: (n, d) -> (n, d)."""
+    return _rff_grad.rff_grad(x.contiguous(), v.contiguous(), b.contiguous(), w.contiguous())
+
+
+def rff_grad_rows(x: torch.Tensor, v: torch.Tensor, b: torch.Tensor,
+                  ws: torch.Tensor) -> torch.Tensor:
+    """Per-row weights: row i is grad phi(x_i)^T w_i, x (n, d), ws (n, M) -> (n, d)."""
+    return _rff_grad.rff_grad_rows(x.contiguous(), v.contiguous(), b.contiguous(),
+                                   ws.contiguous())
+
+
+def sqexp(x1: torch.Tensor, x2: torch.Tensor, lengthscale: float) -> torch.Tensor:
+    """SE Gram: (n, d), (m, d) -> (n, m), or (N, a, d), (N, b, d) -> (N, a, b)."""
+    if x1.dim() != x2.dim() or x1.dim() not in (2, 3):
+        raise ValueError(f"sqexp takes two 2-D or two 3-D inputs, got shapes "
+                         f"{tuple(x1.shape)} and {tuple(x2.shape)}")
+    if x1.dim() == 2:
+        return _sqexp.sqexp_clients(x1[None].contiguous(), x2[None].contiguous(),
+                                    lengthscale=lengthscale)[0]
+    return _sqexp.sqexp_clients(x1.contiguous(), x2.contiguous(), lengthscale=lengthscale)
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,16 +1,52 @@
-"""Plain torch oracles of the GP kernels (port of ``repro.kernels.ref``).
+"""Plain torch oracles of the port's kernels (port of ``repro.kernels.ref``).
 
 They are the numerical ground truth of the port's CUDA kernels and the
-path a CPU tensor takes through ``kernels.ops``.  The ``*_clients`` forms
-carry a leading client axis N: candidates (N, n, d), trajectory xs
-(N, cap, d), the masked Gram inverse B and P = B o XX^T (N, cap, cap),
-alpha (N, cap).  ``uncertainty_scores`` and ``grad_mean_batch`` are the
-single-client forms: the same shapes without N.
+path a CPU tensor takes through ``kernels.ops``.
+
+* The RFF features and gradient contraction: x (n, d), the bank v (M, d)
+  and b (M,); ``rff_grad`` takes one w (M,) for every row,
+  ``rff_grad_rows`` one w per row, ws (n, M).
+* The SE Gram ``sqexp``, 2-D (n, d) x (m, d) or client-batched
+  (N, a, d) x (N, b, d), in the expanded form with the clamp at 0.
+* The GP scoring and gradient mean.  The ``*_clients`` forms carry a
+  leading client axis N: candidates (N, n, d), trajectory xs (N, cap, d),
+  the masked Gram inverse B and P = B o XX^T (N, cap, cap), alpha
+  (N, cap).  ``uncertainty_scores`` and ``grad_mean_batch`` are the
+  single-client forms: the same shapes without N.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def rff_features(x, v, b):
+    """phi(X) = sqrt(2/M) cos(X V^T + b): (n, d), (M, d), (M,) -> (n, M)."""
+    return math.sqrt(2.0 / v.shape[0]) * torch.cos(x @ v.T + b)
+
+
+def rff_grad_rows(x, v, b, ws):
+    """Row i is grad phi(x_i)^T w_i = -sqrt(2/M) (sin(V x_i + b) o w_i) V:
+    x (n, d), ws (n, M) -> (n, d)."""
+    s = torch.sin(x @ v.T + b)
+    return -math.sqrt(2.0 / v.shape[0]) * ((s * ws) @ v)
+
+
+def rff_grad(x, v, b, w):
+    """grad phi(X)^T w with one w (M,) for every row: (n, d) -> (n, d)."""
+    return rff_grad_rows(x, v, b, w[None, :])
+
+
+def sqexp(x1, x2, lengthscale: float):
+    """K = exp(-max(|x1|^2 + |x2|^2 - 2 x1.x2, 0) / 2 l^2):
+    (n, d), (m, d) -> (n, m), or (N, a, d), (N, b, d) -> (N, a, b)."""
+    n1 = torch.sum(x1 * x1, dim=-1)
+    n2 = torch.sum(x2 * x2, dim=-1)
+    cross = x1 @ x2.transpose(-1, -2)
+    d2 = torch.clamp(n1[..., :, None] + n2[..., None, :] - 2.0 * cross, min=0.0)
+    return torch.exp(-0.5 * d2 / (lengthscale**2))
 
 
 def _h_cross(cands: torch.Tensor, xs: torch.Tensor, lengthscale: float):

@@ -280,3 +280,40 @@ def test_non_deferred_engines_never_flag_a_repair(setup, kw):
     assert res.repair_rate.tolist() == [0.0, 0.0]
     assert np.isfinite(res.f_values.numpy()).all()
     assert res.queries.tolist() == [11.0, 22.0]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(KW), dict(KW, defer_repair=False), dict(KW, rff_fit_exact=True),
+    dict(KW, use_factor_cache=False), dict(FD_KW, name="fedzo"), dict(FD_KW, name="scaffold1"),
+], ids=["deferred", "per_client", "fit_exact", "seed", "fedzo", "scaffold1"])
+def test_engines_run_rff_and_gram_through_ops(setup, monkeypatch, kw):
+    """Where every engine computes B5's, B6's and B9's functions, counted on
+    the CPU through the ``ops`` calls that launch them on the card (the
+    launch counts ``chip_smoke.py`` expects): per round of a cached FZooS
+    engine two per-row RFF gradients per local step (w_global and
+    w_local), one RFF fit, an SE Gram per append event (2T + 1), plus one
+    at factor_init; the seed engine's Gram is rebuilt per client at every
+    scoring and gradient; an FD run only builds factor_init's Gram."""
+    from repro_torch.kernels import ops
+
+    _, _, _, q = setup
+    calls = {name: 0 for name in ("rff_features", "rff_grad", "rff_grad_rows", "sqexp")}
+    for name in calls:
+        def spy(*a, _n=name, _f=getattr(ops, name), **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(ops, name, spy)
+    cfg, rounds = alg.AlgoConfig(**kw), 2
+    res = alg.simulate(cfg, 4, q, obj.quadratic_query, obj.quadratic_global_value, rounds,
+                       device="cpu")
+    assert np.isfinite(res.f_values.numpy()).all()
+    t = cfg.local_steps
+    if not cfg.is_fzoos:
+        want = dict(rff_features=0, rff_grad=0, rff_grad_rows=0, sqexp=1)
+    elif cfg.use_factor_cache:
+        want = dict(rff_features=rounds, rff_grad=0, rff_grad_rows=2 * t * rounds,
+                    sqexp=1 + (2 * t + 1) * rounds)
+    else:  # per client: a Gram for each step's scoring and gradient, and the round end's
+        want = dict(rff_features=rounds, rff_grad=0, rff_grad_rows=2 * t * rounds,
+                    sqexp=1 + (2 * t + 1) * N * rounds)
+    assert calls == want

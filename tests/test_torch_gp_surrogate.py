@@ -411,3 +411,40 @@ def test_factor_init_fallback_matches_reference(monkeypatch):
         w, v = np.linalg.eigh(fa.gram[c].double().numpy())
         truth = v @ ((v.T @ b[c]) / np.maximum(w, max(NOISE, 1e-4)))
         _dual(got[c], want[c], truth, 1.0 + np.abs(truth).max(), well_posed=c == 1)
+
+
+def _spy(monkeypatch, module, name):
+    """Count the calls of ``module.name`` for the length of one test."""
+    calls = []
+    real = getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("clustered", [False, True], ids=["well_posed", "clustered"])
+def test_sqexp_routes_through_ops_and_matches_reference(monkeypatch, clustered):
+    """``gp.sqexp`` is one ``ops.sqexp`` call (B9 on the card), client-batched
+    and 2-D, and agrees with the reference's ``sqexp`` per client to 1e-5,
+    the cached Gram's bound (module docstring); so do the Gram rows an
+    append event writes and ``mean_value``, which go through it."""
+    calls = _spy(monkeypatch, ops, "sqexp")
+    (x1, _), (x2, _) = _events(4, 3, 2, 6, 3, clustered)
+    got = gp.sqexp(T(x1), T(x2), LS)
+    assert got.shape == (3, 6, 6) and len(calls) == 1
+    for c in range(3):
+        want = N_(rgp.sqexp(jnp.asarray(x1[c]), jnp.asarray(x2[c]), LS))
+        np.testing.assert_allclose(got[c].numpy(), want, atol=1e-5)
+        np.testing.assert_allclose(gp.sqexp(T(x1[c]), T(x2[c]), LS).numpy(), want, atol=1e-5)
+    assert len(calls) == 4
+    (rtr, rfa), (tr, fa) = _drive_both(5, 2, 8, 3, 2, 3, clustered)
+    assert len(calls) == 4 + 1 + 2  # then factor_init and one per append event
+    np.testing.assert_allclose(fa.gram.numpy(), N_(rfa.gram), atol=1e-5)
+    xq = x1[0, 0]
+    got_m = gp.mean_value(gp.client(tr, 0), HYPER, T(xq)).numpy()
+    want_m = N_(rgp.mean_value(jax.tree_util.tree_map(lambda a: a[0], rtr), RHYPER,
+                               jnp.asarray(xq)))
+    a, _, _, cond = _f64(tr.xs.numpy()[:1], tr.ys.numpy()[:1], tr.valid_mask().numpy()[:1],
+                         xq[None, None])[0]
+    xs64 = tr.xs[0].double().numpy()
+    truth = np.exp(-0.5 * ((xq - xs64) ** 2).sum(-1) / LS**2) * tr.valid_mask()[0].numpy() @ a
+    _dual(got_m, want_m, truth, 1.0 + abs(truth), well_posed=cond < 1e3)

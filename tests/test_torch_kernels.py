@@ -1,5 +1,6 @@
 """Port parity of the GP kernels, client-batched (B1-B4) and single-client
-(B7, B8), and their wrappers.
+(B7, B8), of the RFF feature and gradient kernels (B6, B5) and the SE Gram
+(B9), and of their wrappers.
 
 The same numpy inputs go through the reference ``repro.kernels.ops`` (its
 Pallas kernels in interpret mode via ``force_pallas=True``, and its jnp
@@ -12,7 +13,10 @@ Tolerance: scores and gradients are compared after scaling by
 max(|reference|, 1) with atol 5e-5, the bound the reference's own kernel
 tests use (tests/test_kernels.py): both sides are f32 contractions over cap
 terms in different orders, so they agree to a few f32 ulps of the largest
-partial sum, far inside 5e-5.
+partial sum, far inside 5e-5.  The RFF features, the RFF gradient and the
+SE Gram are held to 2e-5 absolute (after scaling by max(|reference|, 1)),
+the bound the reference's own RFF tests use (tests/test_kernels.py): single
+f32 products over d, then over M, in different orders.
 """
 
 import jax.numpy as jnp
@@ -22,7 +26,11 @@ import torch
 
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
+from repro.core import rff as rrff
 from repro_torch.kernels import autotune, gp_grad, gp_score, ops, ref
+from repro_torch.kernels import rff_features as krff_features
+from repro_torch.kernels import rff_grad as krff_grad
+from repro_torch.kernels import sqexp as ksqexp
 
 ATOL = 5e-5
 LS = 0.7
@@ -41,10 +49,10 @@ def _inputs(nb, n, d, cap, seed):
     return cands, xs, binv, pmat, alpha
 
 
-def _close(got, want):
+def _close(got, want, atol=ATOL):
     want = np.asarray(want)
     scale = max(float(np.abs(want).max()), 1.0)
-    np.testing.assert_allclose(np.asarray(got) / scale, want / scale, atol=ATOL)
+    np.testing.assert_allclose(np.asarray(got) / scale, want / scale, atol=atol)
 
 
 T = lambda a: torch.from_numpy(np.array(a))
@@ -171,15 +179,154 @@ def test_single_client_padded_slots_contribute_zero():
     _close(g_pad, g)
 
 
+# The RFF and SE Gram inputs as the engines build them: points in [0,1]^d
+# (iterates and ring slots near 0.5 for the Gram, so K is far from 0 and
+# 1), the bank v ~ N(0, I/l^2) at l=0.5 (projections of 20-60 at d=300),
+# phases in [0, 2 pi), weights ~ N(0, 1).
+RFF_LS = 0.5
+RFF_ATOL = 2e-5
+
+
+def _rff_inputs(n, d, m, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, d)).astype(np.float32)
+    v = (rng.standard_normal((m, d)) / RFF_LS).astype(np.float32)
+    b = rng.uniform(0.0, 2.0 * np.pi, size=m).astype(np.float32)
+    ws = rng.standard_normal((n, m)).astype(np.float32)
+    return x, v, b, ws
+
+
+def _gram_inputs(nb, a, c, d, seed, center=0.5):
+    rng = np.random.default_rng(seed)
+    x1 = (center + 0.02 * rng.standard_normal((nb, a, d))).astype(np.float32)
+    x2 = (center + 0.02 * rng.standard_normal((nb, c, d))).astype(np.float32)
+    return x1, x2
+
+
+def _gram_truth(x1, x2):
+    a, b = x1.astype(np.float64), x2.astype(np.float64)
+    return np.exp(-0.5 * ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1) / RFF_LS**2)
+
+
+def _close_gram(got, refs, truth):
+    """The expanded distance cancels in f32 where |x|^2 >> |x1 - x2|^2: with
+    points near 0.5 at d=300 (|x|^2 ~ 75, the append events' shape) every
+    f32 Gram sits up to ~2e-4 from the float64 one, by its summation order
+    alone, the reference's Pallas kernel and oracle included.  There the
+    port must be no less accurate than the reference against float64
+    (DESIGN.md Sec. 2.4): within 3x the larger error of the reference's
+    implementations ``refs``, floor 2e-5."""
+    ref_err = max(float(np.abs(np.asarray(r) - truth).max()) for r in refs)
+    assert float(np.abs(np.asarray(got) - truth).max()) <= max(2e-5, 3.0 * ref_err)
+
+
+# (n, d, M): the main path's B5 shape (n=N=5, d=300, M=512), a ragged one
+# with the launcher's M=1000, and a degenerate one.
+RFF_SHAPES = [(5, 300, 512), (7, 33, 1000), (1, 4, 3)]
+
+
+@pytest.mark.parametrize("n,d,m", RFF_SHAPES)
+def test_rff_features_match_reference(n, d, m):
+    """``ops.rff_features`` (B6's plain version) against the reference's
+    Pallas kernel in interpret mode and its jnp oracle, 2-D and with a
+    leading client axis flattened into rows."""
+    x, v, b, _ = _rff_inputs(n, d, m, seed=n + d)
+    got = ops.rff_features(T(x), T(v), T(b))
+    assert got.shape == (n, m)
+    pallas = rops.rff_features(jnp.asarray(x), jnp.asarray(v), jnp.asarray(b), block_n=8,
+                               block_m=128, force_pallas=True)
+    _close(got, pallas, RFF_ATOL)
+    _close(got, rref.rff_features(x, v, b), RFF_ATOL)
+    x3 = np.stack([x, x[::-1]])  # (2, n, d): one launch for both clients' rows
+    got3 = ops.rff_features(T(x3), T(v), T(b))
+    assert got3.shape == (2, n, m)
+    _close(got3[1], rref.rff_features(x[::-1], v, b), RFF_ATOL)
+
+
+@pytest.mark.parametrize("n,d,m", RFF_SHAPES)
+def test_rff_grad_matches_reference(n, d, m):
+    """``ops.rff_grad`` (one w) against the reference's Pallas kernel in
+    interpret mode and its oracle; ``ops.rff_grad_rows`` (one w per row,
+    the engine's form) row by row against the same, and against the
+    reference's ``grad_features_t_w_rows``."""
+    x, v, b, ws = _rff_inputs(n, d, m, seed=2 * n + d)
+    got = ops.rff_grad(T(x), T(v), T(b), T(ws[0]))
+    assert got.shape == (n, d)
+    j = lambda a: jnp.asarray(a)
+    pallas = rops.rff_grad(j(x), j(v), j(b), j(ws[0]), block_n=8, block_m=128,
+                           force_pallas=True)
+    _close(got, pallas, RFF_ATOL)
+    _close(got, rref.rff_grad(x, v, b, ws[0]), RFF_ATOL)
+    rows = ops.rff_grad_rows(T(x), T(v), T(b), T(ws))
+    assert rows.shape == (n, d)
+    bank = rrff.RFFParams(v=j(v), b=j(b))
+    _close(rows, rrff.grad_features_t_w_rows(bank, j(x), j(ws)), RFF_ATOL)
+    for i in range(n):
+        _close(rows[i:i + 1], rops.rff_grad(j(x[i:i + 1]), j(v), j(b), j(ws[i]), block_n=8,
+                                            block_m=128, force_pallas=True), RFF_ATOL)
+
+
+@pytest.mark.parametrize("nb,a,c,d", [(5, 5, 192, 300), (3, 7, 33, 20), (2, 1, 3, 4)],
+                         ids=["append_event", "ragged", "degenerate"])
+def test_sqexp_matches_reference(nb, a, c, d):
+    """``ops.sqexp`` (B9's plain version), client-batched and 2-D, against
+    the reference's Pallas kernel in interpret mode and its oracle, per
+    client: within 2e-5 on points near 0 (no cancellation), and no less
+    accurate than the reference on points near 0.5 (``_close_gram``)."""
+    for center in (0.0, 0.5):
+        x1, x2 = _gram_inputs(nb, a, c, d, seed=a + c + d, center=center)
+        got = ops.sqexp(T(x1), T(x2), RFF_LS)
+        assert got.shape == (nb, a, c)
+        for i in range(nb + 1):  # client i of the batch; then client 0 as a 2-D call
+            g = got[i] if i < nb else ops.sqexp(T(x1[0]), T(x2[0]), RFF_LS)
+            i %= nb
+            pallas = rops.sqexp(jnp.asarray(x1[i]), jnp.asarray(x2[i]), RFF_LS, block_n=8,
+                                block_m=128, force_pallas=True)
+            oracle = rref.sqexp(x1[i], x2[i], RFF_LS)
+            assert g.shape == (a, c)
+            if center == 0.0:
+                _close(g, pallas, RFF_ATOL)
+                _close(g, oracle, RFF_ATOL)
+            else:
+                _close_gram(g, (pallas, oracle), _gram_truth(x1[i], x2[i]))
+
+
+def test_rff_and_gram_oracles_match_reference_oracles():
+    """ref.py's rff_features, rff_grad, rff_grad_rows and sqexp against
+    repro.kernels.ref (and the reference core's per-row form)."""
+    x, v, b, ws = _rff_inputs(6, 9, 40, seed=4)
+    _close(ref.rff_features(T(x), T(v), T(b)), rref.rff_features(x, v, b), RFF_ATOL)
+    _close(ref.rff_grad(T(x), T(v), T(b), T(ws[2])), rref.rff_grad(x, v, b, ws[2]), RFF_ATOL)
+    bank = rrff.RFFParams(v=jnp.asarray(v), b=jnp.asarray(b))
+    _close(ref.rff_grad_rows(T(x), T(v), T(b), T(ws)),
+           rrff.grad_features_t_w_rows(bank, jnp.asarray(x), jnp.asarray(ws)), RFF_ATOL)
+    x1, x2 = _gram_inputs(2, 4, 6, 5, seed=8, center=0.0)
+    _close(ref.sqexp(T(x1[1]), T(x2[1]), RFF_LS), rref.sqexp(x1[1], x2[1], RFF_LS), RFF_ATOL)
+    batched = ref.sqexp(T(x1), T(x2), RFF_LS)
+    for i in range(2):
+        _close(batched[i], rref.sqexp(x1[i], x2[i], RFF_LS), RFF_ATOL)
+
+
+def _all_launches():
+    return {**gp_score.LAUNCHES, **gp_grad.LAUNCHES, **krff_features.LAUNCHES,
+            **krff_grad.LAUNCHES, **ksqexp.LAUNCHES}
+
+
 def test_cpu_tensors_launch_nothing():
     cands, xs, binv, pmat, alpha = _inputs(2, 3, 3, 8, seed=1)
-    before = dict(gp_score.LAUNCHES), dict(gp_grad.LAUNCHES)
+    before = _all_launches()
     ops.uncertainty_scores_clients(T(cands), T(xs), T(binv), T(pmat), lengthscale=LS, prior=4.0)
     ops.grad_mean_clients(T(cands), T(xs), T(alpha), lengthscale=LS, block_cap=4, block_n=1)
     ops.uncertainty_scores(T(cands[0]), T(xs[0]), T(binv[0]), T(pmat[0]), lengthscale=LS,
                            prior=4.0, block_cap=4, block_n=1)
     ops.grad_mean_batch(T(cands[1]), T(xs[1]), T(alpha[1]), lengthscale=LS)
-    assert (dict(gp_score.LAUNCHES), dict(gp_grad.LAUNCHES)) == before
+    x, v, b, ws = (T(a) for a in _rff_inputs(3, 4, 10, seed=1))
+    ops.rff_features(x, v, b)
+    ops.rff_grad(x, v, b, ws[0])
+    ops.rff_grad_rows(x, v, b, ws)
+    ops.sqexp(T(xs), T(xs), LS)
+    ops.sqexp(T(cands[0]), T(xs[0]), LS)
+    assert _all_launches() == before
 
 
 def test_wrappers_check_arguments():
@@ -212,6 +359,27 @@ def test_wrappers_check_arguments():
     with pytest.raises(ValueError):  # alpha is not (cap,)
         gp_grad.grad_mean_single_resident(T(cands[0]), T(xs[0]), T(alpha), lengthscale=LS,
                                           block_n=4)
+    x, v, b, ws = (T(a) for a in _rff_inputs(3, 4, 10, seed=2))
+    with pytest.raises(TypeError):  # the RFF and Gram wrappers take f32 only
+        krff_features.rff_features(x.double(), v, b)
+    with pytest.raises(ValueError):  # b is not (M,)
+        krff_features.rff_features(x, v, b[:5])
+    with pytest.raises(TypeError):
+        krff_grad.rff_grad_rows(x, v, b, ws.double())
+    with pytest.raises(ValueError):  # ws is not (n, M)
+        krff_grad.rff_grad_rows(x, v, b, ws[:2])
+    with pytest.raises(ValueError):  # w is not (M,)
+        krff_grad.rff_grad(x, v, b, ws)
+    with pytest.raises(ValueError):  # v does not match x's d
+        krff_grad.rff_grad(x, v[:, :3].contiguous(), b, ws[0])
+    with pytest.raises(ValueError):
+        krff_grad.rff_grad(x.T.contiguous().T, v, b, ws[0])  # not contiguous
+    with pytest.raises(TypeError):
+        ksqexp.sqexp_clients(T(xs).double(), T(xs).double(), lengthscale=LS)
+    with pytest.raises(ValueError):  # different client counts
+        ksqexp.sqexp_clients(T(xs), T(xs)[:1], lengthscale=LS)
+    with pytest.raises(ValueError):  # ops.sqexp takes two 2-D or two 3-D inputs
+        ops.sqexp(T(xs), T(xs[0]), LS)
 
 
 def test_autotune_is_deterministic_and_fits():
@@ -235,6 +403,19 @@ def test_validate_blocks_rejects_what_the_kernels_cannot_take():
     with pytest.raises(ValueError):  # pinned through ops
         ops.grad_mean_clients(torch.zeros(1, 1, 4), torch.zeros(1, 8, 4), torch.zeros(1, 8),
                               lengthscale=1.0, block_n=5)
+
+
+def test_loader_builds_every_source_and_binds_every_entry():
+    """Every ``csrc`` source and header is in the build (and so in its
+    digest), and every bound entry is an ``extern "C"`` function of one."""
+    from repro_torch.kernels import loader
+
+    assert sorted(p.name for p in loader.CSRC.glob("*.cu")) == sorted(loader.SOURCES)
+    assert sorted(p.name for p in loader.CSRC.glob("*.cuh")) == sorted(loader.HEADERS)
+    text = "".join((loader.CSRC / name).read_text() for name in loader.SOURCES)
+    for entry in (*loader.SIGNATURES, "fz_error_string"):
+        assert f" {entry}(" in text, entry
+    assert {"fz_rff_features", "fz_rff_grad", "fz_sqexp"} <= set(loader.SIGNATURES)
 
 
 def _cuda():
@@ -268,3 +449,31 @@ def test_cuda_kernels_match_plain_versions(block_cap):
     route = "resident" if block_cap is None else "tiled"
     assert gp_score.LAUNCHES[f"score_single_{route}"] == before[0][f"score_single_{route}"] + 1
     assert gp_grad.LAUNCHES[f"grad_single_{route}"] == before[1][f"grad_single_{route}"] + 1
+    for n, d, m in RFF_SHAPES:  # B5, B6 and B9
+        _check_cuda_rff_and_gram(dev, n, d, m)
+
+
+def _check_cuda_rff_and_gram(dev, n, d, m):
+    """B5, B6 and B9 on the card against their plain versions on the CPU,
+    with exact launch counts, and B5 bitwise the same on a second launch
+    (no float atomics)."""
+    x, v, b, ws = _rff_inputs(n, d, m, seed=5)
+    c = lambda a: T(a).to(dev)
+    before = _all_launches()
+    _close(ops.rff_features(c(x), c(v), c(b)).cpu(), ref.rff_features(T(x), T(v), T(b)),
+           RFF_ATOL)
+    g = ops.rff_grad_rows(c(x), c(v), c(b), c(ws))
+    _close(g.cpu(), ref.rff_grad_rows(T(x), T(v), T(b), T(ws)), RFF_ATOL)
+    assert torch.equal(g, ops.rff_grad_rows(c(x), c(v), c(b), c(ws)))
+    _close(ops.rff_grad(c(x), c(v), c(b), c(ws[0])).cpu(),
+           ref.rff_grad(T(x), T(v), T(b), T(ws[0])), RFF_ATOL)
+    x1, x2 = _gram_inputs(3, n, m, d, seed=6)
+    k = ops.sqexp(c(x1), c(x2), RFF_LS).cpu()
+    for i in range(3):
+        _close_gram(k[i], (ref.sqexp(T(x1[i]), T(x2[i]), RFF_LS),), _gram_truth(x1[i], x2[i]))
+    _close_gram(ops.sqexp(c(x1[0]), c(x2[0]), RFF_LS).cpu(),
+                (ref.sqexp(T(x1[0]), T(x2[0]), RFF_LS),), _gram_truth(x1[0], x2[0]))
+    after = _all_launches()
+    assert after["rff_features"] == before["rff_features"] + 1
+    assert after["rff_grad"] == before["rff_grad"] + 3
+    assert after["sqexp"] == before["sqexp"] + 2

@@ -66,6 +66,37 @@ def test_single_point_and_batch_gradient_match_reference():
            rrff.grad_features_t_w_batch(rb, jnp.asarray(xs), jnp.asarray(w)))
 
 
+def test_features_and_gradients_route_through_ops(monkeypatch):
+    """``features`` is one ``ops.rff_features`` call (B6 on the card) for a
+    client-batched (N, cap, d) input, and the three gradient forms are one
+    ``ops.rff_grad`` / ``ops.rff_grad_rows`` call each (B5), all still
+    matching the reference at 1e-5 of the scale."""
+    from repro_torch.kernels import ops
+
+    calls = {}
+    for name in ("rff_features", "rff_grad", "rff_grad_rows"):
+        real = getattr(ops, name)
+        calls[name] = []
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, _f=real: calls[_n].append(1) or _f(*a))
+    rb, pb = _bank()
+    rng = np.random.default_rng(8)
+    xs = rng.uniform(size=(3, 4, 5)).astype(np.float32)
+    ws = rng.standard_normal((4, 48)).astype(np.float32)
+    phi = rff.features(pb, T(xs))
+    assert phi.shape == (3, 4, 48)
+    for c in range(3):
+        _close(phi[c], rrff.features(rb, jnp.asarray(xs[c])))
+    x, j = xs[0], jnp.asarray
+    _close(rff.grad_features_t_w(pb, T(x[1]), T(ws[0])),
+           rrff.grad_features_t_w(rb, j(x[1]), j(ws[0])))
+    _close(rff.grad_features_t_w_batch(pb, T(x), T(ws[1])),
+           rrff.grad_features_t_w_batch(rb, j(x), j(ws[1])))
+    _close(rff.grad_features_t_w_rows(pb, T(x), T(ws)),
+           rrff.grad_features_t_w_rows(rb, j(x), j(ws)))
+    assert {k: len(v) for k, v in calls.items()} == {
+        "rff_features": 1, "rff_grad": 2, "rff_grad_rows": 1}
+
+
 def test_make_rff_from_bank_draws_matches_reference():
     """The port's make_rff, fed the reference's raw draws, gives its bank."""
     key = jax.random.PRNGKey(7)
