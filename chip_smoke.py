@@ -15,7 +15,9 @@ Phases, each a hard check (any failure exits non-zero):
    client for the gradient mean), the single-client ones at the per-client
    engine's (one client, the same n, cap and d), the RFF gradient (B5),
    the RFF features (B6) and the SE Gram (B9) at the main path's shapes
-   (see ``rff_and_gram_specs``);
+   (see ``rff_and_gram_specs``); the cluster kernels of B1 and B3 launched
+   twice for the same bits, beside the cuBLAS products inside them
+   (``cluster_yardsticks``);
 4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
    width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
    settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
@@ -23,18 +25,20 @@ Phases, each a hard check (any failure exits non-zero):
    and B9 included, ``fzoos_counts``); then the same engine at a small size
    on the card and on the CPU (plain versions) with the same draws, which
    must agree (printed beside it: each side's eigh fallbacks per round and
-   the coordinates of x that differ by more than eta/2);
+   the coordinates of x that differ by more than eta/2); B1, B3, B5, B6 and
+   B9 on that small engine's own inputs, each no less accurate than its
+   plain version against float64 (``check_engine_inputs``);
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
-6. one main-path round under ``torch.profiler``: device time by kernel and
-   the device's busy share of the round;
+6. one main-path round under ``torch.profiler``: device time by kernel,
+   each of the port's kernels by name, and the device's busy share of the
+   round;
 7. the per-client engine (``defer_repair=False``) at the main path's width,
    3 rounds, and 1 round on the pinned cap tiles, with exact launch counts
    of the single-client kernels; the small card-vs-CPU check for it and for
-   the seed engine (``use_factor_cache=False``); B5, B6 and B9 on the
-   small per-client engine's own inputs, each no less accurate than its
-   plain version against float64 (``check_engine_inputs``); one of its
-   rounds profiled;
+   the seed engine (``use_factor_cache=False``); B5, B6, B9, B7a and B8a on
+   the small per-client engine's own inputs (``check_engine_inputs``); one
+   of its rounds profiled;
 8. the FD baselines (fedzo, fedprox, scaffold1, scaffold2) at d=300, N=5,
    q=20, 2 rounds each, with no launch but factor_init's SE Gram;
 9. one JSON line describing every kernel, and the result line.
@@ -63,6 +67,9 @@ F32_FLOPS_S = 67e12
 # Main path: Appx. E.1 width and the fig1 full settings.
 D, N_CLIENTS, CAP, CANDS, M = 300, 5, 192, 50, 512
 ROUNDS, OTHER_ROUNDS = 5, 2
+#: Kernels phase 3 launches a second time to show the same bits (the
+#: cluster kernels reduce across blocks in a fixed order, with no atomics).
+REPEATED = ("score_resident", "grad_resident")
 PER_CLIENT_ROUNDS, FD_ROUNDS = 3, 2
 TILE = 64  # the cap tile pinned for the other route
 
@@ -138,15 +145,19 @@ def check_kernels(dev):
 
     p = path_inputs(dev)
     ls, prior = p["ls"], p["prior"]
-    bn_s, _ = autotune.select_blocks("score", n=CANDS, cap=CAP, d=D)
-    bn_g, _ = autotune.select_blocks("grad", n=1, cap=CAP, d=D)
-    c_pad = ops._pad_axis(p["cands"], 1, -(-CANDS // bn_s) * bn_s).contiguous()
-    score_args = (c_pad, p["xs_sh"], p["binv"], p["pmat"])
+    # block sizes as kernels.ops picks them: the client-batched kernels
+    # (their resident route is the cluster kernel) and the single-client ones
+    bn_s, _ = autotune.select_blocks("score_clients", n=CANDS, cap=CAP, d=D)
+    bn_g, _ = autotune.select_blocks("grad_clients", n=1, cap=CAP, d=D)
+    bn_s1, _ = autotune.select_blocks("score", n=CANDS, cap=CAP, d=D)
+    bn_g1, _ = autotune.select_blocks("grad", n=1, cap=CAP, d=D)
+    pad = lambda bn: ops._pad_axis(p["cands"], 1, -(-CANDS // bn) * bn).contiguous()
+    score_args = (pad(bn_s), p["xs_sh"], p["binv"], p["pmat"])
     grad_args = (p["query"], p["xs"], p["alpha"])
     f64 = lambda args: tuple(a.double() for a in args)
 
     # one client's inputs for the single-client kernels
-    score_one = tuple(a[0] for a in score_args)
+    score_one = (pad(bn_s1)[0], *(a[0] for a in score_args[1:]))
     grad_one = tuple(a[0] for a in grad_args)
     batched = lambda plain: (lambda a: plain(tuple(t[None] for t in a))[0])
 
@@ -178,26 +189,27 @@ def check_kernels(dev):
          grad_args, nc * grad_bytes, nc * grad_flops),
         ("score_single_resident", "gp_score.cu", "src/repro/kernels/gp_score.py:118",
          lambda: gp_score.uncertainty_scores_single_resident(*score_one, lengthscale=ls,
-                                                             prior=prior, block_n=bn_s),
+                                                             prior=prior, block_n=bn_s1),
          lambda a: ref.uncertainty_scores(*a, ls, prior),
          score_one, score_bytes, score_flops),
         ("score_single_tiled", "gp_score.cu", "src/repro/kernels/gp_score.py:298",
          lambda: gp_score.uncertainty_scores_single_tiled(*score_one, lengthscale=ls,
-                                                          prior=prior, block_n=bn_s,
+                                                          prior=prior, block_n=bn_s1,
                                                           block_cap=TILE),
          batched(lambda a: gp_score.scores_tiled_plain(*a, ls, prior, TILE)),
          score_one, score_bytes, score_flops),
         ("grad_single_resident", "gp_grad.cu", "src/repro/kernels/gp_grad.py:92",
-         lambda: gp_grad.grad_mean_single_resident(*grad_one, lengthscale=ls, block_n=bn_g),
+         lambda: gp_grad.grad_mean_single_resident(*grad_one, lengthscale=ls, block_n=bn_g1),
          lambda a: ref.grad_mean_batch(*a, ls),
          grad_one, grad_bytes, grad_flops),
         ("grad_single_tiled", "gp_grad.cu", "src/repro/kernels/gp_grad.py:242",
-         lambda: gp_grad.grad_mean_single_tiled(*grad_one, lengthscale=ls, block_n=bn_g,
+         lambda: gp_grad.grad_mean_single_tiled(*grad_one, lengthscale=ls, block_n=bn_g1,
                                                 block_cap=TILE),
          batched(lambda a: gp_grad.grad_mean_tiled_plain(*a, ls, TILE)),
          grad_one, grad_bytes, grad_flops),
         *rff_and_gram_specs(dev, p),
     ]
+    cluster_yardsticks(p, score_args, grad_args)
     rows = []
     for name, src, replaces, kernel, plain, args, nbytes, flops in specs:
         got = kernel()
@@ -219,6 +231,11 @@ def check_kernels(dev):
               f"scale {scale:.4g}) {'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
             fail(f"{name} disagrees with its plain version")
+        if name in REPEATED:  # no float atomics: a second launch gives the same bits
+            same = torch.equal(got, kernel())
+            print(f"[kernel] {name}: second launch bitwise the same: {same}", flush=True)
+            if not same:
+                fail(f"{name} gave other bits on a second launch")
         if "[" in name:  # a further shape of a kernel timed under its own name
             continue
         ms = cuda_ms(kernel)
@@ -237,6 +254,30 @@ def check_kernels(dev):
               f"{max(bound_b, bound_f):.6f} ms ({rows[-1]['bound_by']}); device time "
               f"{dev_ms:.6f} ms per call (profiler)", flush=True)
     return rows
+
+
+def cluster_yardsticks(p, score_args, grad_args) -> None:
+    """The cuBLAS products inside B1 and B3 at the main path's shapes,
+    timed by CUDA events as a yardstick for the cluster kernels (the port
+    never calls them; no single library call computes either function):
+    for B1 H @ [P | B] (5, 56, 192) x (5, 192, 384) and C @ X^T
+    (5, 56, 300) x (5, 300, 192), for B3 (h o alpha) @ X (5, 1, 192) x
+    (5, 192, 300)."""
+    from repro_torch.kernels import ref
+
+    cands, xs_sh, binv, pmat = score_args
+    h = ref._h_cross(cands, xs_sh, p["ls"])[0].contiguous()
+    pb = torch.cat([pmat, binv], dim=-1).contiguous()
+    xt = xs_sh.transpose(1, 2).contiguous()
+    query, xs, alpha = grad_args
+    w = (ref._h_cross(query, xs, p["ls"])[0] * alpha[:, None, :]).contiguous()
+    for name, what, fn in (
+        ("score_resident", "bmm H [P|B]", lambda: torch.bmm(h, pb)),
+        ("score_resident", "bmm C X^T", lambda: torch.bmm(cands, xt)),
+        ("grad_resident", "bmm (h o alpha) X", lambda: torch.bmm(w, xs)),
+    ):
+        print(f"[kernel] {name}: yardstick cuBLAS {what} at the same shapes {cuda_ms(fn):.6f} ms "
+              f"(events), {device_ms(fn):.6f} ms (profiler)", flush=True)
 
 
 def rff_and_gram_specs(dev, p):
@@ -423,14 +464,16 @@ def check_small_against_cpu(dev, label="small", **engine):
         fail("the engine on the card disagrees with the engine on the CPU")
 
 
-def check_engine_inputs(dev, label="engine inputs", **engine):
-    """B5, B6 and B9 on the inputs the small engine of
-    ``check_small_against_cpu`` gives them: every call of one card run is
-    recorded with the kernel's output, then the kernel's output and its
-    plain version's on the card are held against a float64 evaluation of
-    the same call.  A kernel less accurate than its plain version over the
-    run (max error over the calls) fails; so is printed the eq. 8
-    correction, the difference of each step's two B5 calls."""
+def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
+    """B5, B6, B9 and the scoring and gradient-mean ops (B1/B3 on the
+    deferred engine, B7a/B8a on the per-client one) on the inputs the small
+    engine of ``check_small_against_cpu`` gives them: every call of one
+    card run is recorded, keyword arguments included, with the kernel's
+    output, then the kernel's output and its plain version's on the card
+    are held against a float64 evaluation of the same call.  A kernel less
+    accurate than its plain version over the run (max error over the
+    calls) fails; so is printed the eq. 8 correction, the difference of
+    each step's two B5 calls.  Returns the number of calls of each op."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core import objectives as obj
     from repro_torch.kernels import ops, ref
@@ -440,15 +483,22 @@ def check_engine_inputs(dev, label="engine inputs", **engine):
             x.reshape(-1, x.shape[-1]), v, b).reshape(*x.shape[:-1], v.shape[0]),
         "rff_grad_rows": ref.rff_grad_rows,
         "sqexp": ref.sqexp,
+        # the block pins (block_n, block_cap) choose a route, not the function
+        "uncertainty_scores_clients": lambda *a, lengthscale, prior, **_:
+            ref.uncertainty_scores_clients_fused(*a, lengthscale, prior),
+        "grad_mean_clients": lambda *a, lengthscale, **_: ref.grad_mean_clients(*a, lengthscale),
+        "uncertainty_scores": lambda *a, lengthscale, prior, **_:
+            ref.uncertainty_scores(*a, lengthscale, prior),
+        "grad_mean_batch": lambda *a, lengthscale, **_: ref.grad_mean_batch(*a, lengthscale),
     }
     real = {name: getattr(ops, name) for name in plain}
     calls = {name: [] for name in plain}
 
     def recorder(name):
-        def call(*args):
-            out = real[name](*args)
+        def call(*args, **kwargs):
+            out = real[name](*args, **kwargs)
             keep = lambda a: a.clone() if torch.is_tensor(a) else a
-            calls[name].append((tuple(map(keep, args)), out.clone()))
+            calls[name].append((tuple(map(keep, args)), kwargs, out.clone()))
             return out
         return call
 
@@ -468,11 +518,14 @@ def check_engine_inputs(dev, label="engine inputs", **engine):
             setattr(ops, name, real[name])
     f64 = lambda args: [a.double() if torch.is_tensor(a) else a for a in args]
     for name, recs in calls.items():
+        if not recs:
+            print(f"[{label}] {name}: 0 calls", flush=True)
+            continue
         k_err, p_err = [], []
-        for args, out in recs:
-            truth = plain[name](*f64(args))
+        for args, kwargs, out in recs:
+            truth = plain[name](*f64(args), **kwargs)
             k_err.append((out.double() - truth).abs().max().item())
-            p_err.append((plain[name](*args).double() - truth).abs().max().item())
+            p_err.append((plain[name](*args, **kwargs).double() - truth).abs().max().item())
         worse = sum(k > p for k, p in zip(k_err, p_err))
         print(f"[{label}] {name}: {len(recs)} calls, max|out-f64| kernel {max(k_err):.3e} "
               f"(mean {sum(k_err) / len(k_err):.3e}), plain on the card {max(p_err):.3e} "
@@ -482,13 +535,14 @@ def check_engine_inputs(dev, label="engine inputs", **engine):
             fail(f"{label}: {name} is less accurate than its plain version on the engine's inputs")
     pairs = calls["rff_grad_rows"]
     k_err, p_err = [], []
-    for (ag, yg), (al, yl) in zip(pairs[0::2], pairs[1::2]):
+    for (ag, _, yg), (al, _, yl) in zip(pairs[0::2], pairs[1::2]):
         truth = plain["rff_grad_rows"](*f64(ag)) - plain["rff_grad_rows"](*f64(al))
         k_err.append(((yg - yl).double() - truth).abs().max().item())
         diff = plain["rff_grad_rows"](*ag) - plain["rff_grad_rows"](*al)
         p_err.append((diff.double() - truth).abs().max().item())
     print(f"[{label}] eq. 8 correction (w_global call - w_local call): max|out-f64| kernel "
           f"{max(k_err):.3e}, plain on the card {max(p_err):.3e}", flush=True)
+    return calls
 
 
 def profile_round(cfg, cobjs, dev, label="profile") -> None:
@@ -511,6 +565,11 @@ def profile_round(cfg, cobjs, dev, label="profile") -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     print(events.table(sort_by="self_device_time_total", row_limit=25), flush=True)
+    for e in kernels:  # the port's own kernels by name, wherever they rank
+        name = e.key.split("(")[0].removeprefix("void ")
+        if name.startswith("fz::"):
+            print(f"[{label}] {name}: {e.count} launches, "
+                  f"{e.self_device_time_total / 1e3:.3f} ms device", flush=True)
     print(f"[{label}] one round: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {launches} device kernels", flush=True)
 
@@ -602,6 +661,7 @@ def main() -> int:
     if main_counts != want:
         fail(f"main path launches {main_counts}, expected {want}")
     check_small_against_cpu(dev)
+    check_engine_inputs(dev, "small engine inputs")
     profile_round(cfg, cobjs, dev)
 
     ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)

@@ -1,21 +1,40 @@
-"""Block sizes of the GP kernels on Hopper.
+"""Block sizes and launch geometry of the GP kernels on Hopper.
 
 ``select_blocks(kind, ...)`` returns ``(block_n, block_cap)`` for the
-scoring ("score") or gradient-mean ("grad") kernels; ``block_cap >= cap``
-routes to the resident kernel, a smaller one to the cap-tiled kernel
-(``kernels.ops``).  The choice is a pure function of the per-client shape
-(n, cap, d), so it is deterministic, needs no cache, and serves the
-single-client kernels (one client) and the client-batched ones alike: a
-block never spans clients.  The budget is the shared memory one
-block may use on an H100 (227 KB); what a block keeps there is the
-candidate tile (block_n x d), and per route
+scoring or gradient-mean kernels; ``block_cap >= cap`` routes to the
+resident kernel, a smaller one to the cap-tiled kernel (``kernels.ops``).
+The kinds are "score" and "grad" for the single-client kernels and
+"score_clients" and "grad_clients" for the client-batched ones, whose
+resident route is a different kernel (a thread block cluster per client
+and candidate tile) with its own shared memory; their cap-tiled route is
+the single-client kernels' body and budget.  The choice is a pure function
+of the kind and the per-client shape (n, cap, d), so it is deterministic
+and needs no cache.  The budget is the shared memory one block may use on
+an H100 (227 KB); what a block keeps there, per route:
 
-* score resident: h and c.x over the whole trajectory (2 block_n cap);
-* score tiled:    h_j, h_k, c.x_k tiles (3 block_n block_cap);
-* grad resident:  w over the whole trajectory and the product
-  (block_n cap + block_n d);
-* grad tiled:     one w tile and the product (block_n block_cap + block_n d).
+* score resident (single client): the candidate tile (block_n x d) and
+  h and c.x over the whole trajectory (2 block_n cap), f32;
+* score tiled:    the candidate tile and h_j, h_k, c.x_k tiles
+  (3 block_n block_cap), f32;
+* grad resident (single client): the candidate tile, w over the whole
+  trajectory and the product (block_n cap + block_n d), f32;
+* grad tiled:     the candidate tile, one w tile and the product
+  (block_n block_cap + block_n d), f32;
+* score_clients resident (``score_cluster_kernel``): h over the whole
+  trajectory (cap block_n, f64), the candidates (d block_n), c.x of the
+  block's rows (rmax block_n), |c|^2 and the cluster's partials, STAGES
+  chunks of its columns of B and P in flight (2 STAGES chunk rmax, f32), and
+  one region holding first its rows of X (rmax x rows_ld(d), f32) with the row
+  dot products' partials, then its column sums (2 block_n x 256, f64);
+  rmax = ceil(cap / cluster);
+* grad_clients resident (``grad_cluster_kernel``): in f64 the candidates
+  (d block_n), |c|^2 and w of its rows (rmax block_n), its rows of X
+  (f32), and one region holding first the row dot products' partials,
+  then its partial sums (block_n d, f64).
 
+``cluster_geometry`` gives the cluster kernels' cluster size and chunk
+rows, and ``split`` the parts of the trajectory (and of d) each block of a
+cluster owns, as ``csrc/common.cuh`` ``split_at`` computes them.
 ``validate_blocks`` checks a pinned pair (``AlgoConfig.*_block_*``)
 against the same budget and the block sizes the kernels are built for.
 """
@@ -24,31 +43,81 @@ from __future__ import annotations
 
 #: Shared memory one block may use on Hopper (232,448 bytes).
 SMEM_BYTES = 227 * 1024
+#: Threads of one block of every GP kernel (csrc/common.cuh kThreads).
+THREADS = 256
 #: Candidate tiles the CUDA kernels are instantiated for (csrc/common.cuh).
 BLOCK_N = (1, 2, 4, 8, 16)
 #: Cap tiles tried when the resident route does not fit, largest first.
 BLOCK_CAP = (256, 128, 64, 32)
-#: Largest candidate tile the tuner picks: eight candidates keep 16 f32
+#: Largest candidate tile the tuner picks: eight candidates keep 16
 #: accumulators per thread in the scoring sweep and still give one block
-#: per 8 candidates of each client.
+#: (or cluster) per 8 candidates of each client.
 _DEFAULT_BLOCK_N = 8
+#: Blocks per cluster of the client-batched resident kernels: the portable
+#: cluster size on Hopper (csrc/common.cuh kMaxCluster).
+CLUSTER = 8
+#: Trajectory rows of B and P in one staging chunk of the scoring cluster
+#: kernel, and the chunks in flight (csrc/gp_score.cu kStages).
+CHUNK_ROWS = 32
+STAGES = 4
+
+KINDS = ("score", "grad", "score_clients", "grad_clients")
+
+
+def split(total: int, parts: int) -> list[int]:
+    """Bounds of ``parts`` near-equal parts of ``range(total)``: part r is
+    ``range(b[r], b[r + 1])`` (``split_at`` in csrc/common.cuh)."""
+    return [total * r // parts for r in range(parts + 1)]
+
+
+def cluster_geometry(cap: int) -> tuple[int, int]:
+    """``(cluster size, chunk rows)`` of the client-batched resident kernels
+    at trajectory capacity ``cap``: enough blocks that each owns at most 32
+    trajectory rows (one warp's lanes, one row or column each) up to
+    ``CLUSTER`` blocks, so every block owns at least one row."""
+    return min(CLUSTER, -(-cap // 32)), min(CHUNK_ROWS, cap)
+
+
+def rows_ld(d: int) -> int:
+    """Leading dimension of the trajectory rows a cluster kernel stages
+    (``rows_ld`` in csrc/common.cuh): an odd number of float4s when
+    d % 4 == 0, else odd."""
+    return 4 * ((d // 4) | 1) if d % 4 == 0 else d | 1
+
+
+def _al(nbytes: int) -> int:
+    """One region of a cluster kernel's shared memory (16-byte aligned)."""
+    return -(-nbytes // 16) * 16
 
 
 def smem_bytes(kind: str, *, block_n: int, block_cap: int, cap: int, d: int) -> int:
     """Shared memory of one block for the route ``block_cap`` selects."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}")
     resident = block_cap >= cap
+    if resident and kind.endswith("_clients"):
+        cs, jc = cluster_geometry(cap)
+        rmax, bn = -(-cap // cs), block_n
+        rows = _al(4 * rmax * rows_ld(d))  # the own rows of X
+        rows_dot = 8 * 32 * (bn + 1)  # its partials per warp of 8: 32 x (bn + 1) values
+        if kind == "score_clients":  # csrc/gp_score.cu ScoreClusterSmem
+            union = max(rows + 4 * rows_dot, 8 * THREADS * 2 * bn)
+            return (_al(8 * cap * bn) + _al(4 * d * bn) + _al(4 * bn) + _al(4 * rmax * bn)
+                    + _al(8 * CLUSTER * bn) + 2 * _al(4 * STAGES * jc * rmax) + _al(union))
+        union = max(8 * rows_dot, 8 * bn * d)  # csrc/gp_grad.cu GradClusterSmem
+        return _al(8 * d * bn) + _al(8 * bn) + _al(8 * rmax * bn) + rows + _al(union)
     t = cap if resident else block_cap
     words = block_n * d + block_n  # candidate tile and its squared norms
-    if kind == "score":
+    if kind.startswith("score"):
         words += (2 if resident else 3) * block_n * t + 8 * block_n
-    elif kind == "grad":
-        words += block_n * t + block_n * d + block_n
     else:
-        raise ValueError(f"unknown kernel kind {kind!r}")
+        words += block_n * t + block_n * d + block_n
     return 4 * words
 
 
 def _fits(kind, bn, bc, cap, d) -> bool:
+    if kind == "score_clients" and bc >= cap and -(-cap // cluster_geometry(cap)[0]) > THREADS:
+        return False  # the cluster kernel gives each of a block's columns its own threads
     return smem_bytes(kind, block_n=bn, block_cap=bc, cap=cap, d=d) <= SMEM_BYTES
 
 
@@ -57,8 +126,8 @@ def select_blocks(kind: str, *, n: int, cap: int, d: int) -> tuple[int, int]:
 
     block_n is the smallest instantiated tile covering ``min(n, 8)``
     candidates (n = 1 on the gradient path gives 1: no padded rows).  The
-    resident route is taken whenever its shared memory fits; otherwise the
-    largest cap tile that fits.
+    resident route is taken whenever it fits; otherwise the largest cap
+    tile that fits.
     """
     want = min(max(n, 1), _DEFAULT_BLOCK_N)
     start = next(bn for bn in BLOCK_N if bn >= want)
@@ -79,10 +148,10 @@ def validate_blocks(kind: str, *, block_n: int, block_cap: int, cap: int, d: int
     if block_cap < 1:
         raise ValueError(f"pinned {kind} block_cap={block_cap} must be positive")
     need = smem_bytes(kind, block_n=block_n, block_cap=block_cap, cap=cap, d=d)
-    if need > SMEM_BYTES:
+    if not _fits(kind, block_n, block_cap, cap, d):
         raise ValueError(
             f"pinned {kind} blocks (block_n={block_n}, block_cap={block_cap}) need {need} "
             f"bytes of shared memory per block at cap={cap}, d={d}, above the "
-            f"{SMEM_BYTES}-byte budget; pick smaller AlgoConfig block pins or leave "
-            "them unset for the tuner")
+            f"{SMEM_BYTES}-byte budget (or more columns per cluster block than threads); "
+            "pick smaller AlgoConfig block pins or leave them unset for the tuner")
     return block_n, block_cap

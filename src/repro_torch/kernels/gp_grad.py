@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import loader, ref
+from repro_torch.kernels import autotune, loader, ref
 
 LAUNCHES = {"grad_resident": 0, "grad_tiled": 0,
             "grad_single_resident": 0, "grad_single_tiled": 0}
@@ -35,14 +35,16 @@ def _checked(name, cands, xs, alpha, block_n, block_cap=None):
         raise ValueError(f"{name}: cap={cap} is not a multiple of block_cap={block_cap}")
 
 
-def _launch(name, cands, xs, alpha, lengthscale, block_n, block_cap=None):
+def _launch(name, cands, xs, alpha, lengthscale, block_n, geometry=()):
     """One launch of the kernel behind ``name`` on checked client-batched
-    CUDA tensors; the single-client entries take no client count."""
+    CUDA tensors; the single-client entries take no client count.
+    ``geometry`` is the route's further ints: the cap tile, or the cluster
+    kernel's cluster size."""
     nb, n, d = cands.shape
     out = torch.empty((nb, n, d), dtype=torch.float32, device=cands.device)
     l2 = float(lengthscale) ** 2
     sizes = (n,) if name.startswith("grad_single") else (nb, n)
-    sizes += (xs.shape[1], d, block_n) + (() if block_cap is None else (block_cap,))
+    sizes += (xs.shape[1], d, block_n, *geometry)
     err = getattr(loader.library(), "fz_" + name)(
         cands.data_ptr(), xs.data_ptr(), alpha.data_ptr(), out.data_ptr(),
         *sizes, 0.5 / l2, 1.0 / l2, loader.stream())
@@ -52,11 +54,14 @@ def _launch(name, cands, xs, alpha, lengthscale, block_n, block_cap=None):
 
 
 def grad_mean_resident(cands, xs, alpha, *, lengthscale, block_n):
-    """Gradient mean with w = h o alpha over the whole trajectory on chip."""
+    """Gradient mean with each client's trajectory split over the blocks of
+    one thread block cluster per candidate tile
+    (``autotune.cluster_geometry``): (N, n, d)."""
     _checked("grad_resident", cands, xs, alpha, block_n)
     if loader.on_cpu(cands, xs, alpha):
         return ref.grad_mean_clients(cands, xs, alpha, lengthscale)
-    return _launch("grad_resident", cands, xs, alpha, lengthscale, block_n)
+    return _launch("grad_resident", cands, xs, alpha, lengthscale, block_n,
+                   autotune.cluster_geometry(xs.shape[1])[:1])
 
 
 def grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap):
@@ -77,7 +82,7 @@ def grad_mean_tiled(cands, xs, alpha, *, lengthscale, block_n, block_cap):
     _checked("grad_tiled", cands, xs, alpha, block_n, block_cap)
     if loader.on_cpu(cands, xs, alpha):
         return grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap)
-    return _launch("grad_tiled", cands, xs, alpha, lengthscale, block_n, block_cap)
+    return _launch("grad_tiled", cands, xs, alpha, lengthscale, block_n, (block_cap,))
 
 
 def grad_mean_single_resident(cands, xs, alpha, *, lengthscale, block_n):
@@ -95,4 +100,4 @@ def grad_mean_single_tiled(cands, xs, alpha, *, lengthscale, block_n, block_cap)
     _checked("grad_single_tiled", *args, block_n, block_cap)
     if loader.on_cpu(cands, xs, alpha):
         return grad_mean_tiled_plain(*args, lengthscale, block_cap)[0]
-    return _launch("grad_single_tiled", *args, lengthscale, block_n, block_cap)[0]
+    return _launch("grad_single_tiled", *args, lengthscale, block_n, (block_cap,))[0]

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import loader, ref
+from repro_torch.kernels import autotune, loader, ref
 
 LAUNCHES = {"score_resident": 0, "score_tiled": 0,
             "score_single_resident": 0, "score_single_tiled": 0}
@@ -36,14 +36,16 @@ def _checked(name, cands, xs, binv, pmat, block_n, block_cap=None):
         raise ValueError(f"{name}: cap={cap} is not a multiple of block_cap={block_cap}")
 
 
-def _launch(name, cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap=None):
+def _launch(name, cands, xs, binv, pmat, lengthscale, prior, block_n, geometry=()):
     """One launch of the kernel behind ``name`` on checked client-batched
-    CUDA tensors; the single-client entries take no client count."""
+    CUDA tensors; the single-client entries take no client count.
+    ``geometry`` is the route's further ints: the cap tile, or the cluster
+    kernel's cluster size and chunk rows."""
     nb, n, d = cands.shape
     out = torch.empty((nb, n), dtype=torch.float32, device=cands.device)
     l2 = float(lengthscale) ** 2
     sizes = (n,) if name.startswith("score_single") else (nb, n)
-    sizes += (xs.shape[1], d, block_n) + (() if block_cap is None else (block_cap,))
+    sizes += (xs.shape[1], d, block_n, *geometry)
     err = getattr(loader.library(), "fz_" + name)(
         cands.data_ptr(), xs.data_ptr(), binv.data_ptr(), pmat.data_ptr(), out.data_ptr(),
         *sizes, 0.5 / l2, 1.0 / (l2 * l2), float(prior), loader.stream())
@@ -53,11 +55,14 @@ def _launch(name, cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap=
 
 
 def uncertainty_scores_resident(cands, xs, binv, pmat, *, lengthscale, prior, block_n):
-    """Scores with h over the whole trajectory kept on chip: (N, n) ."""
+    """Scores with h over the whole trajectory kept on chip, one thread
+    block cluster per client and candidate tile
+    (``autotune.cluster_geometry``): (N, n)."""
     _checked("score_resident", cands, xs, binv, pmat, block_n)
     if loader.on_cpu(cands, xs, binv, pmat):
         return ref.uncertainty_scores_clients_fused(cands, xs, binv, pmat, lengthscale, prior)
-    return _launch("score_resident", cands, xs, binv, pmat, lengthscale, prior, block_n)
+    return _launch("score_resident", cands, xs, binv, pmat, lengthscale, prior, block_n,
+                   autotune.cluster_geometry(xs.shape[1]))
 
 
 def scores_tiled_plain(cands, xs, binv, pmat, lengthscale, prior, block_cap):
@@ -80,7 +85,8 @@ def uncertainty_scores_tiled(cands, xs, binv, pmat, *, lengthscale, prior, block
     _checked("score_tiled", cands, xs, binv, pmat, block_n, block_cap)
     if loader.on_cpu(cands, xs, binv, pmat):
         return scores_tiled_plain(cands, xs, binv, pmat, lengthscale, prior, block_cap)
-    return _launch("score_tiled", cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap)
+    return _launch("score_tiled", cands, xs, binv, pmat, lengthscale, prior, block_n,
+                   (block_cap,))
 
 
 def uncertainty_scores_single_resident(cands, xs, binv, pmat, *, lengthscale, prior, block_n):
@@ -99,4 +105,4 @@ def uncertainty_scores_single_tiled(cands, xs, binv, pmat, *, lengthscale, prior
     _checked("score_single_tiled", *args, block_n, block_cap)
     if loader.on_cpu(cands, xs, binv, pmat):
         return scores_tiled_plain(*args, lengthscale, prior, block_cap)[0]
-    return _launch("score_single_tiled", *args, lengthscale, prior, block_n, block_cap)[0]
+    return _launch("score_single_tiled", *args, lengthscale, prior, block_n, (block_cap,))[0]

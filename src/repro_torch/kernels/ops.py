@@ -12,7 +12,10 @@ The GP scoring and gradient-mean kernels come client-batched
 ``grad_mean_batch``).
 
 Each call picks block sizes (``kernels.autotune`` unless pinned; pinned
-pairs are validated), zero-pads the candidate axis to a ``block_n``
+pairs are validated; the client-batched calls as the kinds
+"score_clients" and "grad_clients", whose resident kernel is a thread block
+cluster per client and candidate tile, the single-client calls as "score"
+and "grad"), zero-pads the candidate axis to a ``block_n``
 multiple, and routes: ``block_cap >= cap`` to the resident kernel, a
 smaller ``block_cap`` to the cap-tiled kernel with the trajectory axis
 zero-padded to a tile multiple.  Padded slots contribute exactly zero
@@ -94,11 +97,12 @@ def _resolve_blocks(kind, n, cap, d, block_n, block_cap):
     return block_n, block_cap
 
 
-def _scores(resident, tiled, cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap):
+def _scores(kind, resident, tiled, cands, xs, binv, pmat, lengthscale, prior, block_n,
+            block_cap):
     """Pad, route and slice back the scoring of ``cands`` (..., n, d)."""
     n, d = cands.shape[-2:]
     cap = xs.shape[-2]
-    block_n, block_cap = _resolve_blocks("score", n, cap, d, block_n, block_cap)
+    block_n, block_cap = _resolve_blocks(kind, n, cap, d, block_n, block_cap)
     c = _pad_axis(cands, cands.dim() - 2, _round_up(n, block_n)).contiguous()
     if block_cap >= cap:
         out = resident(c, xs.contiguous(), binv.contiguous(), pmat.contiguous(),
@@ -111,11 +115,11 @@ def _scores(resident, tiled, cands, xs, binv, pmat, lengthscale, prior, block_n,
     return out[..., :n]
 
 
-def _grad(resident, tiled, cands, xs, alpha, lengthscale, block_n, block_cap):
+def _grad(kind, resident, tiled, cands, xs, alpha, lengthscale, block_n, block_cap):
     """Pad, route and slice back the gradient mean at ``cands`` (..., n, d)."""
     n, d = cands.shape[-2:]
     cap = xs.shape[-2]
-    block_n, block_cap = _resolve_blocks("grad", n, cap, d, block_n, block_cap)
+    block_n, block_cap = _resolve_blocks(kind, n, cap, d, block_n, block_cap)
     c = _pad_axis(cands, cands.dim() - 2, _round_up(n, block_n)).contiguous()
     if block_cap >= cap:
         out = resident(c, xs.contiguous(), alpha.contiguous(), lengthscale=lengthscale,
@@ -140,7 +144,8 @@ def uncertainty_scores_clients(
     block_cap: int | None = None,
 ) -> torch.Tensor:
     """Client-batched uncertainty scores: (N, n, d) -> (N, n)."""
-    return _scores(gp_score.uncertainty_scores_resident, gp_score.uncertainty_scores_tiled,
+    return _scores("score_clients", gp_score.uncertainty_scores_resident,
+                   gp_score.uncertainty_scores_tiled,
                    cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap)
 
 
@@ -157,7 +162,7 @@ def uncertainty_scores(
 ) -> torch.Tensor:
     """One client's uncertainty scores: (n, d) candidates, xs (cap, d),
     B and P (cap, cap) -> (n,)."""
-    return _scores(gp_score.uncertainty_scores_single_resident,
+    return _scores("score", gp_score.uncertainty_scores_single_resident,
                    gp_score.uncertainty_scores_single_tiled,
                    cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap)
 
@@ -173,7 +178,7 @@ def grad_mean_clients(
 ) -> torch.Tensor:
     """Client-batched gradient mean: (N, n, d) -> (N, n, d); ``alpha`` (N, cap)
     must already carry each client's validity mask."""
-    return _grad(gp_grad.grad_mean_resident, gp_grad.grad_mean_tiled,
+    return _grad("grad_clients", gp_grad.grad_mean_resident, gp_grad.grad_mean_tiled,
                  cands, xs, alpha, lengthscale, block_n, block_cap)
 
 
@@ -188,5 +193,5 @@ def grad_mean_batch(
 ) -> torch.Tensor:
     """One client's gradient mean: (n, d) queries, xs (cap, d) -> (n, d);
     ``alpha`` (cap,) must already carry the validity mask."""
-    return _grad(gp_grad.grad_mean_single_resident, gp_grad.grad_mean_single_tiled,
+    return _grad("grad", gp_grad.grad_mean_single_resident, gp_grad.grad_mean_single_tiled,
                  cands, xs, alpha, lengthscale, block_n, block_cap)

@@ -1,6 +1,6 @@
 """Port parity of the GP kernels, client-batched (B1-B4) and single-client
 (B7, B8), of the RFF feature and gradient kernels (B6, B5) and the SE Gram
-(B9), and of their wrappers.
+(B9), of their wrappers, and of the cluster kernels' launch geometry.
 
 The same numpy inputs go through the reference ``repro.kernels.ops`` (its
 Pallas kernels in interpret mode via ``force_pallas=True``, and its jnp
@@ -405,6 +405,51 @@ def test_validate_blocks_rejects_what_the_kernels_cannot_take():
                               lengthscale=1.0, block_n=5)
 
 
+# (n, cap, d): the main path's scoring and gradient shapes, ragged ones, a
+# trajectory shorter than a cluster, and caps past one cluster's 8 x 32 rows.
+GEOMETRY = [(50, 192, 300), (1, 192, 300), (7, 33, 20), (3, 5, 3), (16, 300, 300),
+            (12, 16, 8)]
+
+
+@pytest.mark.parametrize("n,cap,d", GEOMETRY)
+def test_cluster_geometry_covers_every_row_and_column_once(n, cap, d):
+    """The launch geometry of the client-batched cluster kernels (B1, B3),
+    as the wrappers compute it: the blocks of a cluster own every
+    trajectory row (and, for B3's final sums, every column of d) exactly
+    once; the chunks of B and P cover every row once; the candidate tiles
+    cover the padded candidates once; the scoring kernel's threads cover
+    a block's columns; shared memory fits the budget."""
+    cs, jc = autotune.cluster_geometry(cap)
+    assert 1 <= cs <= autotune.CLUSTER and 1 <= jc <= cap
+    for total in (cap, d):
+        b = autotune.split(total, cs)
+        owned = [t for r in range(cs) for t in range(b[r], b[r + 1])]
+        assert owned == list(range(total))
+    rows = np.diff(autotune.split(cap, cs))
+    rmax = -(-cap // cs)
+    assert rows.min() >= 1 and rows.max() == rmax
+    assert rmax <= 32 or cs == autotune.CLUSTER  # one warp's lanes per block when cap allows
+    chunks = [t for j0 in range(0, cap, jc) for t in range(j0, min(j0 + jc, cap))]
+    assert chunks == list(range(cap))
+    for kind in ("score_clients", "grad_clients"):
+        bn, bc = autotune.select_blocks(kind, n=n, cap=cap, d=d)
+        npad = -(-n // bn) * bn
+        tiles = [(x // cs) * bn + i for x in range(cs * npad // bn) for i in range(bn)
+                 if x % cs == 0]
+        assert tiles == list(range(npad))
+        if bc >= cap:  # the cluster kernel: its columns fit the block's threads
+            kw = 32
+            while kw < rmax:
+                kw *= 2
+            assert autotune.THREADS % kw == 0
+            assert autotune.smem_bytes(kind, block_n=bn, block_cap=bc, cap=cap, d=d) \
+                <= autotune.SMEM_BYTES
+    if (cap, d) == (192, 300):  # the main path runs the cluster kernels, 6 blocks each
+        assert autotune.cluster_geometry(cap) == (6, 32)
+        assert autotune.select_blocks("score_clients", n=50, cap=cap, d=d) == (8, 192)
+        assert autotune.select_blocks("grad_clients", n=1, cap=cap, d=d) == (1, 192)
+
+
 def test_loader_builds_every_source_and_binds_every_entry():
     """Every ``csrc`` source and header is in the build (and so in its
     digest), and every bound entry is an ``extern "C"`` function of one."""
@@ -451,6 +496,33 @@ def test_cuda_kernels_match_plain_versions(block_cap):
     assert gp_grad.LAUNCHES[f"grad_single_{route}"] == before[1][f"grad_single_{route}"] + 1
     for n, d, m in RFF_SHAPES:  # B5, B6 and B9
         _check_cuda_rff_and_gram(dev, n, d, m)
+    if block_cap is None:
+        _check_cuda_cluster_kernels(dev)
+
+
+def _check_cuda_cluster_kernels(dev):
+    """B1 and B3 (the cluster kernels) at the main path's shapes (N=5,
+    n=50, cap=192, d=300; one query point per client for B3) and at a
+    ragged one past 32 rows per block (cap=300, d=20, n=7) against their
+    plain versions on the CPU, one launch each, and bitwise the same on a
+    second launch (fixed-order sums, no float atomics)."""
+    for nb, n, d, cap in ((5, 50, 300, 192), (2, 7, 20, 300)):
+        cands, xs, binv, pmat, alpha = _inputs(nb, n, d, cap, seed=9)
+        c = lambda a: T(a).to(dev)
+        before = _all_launches()
+        kw = dict(lengthscale=LS, prior=d / LS**2)
+        s = ops.uncertainty_scores_clients(c(cands), c(xs), c(binv), c(pmat), **kw)
+        _close(s.cpu(), ref.uncertainty_scores_clients_fused(T(cands), T(xs), T(binv),
+                                                             T(pmat), LS, d / LS**2))
+        assert torch.equal(s, ops.uncertainty_scores_clients(c(cands), c(xs), c(binv),
+                                                             c(pmat), **kw))
+        q = cands[:, :1]
+        g = ops.grad_mean_clients(c(q), c(xs), c(alpha), lengthscale=LS)
+        _close(g.cpu(), ref.grad_mean_clients(T(q), T(xs), T(alpha), LS))
+        assert torch.equal(g, ops.grad_mean_clients(c(q), c(xs), c(alpha), lengthscale=LS))
+        after = _all_launches()
+        assert after["score_resident"] == before["score_resident"] + 2
+        assert after["grad_resident"] == before["grad_resident"] + 2
 
 
 def _check_cuda_rff_and_gram(dev, n, d, m):
