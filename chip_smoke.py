@@ -15,9 +15,10 @@ Phases, each a hard check (any failure exits non-zero):
    client for the gradient mean), the single-client ones at the per-client
    engine's (one client, the same n, cap and d), the RFF gradient (B5),
    the RFF features (B6) and the SE Gram (B9) at the main path's shapes
-   (see ``rff_and_gram_specs``); the cluster kernels of B1 and B3 launched
-   twice for the same bits, beside the cuBLAS products inside them
-   (``cluster_yardsticks``);
+   (see ``rff_and_gram_specs``; B9 at an append event of 5 rows and of 1
+   row); the cluster kernels of B1 and B3, B5 and B9's append events
+   launched twice for the same bits (``REPEATED``), B1 and B3 beside the
+   cuBLAS products inside them (``cluster_yardsticks``);
 4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
    width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
    settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
@@ -48,6 +49,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -68,8 +70,9 @@ F32_FLOPS_S = 67e12
 D, N_CLIENTS, CAP, CANDS, M = 300, 5, 192, 50, 512
 ROUNDS, OTHER_ROUNDS = 5, 2
 #: Kernels phase 3 launches a second time to show the same bits (the
-#: cluster kernels reduce across blocks in a fixed order, with no atomics).
-REPEATED = ("score_resident", "grad_resident")
+#: cluster kernels reduce across blocks in a fixed order, with no atomics;
+#: so do the RFF gradient's and the SE Gram's rows kernel).
+REPEATED = ("score_resident", "grad_resident", "rff_grad", "sqexp", "sqexp[1 row]")
 PER_CLIENT_ROUNDS, FD_ROUNDS = 3, 2
 TILE = 64  # the cap tile pinned for the other route
 
@@ -236,7 +239,7 @@ def check_kernels(dev):
             print(f"[kernel] {name}: second launch bitwise the same: {same}", flush=True)
             if not same:
                 fail(f"{name} gave other bits on a second launch")
-        if "[" in name:  # a further shape of a kernel timed under its own name
+        if not nbytes:  # a further shape of a kernel, held but not timed
             continue
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(lambda: plain(args))
@@ -280,26 +283,33 @@ def cluster_yardsticks(p, score_args, grad_args) -> None:
               f"(events), {device_ms(fn):.6f} ms (profiler)", flush=True)
 
 
-def rff_and_gram_specs(dev, p):
-    """Phase 3 for B5, B6 and B9 at the main path's shapes: the RFF gradient
-    at the N iterates with per-row w (n=5, M=512, d=300), the features of
-    the whole ring (5 x 192 rows) and the SE Gram of an append event (5 new
-    rows against the (5, 192, 300) ring) at l=0.5; the Gram is also held at
-    the iterate's append event (1 row) and at factor_init's (5, 192, 192)
-    init Gram, which are not timed.  Also times the cuBLAS product inside
-    each (the yardstick for a later redesign; no single library call
-    computes these functions)."""
-    from repro_torch.kernels import ref, rff_features, rff_grad, sqexp
-
+def rff_and_gram_inputs(dev, p):
+    """B5, B6 and B9 inputs at the main path's shapes, from ``path_inputs``'
+    ring ``p``: the iterates x_it (5, 300), the bank v (512, 300) and b
+    (512,), per-row weights ws (5, 512), the ring xs (5, 192, 300), its
+    rows (960, 300), an append event's rows (5, 5, 300) and the iterate's
+    (5, 1, 300)."""
     g = torch.Generator(device=dev).manual_seed(1)
     v = (torch.randn(M, D, generator=g, device=dev) / p["ls"]).contiguous()
     b = (2 * torch.pi * torch.rand(M, generator=g, device=dev)).contiguous()
     ws = torch.randn(N_CLIENTS, M, generator=g, device=dev).contiguous()
     xs = p["xs"]
-    x_it = xs[:, -1].contiguous()  # one iterate per client: (5, 300)
-    rows = xs.reshape(-1, D).contiguous()  # the ring's rows: (960, 300)
-    k_new = xs[:, -5:].contiguous()  # an append event's rows: (5, 5, 300)
-    k_one = xs[:, -1:].contiguous()  # the iterate's append event: (5, 1, 300)
+    return (xs[:, -1].contiguous(), v, b, ws, xs, xs.reshape(-1, D).contiguous(),
+            xs[:, -5:].contiguous(), xs[:, -1:].contiguous())
+
+
+def rff_and_gram_specs(dev, p):
+    """Phase 3 for B5, B6 and B9 at the main path's shapes: the RFF gradient
+    at the N iterates with per-row w (n=5, M=512, d=300), the features of
+    the whole ring (5 x 192 rows) and the SE Gram of an append event (5 new
+    rows against the (5, 192, 300) ring) and of the iterate's append event
+    (1 row) at l=0.5; the Gram is also held at factor_init's (5, 192, 192)
+    init Gram, which is not timed.  Also times the cuBLAS product inside
+    each (the yardstick for a later redesign; no single library call
+    computes these functions)."""
+    from repro_torch.kernels import ref, rff_features, rff_grad, sqexp
+
+    x_it, v, b, ws, xs, rows, k_new, k_one = rff_and_gram_inputs(dev, p)
     ls = p["ls"]
     n, nr, k = N_CLIENTS, N_CLIENTS * CAP, 5
     grad_bytes = 4 * (2 * n * D + M * D + M + n * M)
@@ -323,9 +333,9 @@ def rff_and_gram_specs(dev, p):
         ("sqexp", "sqexp.cu", "src/repro/kernels/sqexp.py:33",
          lambda: sqexp.sqexp_clients(k_new, xs, lengthscale=ls),
          lambda a: ref.sqexp(*a, ls), (k_new, xs), gram_bytes(k, CAP), gram_flops(k, CAP)),
-        ("sqexp[1 row]", "sqexp.cu", "",
+        ("sqexp[1 row]", "sqexp.cu", "src/repro/kernels/sqexp.py:33",
          lambda: sqexp.sqexp_clients(k_one, xs, lengthscale=ls),
-         lambda a: ref.sqexp(*a, ls), (k_one, xs), 0, 0),
+         lambda a: ref.sqexp(*a, ls), (k_one, xs), gram_bytes(1, CAP), gram_flops(1, CAP)),
         ("sqexp[init Gram]", "sqexp.cu", "",
          lambda: sqexp.sqexp_clients(xs, xs, lengthscale=ls),
          lambda a: ref.sqexp(*a, ls), (xs, xs), 0, 0),
@@ -357,6 +367,7 @@ def reset_counts():
                   rff_grad.LAUNCHES, sqexp.LAUNCHES):
         for k in table:
             table[k] = 0
+    sqexp.LAUNCHES_BY_ROWS.clear()
 
 
 def read_counts() -> dict:
@@ -464,6 +475,33 @@ def check_small_against_cpu(dev, label="small", **engine):
         fail("the engine on the card disagrees with the engine on the CPU")
 
 
+@contextlib.contextmanager
+def recording(names):
+    """Within the block, every call of ``kernels.ops.<name>`` for the names
+    given is recorded, keyword arguments included, with its output (all
+    cloned); yields {name: [(args, kwargs, out), ...]}."""
+    from repro_torch.kernels import ops
+
+    real = {name: getattr(ops, name) for name in names}
+    calls = {name: [] for name in names}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            out = real[name](*args, **kwargs)
+            keep = lambda a: a.clone() if torch.is_tensor(a) else a
+            calls[name].append((tuple(map(keep, args)), kwargs, out.clone()))
+            return out
+        return call
+
+    try:
+        for name in names:
+            setattr(ops, name, recorder(name))
+        yield calls
+    finally:
+        for name in names:
+            setattr(ops, name, real[name])
+
+
 def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
     """B5, B6, B9 and the scoring and gradient-mean ops (B1/B3 on the
     deferred engine, B7a/B8a on the per-client one) on the inputs the small
@@ -473,10 +511,10 @@ def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
     are held against a float64 evaluation of the same call.  A kernel less
     accurate than its plain version over the run (max error over the
     calls) fails; so is printed the eq. 8 correction, the difference of
-    each step's two B5 calls.  Returns the number of calls of each op."""
+    each step's two B5 calls.  Returns the recorded calls of each op."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core import objectives as obj
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
 
     plain = {
         "rff_features": lambda x, v, b: ref.rff_features(
@@ -491,31 +529,15 @@ def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
             ref.uncertainty_scores(*a, lengthscale, prior),
         "grad_mean_batch": lambda *a, lengthscale, **_: ref.grad_mean_batch(*a, lengthscale),
     }
-    real = {name: getattr(ops, name) for name in plain}
-    calls = {name: [] for name in plain}
-
-    def recorder(name):
-        def call(*args, **kwargs):
-            out = real[name](*args, **kwargs)
-            keep = lambda a: a.clone() if torch.is_tensor(a) else a
-            calls[name].append((tuple(map(keep, args)), kwargs, out.clone()))
-            return out
-        return call
-
     cfg = alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
                          n_features=32, traj_capacity=16, active_candidates=12,
                          active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5,
                          **engine)
     q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=dev)
     draws = SameDraws(alg.ClientDraws(2, range(3), "cpu"), dev)
-    try:
-        for name in plain:
-            setattr(ops, name, recorder(name))
+    with recording(plain) as calls:
         alg.simulate(cfg, 2, q, obj.quadratic_query, obj.quadratic_global_value, 3,
                      draws=draws, device=dev)
-    finally:
-        for name in plain:
-            setattr(ops, name, real[name])
     f64 = lambda args: [a.double() if torch.is_tensor(a) else a for a in args]
     for name, recs in calls.items():
         if not recs:
@@ -632,7 +654,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from repro_torch.core import objectives as obj
-    from repro_torch.kernels import loader
+    from repro_torch.kernels import loader, sqexp
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -652,14 +674,18 @@ def main() -> int:
     cobjs = obj.make_quadratic(0, N_CLIENTS, D, 5.0, 0.001, device=dev)
     run_path(cfg, cobjs, 1, dev)  # warm-up: library handles, allocator
     res, secs, main_counts = run_path(cfg, cobjs, ROUNDS, dev)
+    one_row = sqexp.LAUNCHES_BY_ROWS.get(1, 0)  # the iterates' append events
     print(f"[main] d={D} N={N_CLIENTS} M={M} cap={CAP} T={cfg.local_steps}: {ROUNDS} rounds in "
-          f"{secs:.3f} s, {1e3 * secs / ROUNDS:.3f} ms/round; launches {main_counts}", flush=True)
+          f"{secs:.3f} s, {1e3 * secs / ROUNDS:.3f} ms/round; launches {main_counts} "
+          f"({one_row} of the sqexp launches with 1 row)", flush=True)
     check_result(res, cfg, ROUNDS, "main")
     steps = ROUNDS * cfg.local_steps
     want = expect(score_resident=steps + ROUNDS, grad_resident=steps,
                   **fzoos_counts(cfg, ROUNDS))
     if main_counts != want:
         fail(f"main path launches {main_counts}, expected {want}")
+    if one_row != steps:  # one per local step: the iterate's append event
+        fail(f"main path: {one_row} SE Gram launches with 1 row, expected {steps}")
     check_small_against_cpu(dev)
     check_engine_inputs(dev, "small engine inputs")
     profile_round(cfg, cobjs, dev)
@@ -678,9 +704,11 @@ def main() -> int:
     single_counts = check_per_client(cobjs, dev)
     check_fd_baselines(dev)
 
+    main_counts["sqexp[1 row]"] = one_row
     for row in rows:  # each kernel's launches, from the run of the route it serves
-        row["launches"] = (main_counts[row["name"]] or other_counts[row["name"]]
-                           or single_counts[row["name"]])
+        name = row["name"]
+        row["launches"] = (main_counts[name] or other_counts.get(name, 0)
+                           or single_counts.get(name, 0))
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

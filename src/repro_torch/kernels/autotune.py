@@ -35,6 +35,10 @@ an H100 (227 KB); what a block keeps there, per route:
 ``cluster_geometry`` gives the cluster kernels' cluster size and chunk
 rows, and ``split`` the parts of the trajectory (and of d) each block of a
 cluster owns, as ``csrc/common.cuh`` ``split_at`` computes them.
+``rff_grad_layout`` gives the same for the RFF gradient's kernel (B5):
+which features each block of a row's cluster projects in which chunk, and
+which output columns it sums; ``rows_route`` which kernel of
+``csrc/proj.cuh`` an SE Gram (B9) of a few rows takes.
 ``validate_blocks`` checks a pinned pair (``AlgoConfig.*_block_*``)
 against the same budget and the block sizes the kernels are built for.
 """
@@ -155,3 +159,77 @@ def validate_blocks(kind: str, *, block_n: int, block_cap: int, cap: int, d: int
             f"{SMEM_BYTES}-byte budget (or more columns per cluster block than threads); "
             "pick smaller AlgoConfig block pins or leave them unset for the tuner")
     return block_n, block_cap
+
+
+#: The RFF gradient's kernel (csrc/rff_grad.cu): blocks of a row's cluster,
+#: groups of features (group g holds the m = g mod 32) and features a warp
+#: projects at once.
+RFF_GRAD_CLUSTER = 16
+RFF_GRAD_GROUPS = 32
+RFF_GRAD_FPW = 2
+#: Columns of a block of the rows kernel (csrc/proj.cuh kRowsTile).
+ROWS_TILE = 8
+
+
+def rff_grad_smem(d: int, slots: int, chunked: bool) -> int:
+    """Shared memory of one block of the RFF gradient's kernel for chunks of
+    ``slots`` features per group, ``chunked`` where M needs more than one
+    (csrc/rff_grad.cu ``grad_smem``)."""
+    gpb = RFF_GRAD_GROUPS // RFF_GRAD_CLUSTER
+    f = -(-gpb * slots // RFF_GRAD_FPW) * RFF_GRAD_FPW
+    smax = -(-d // RFF_GRAD_CLUSTER)
+    return (_al(8) + _al(4 * d) + _al(4 * f * d) + 3 * _al(4 * f)
+            + 2 * _al(4 * RFF_GRAD_GROUPS * smax)
+            + (2 * _al(4 * gpb * d) if chunked else 0))
+
+
+def rff_grad_slots(m: int, d: int) -> int:
+    """Features per group in one chunk (csrc/rff_grad.cu ``grad_slots``): all
+    ceil(M / 32) when they fit shared memory, else as many as fit; 0 when
+    not one does (the kernel then refuses the launch)."""
+    ns = -(-m // RFF_GRAD_GROUPS)
+    for j in range(ns, 0, -1):
+        if rff_grad_smem(d, j, j < ns) <= SMEM_BYTES:
+            return j
+    return 0
+
+
+def rff_grad_owner(c: int, d: int) -> int:
+    """The block whose slice ``split(d, RFF_GRAD_CLUSTER)`` holds column c,
+    which receives the 32 groups' sums of that column (csrc/rff_grad.cu
+    ``slice_owner``)."""
+    return (RFF_GRAD_CLUSTER * (c + 1) - 1) // d
+
+
+def rff_grad_layout(m: int, d: int) -> list[dict]:
+    """What each block (rank) of a row's cluster does in the RFF gradient's
+    kernel: ``chunks``, per chunk the features it projects and sums, by
+    local group (a feature ``f = gl * js + j`` of the chunk is ``m = g0 + gl
+    + 32 (j0 + j)``, valid where it is below M), and ``columns``, the output
+    columns whose 32 group sums it receives (``rff_grad_owner``) and adds."""
+    gpb, ns = RFF_GRAD_GROUPS // RFF_GRAD_CLUSTER, -(-m // RFF_GRAD_GROUPS)
+    slots = rff_grad_slots(m, d)
+    cols = split(d, RFF_GRAD_CLUSTER)
+    blocks = []
+    for rank in range(RFF_GRAD_CLUSTER):
+        g0, chunks = rank * gpb, []
+        for j0 in range(0, ns, slots):
+            js = min(slots, ns - j0)
+            cnt = [min(js, max(0, -(-(m - g0 - gl) // RFF_GRAD_GROUPS) - j0)) for gl in range(gpb)]
+            chunks.append([[g0 + gl + RFF_GRAD_GROUPS * (j0 + j) for j in range(cnt[gl])]
+                           for gl in range(gpb)])
+        blocks.append({"groups": list(range(g0, g0 + gpb)), "chunks": chunks,
+                       "columns": [c for c in range(d) if rff_grad_owner(c, d) == rank],
+                       "slice": range(cols[rank], cols[rank + 1])})
+    return blocks
+
+
+def rows_route(rows: int, d: int) -> tuple[str, int]:
+    """The kernel of csrc/proj.cuh ``launch_proj`` for ``rows`` rows at width
+    d, and its rows template: ("rows", BN) where the rows (BN = rows up to
+    8, else 16) and a tile of ROWS_TILE columns fit shared memory, else
+    ("tile", 64)."""
+    bn = rows if rows <= 8 else 16
+    if rows <= 16 and 4 * (-(-bn * d // 4) * 4 + ROWS_TILE * d) <= SMEM_BYTES:
+        return "rows", bn
+    return "tile", 64

@@ -1,13 +1,15 @@
-// Shared projection body of the RFF features (rff_features.cu), the sine
-// stage of the RFF gradient contraction (rff_grad.cu) and the SE Gram
-// (sqexp.cu), for `batch` independent problems laid out back to back:
+// Shared projection body of the RFF features (rff_features.cu), the RFF
+// gradient contraction (rff_grad.cu) and the SE Gram (sqexp.cu), for
+// `batch` independent problems laid out back to back:
 //
 //   acc[i][j] = sum_k a[i][k] * bm[j][k]      a (rows, d), bm (cols, d), row-major
 //   out[i][j] = epi(acc[i][j], i, j, |a_i|^2, |bm_j|^2)
 //
 // Two kernels compute it: a tile kernel (64 x 64 outputs a block) for many
 // rows, and a rows kernel (all rows a block, one column a warp) for the
-// few rows of the RFF gradient and of an append event's Gram rows.
+// few rows of an append event's Gram rows.  The rows kernel's dot product,
+// lane_dot2 (lane k sums k, k + 32, ... in order, then the butterfly
+// warp_sum_f2), is also the projection of the RFF gradient's kernel.
 //
 // Every sum is carried as an unevaluated pair hi + lo of f32 (compensated
 // dot product, Ogita-Rump-Oishi Dot2): each product a*b is split exactly
@@ -30,6 +32,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace fz {
 
@@ -175,16 +179,27 @@ int launch_proj_tile(const float* a, const float* bm, float* out, int batch, int
   return (int)cudaGetLastError();
 }
 
-// Rows kernel.  A few rows (rows <= BN <= 16: the RFF gradient's n
-// iterates, the SE Gram's k appended rows) against many columns: the block
-// stages all rows of a (BN x d) in shared memory and gives each warp one
-// column; the lanes stride over d (coalesced reads of the column's row of
-// bm) and keep one compensated pair per row, then a butterfly of shuffles
-// adds the 32 lanes' pairs (TwoSum at each level, the same order on every
-// run).
-// Work per lane is d / 32 steps, so a d of a few hundred is a few dozen
-// instructions deep instead of the tile path's d.
-constexpr int kRowsWarps = kProjThreads / 32;
+// Rows kernel.  A few rows (rows <= BN <= 16: the SE Gram's k appended
+// rows, a few RFF feature rows) against many columns.  A block owns
+// kRowsTile consecutive columns.  It copies the rows and its columns' rows
+// of bm into shared memory by cp.async, every copy issued at once, the rows
+// first: the rows' norms (SE Gram) are summed while the columns land.
+// Then each column is taken by one warp, or for BN >= 2 by two with the
+// rows split between them (the second also sums the column's norm): lane k
+// sums k, k + 32, ... in order, one compensated pair per row, the butterfly
+// warp_sum_f2 adds the lanes' pairs (TwoSum at each level, the same order
+// on every run; every lane ends with the same sums), two rows at a time
+// (warp_sum2_f2), and the lane holding a row's sum applies its epilogue.
+// BN is the row count itself up to 8, so no chain is summed for a row that
+// is not there.
+constexpr int kRowsTile = 8;  // columns of a block
+
+// Warps of a column and threads of a block of the rows kernel.
+template <int BN>
+struct RowsShape {
+  static constexpr int kColWarps = BN > 1 ? 2 : 1;
+  static constexpr int kThreads = 32 * kRowsTile * kColWarps;
+};
 
 __device__ __forceinline__ F2 warp_sum_f2(F2 x) {
 #pragma unroll
@@ -199,81 +214,194 @@ __device__ __forceinline__ F2 warp_sum_f2(F2 x) {
   return x;
 }
 
-// grid (ceil(cols / kRowsWarps), batch); dynamic shared memory: the rows
-// (BN x d, zero past `rows`).
+// The butterfly of two sums at once: lanes 0-15 end with warp_sum_f2(a),
+// lanes 16-31 with warp_sum_f2(b), bit for bit.  At the first level each
+// lane keeps the value of its half and sends the partner the other, so the
+// pair costs one butterfly's shuffles and TwoSums, not two; the levels
+// below stay within a half.
+__device__ __forceinline__ F2 warp_sum2_f2(F2 a, F2 b, int lane) {
+  const bool upper = lane & 16;
+  F2 x = upper ? b : a;
+  const F2 give = upper ? a : b;
+  const float h = __shfl_xor_sync(0xffffffffu, give.hi, 16);
+  const float l = __shfl_xor_sync(0xffffffffu, give.lo, 16);
+  float s, e;
+  two_sum(x.hi, h, s, e);
+  x.hi = s;
+  x.lo = __fadd_rn(__fadd_rn(x.lo, l), e);
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+    const float h2 = __shfl_xor_sync(0xffffffffu, x.hi, o);
+    const float l2 = __shfl_xor_sync(0xffffffffu, x.lo, o);
+    two_sum(x.hi, h2, s, e);
+    x.hi = s;
+    x.lo = __fadd_rn(__fadd_rn(x.lo, l2), e);
+  }
+  return x;
+}
+
+// The sums of N lane-partial pairs, two at a time: value 2p in lane p and
+// value 2p + 1 in lane 16 + p (warp_sum2_f2), an odd last value in lane
+// N / 2 (warp_sum_f2); lane k receives value pair_index(k) where it exists.
+__device__ __forceinline__ int pair_index(int lane) {
+  return lane < 16 ? 2 * lane : 2 * (lane - 16) + 1;
+}
+
+template <int N>
+__device__ __forceinline__ F2 pair_sums(const F2 (&v)[N], int lane) {
+  F2 mine = F2{0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {
+    const F2 t = warp_sum2_f2(v[2 * q], v[2 * q + 1], lane);
+    if ((lane & 15) == q) mine = t;
+  }
+  if (N % 2) {
+    const F2 t = warp_sum_f2(v[N - 1]);
+    if (lane == N / 2) mine = t;
+  }
+  return mine;
+}
+
+// acc[i][j] += a_i . b_j and, with kNormB, nb[j] += b_j . b_j over the
+// k = lane, lane + 32, ... < d, in that order, by dot2_step: NA rows of a
+// and NB rows of b in shared memory (leading dimensions lda, ldb).  The
+// caller adds the lanes' pairs with warp_sum_f2 or pair_sums.
+template <int NA, int NB, bool kNormB>
+__device__ __forceinline__ void lane_dot2(const float* a, int lda, const float* b, int ldb, int d,
+                                          int lane, F2 (&acc)[NA][NB], F2 (&nb)[NB]) {
+#pragma unroll 2
+  for (int k = lane; k < d; k += 32) {
+    float bv[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) bv[j] = b[j * ldb + k];
+    if (kNormB) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) dot2_step(bv[j], bv[j], nb[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const float av = a[i * lda + k];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) dot2_step(av, bv[j], acc[i][j]);
+    }
+  }
+}
+
+// Shared memory of the rows kernel: the rows (BN x d, zero past `rows`),
+// then the block's columns' rows of bm (kRowsTile x d), 16-byte aligned.
+template <int BN>
+__host__ __device__ __forceinline__ size_t rows_smem_floats(int d) {
+  return (((size_t)BN * d + 3) & ~size_t(3)) + (size_t)kRowsTile * d;
+}
+
+// One warp's share of a column: NA rows of sa against the column's row
+// sb, and with kNorm the column's norm (in every lane); the rows' sums by
+// pair_sums, lane k keeping row pair_index(k)'s.
+template <int NA, bool kNorm>
+__device__ __forceinline__ void rows_share(const float* sa, const float* sb, int d, int lane,
+                                           F2& mine, F2& nb) {
+  F2 acc[NA][1], nbs[1] = {F2{0.f, 0.f}}, rows[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i][0] = F2{0.f, 0.f};
+  lane_dot2<NA, 1, kNorm>(sa, d, sb, d, d, lane, acc, nbs);
+#pragma unroll
+  for (int i = 0; i < NA; ++i) rows[i] = acc[i][0];
+  mine = pair_sums(rows, lane);
+  if (kNorm) nb = warp_sum_f2(nbs[0]);
+}
+
+// grid (ceil(cols / kRowsTile), batch)
 template <int BN, bool kNorms, class Epi>
-__global__ void __launch_bounds__(kProjThreads)
+__global__ void __launch_bounds__(RowsShape<BN>::kThreads)
 proj_rows_kernel(const float* __restrict__ a, const float* __restrict__ bm,
                  float* __restrict__ out, int rows, int cols, int d, Epi epi) {
-  extern __shared__ float sa[];
-  __shared__ F2 sna[BN];
+  constexpr int kWarps = kRowsTile * RowsShape<BN>::kColWarps;
+  // rows of a column's first warp; the second has the rest
+  constexpr int kFirst = RowsShape<BN>::kColWarps == 1 ? BN : (BN + 1) / 2;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ F2 sna[BN], snb[kRowsTile];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col0 = blockIdx.x * kRowsTile, ncol = min(kRowsTile, cols - col0);
   a += (size_t)blockIdx.y * rows * d;
-  bm += (size_t)blockIdx.y * cols * d;
+  bm += ((size_t)blockIdx.y * cols + col0) * d;
   out += (size_t)blockIdx.y * rows * cols;
-  for (int e = threadIdx.x; e < BN * d; e += kProjThreads)
-    sa[e] = e < rows * d ? a[e] : 0.f;
-  __syncthreads();
-  if (kNorms) {
-    for (int i = warp; i < BN; i += kRowsWarps) {
+  float* sa = smem;
+  float* sb = smem + (((size_t)BN * d + 3) & ~size_t(3));
+  stage_tile(sa, rows * d, a, 1, rows * d, rows * d);  // the rows as one run of floats
+  cp_async_commit();
+  stage_tile(sb, ncol * d, bm, 1, ncol * d, ncol * d);
+  cp_async_commit();
+  for (int e = rows * d + threadIdx.x; e < BN * d; e += blockDim.x) sa[e] = 0.f;
+  if (kNorms) {  // the rows' norms while the columns land
+    cp_async_wait<1>();
+    __syncthreads();
+    for (int i = warp; i < rows; i += kWarps) {
       F2 n = F2{0.f, 0.f};
       for (int k = lane; k < d; k += 32) dot2_step(sa[i * d + k], sa[i * d + k], n);
       n = warp_sum_f2(n);
       if (lane == 0) sna[i] = n;
     }
-    __syncthreads();
   }
-  const int col = blockIdx.x * kRowsWarps + warp;
-  if (col >= cols) return;
-  const float* br = bm + (size_t)col * d;
-  F2 acc[BN], nb = F2{0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < BN; ++i) acc[i] = F2{0.f, 0.f};
-  for (int k = lane; k < d; k += 32) {
-    const float bv = br[k];
-    if (kNorms) dot2_step(bv, bv, nb);
-#pragma unroll
-    for (int i = 0; i < BN; ++i) dot2_step(sa[i * d + k], bv, acc[i]);
+  cp_async_wait<0>();
+  __syncthreads();
+  const int c = warp % kRowsTile, half = warp / kRowsTile;
+  F2 mine = F2{0.f, 0.f}, nb = F2{0.f, 0.f};
+  if (c < ncol) {
+    const float* sbc = sb + (size_t)c * d;
+    if constexpr (RowsShape<BN>::kColWarps == 1) {
+      rows_share<BN, kNorms>(sa, sbc, d, lane, mine, nb);
+    } else {
+      if (half == 0) rows_share<kFirst, false>(sa, sbc, d, lane, mine, nb);
+      else rows_share<BN - kFirst, kNorms>(sa + (size_t)kFirst * d, sbc, d, lane, mine, nb);
+      if (half == 1 && lane == 0) snb[c] = nb;
+    }
   }
-  if (kNorms) nb = warp_sum_f2(nb);
-#pragma unroll
-  for (int i = 0; i < BN; ++i) {
-    const F2 t = warp_sum_f2(acc[i]);
-    if (lane == 0 && i < rows)
-      out[(size_t)i * cols + col] = epi(t, i, col, kNorms ? sna[i] : F2{0.f, 0.f}, nb);
+  if constexpr (RowsShape<BN>::kColWarps > 1) {
+    __syncthreads();  // the column's norm, from its second warp
+    if (kNorms) nb = snb[c < ncol ? c : 0];
+  }
+  const int r = pair_index(lane), i = half * kFirst + r;
+  if (c < ncol && i < rows && r < (half == 0 ? kFirst : BN - kFirst)) {
+    const int col = col0 + c;
+    out[(size_t)i * cols + col] = epi(mine, i, col, kNorms ? sna[i] : F2{0.f, 0.f}, nb);
   }
 }
 
 template <int BN, bool kNorms, class Epi>
 int launch_proj_rows(const float* a, const float* bm, float* out, int batch, int rows, int cols,
                      int d, Epi epi, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)BN * d;
-  if (smem > 48 * 1024) {
+  const size_t smem = sizeof(float) * rows_smem_floats<BN>(d);
+  if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(proj_rows_kernel<BN, kNorms, Epi>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((cols + kRowsWarps - 1) / kRowsWarps, batch);
-  proj_rows_kernel<BN, kNorms, Epi><<<grid, kProjThreads, smem, stream>>>(a, bm, out, rows,
-                                                                          cols, d, epi);
+  dim3 grid((cols + kRowsTile - 1) / kRowsTile, batch);
+  proj_rows_kernel<BN, kNorms, Epi><<<grid, RowsShape<BN>::kThreads, smem, stream>>>(
+      a, bm, out, rows, cols, d, epi);
   return (int)cudaGetLastError();
 }
 
 // One launch over `batch` independent (rows x cols) problems laid out back
-// to back.  Up to 16 rows whose (16 x d) slab fits a block's shared memory
-// take the rows kernel above; larger row counts take the tile kernel with
-// 64 x 64 tiles and d chunks of 64 (33 KB of shared memory).
+// to back.  Up to 16 rows whose slab and column tile fit a block's shared
+// memory take the rows kernel above (BN = rows up to 8, else 16); larger
+// row counts take the tile kernel with 64 x 64 tiles and d chunks of 64
+// (33 KB of shared memory).
 template <bool kNorms, class Epi>
 int launch_proj(const float* a, const float* bm, float* out, int batch, int rows, int cols, int d,
                 Epi epi, cudaStream_t stream) {
   if (batch <= 0 || rows <= 0 || cols <= 0) return 0;
-  if (rows <= 16 && sizeof(float) * 16 * (size_t)d <= 227 * 1024) {
-    const int bn = rows <= 1 ? 1 : rows <= 2 ? 2 : rows <= 4 ? 4 : rows <= 8 ? 8 : 16;
-    switch (bn) {
+  const size_t slab = ((size_t)(rows <= 8 ? rows : 16) * d + 3) & ~size_t(3);
+  if (rows <= 16 && sizeof(float) * (slab + (size_t)kRowsTile * d) <= 227 * 1024) {
+    switch (rows) {
       case 1: return launch_proj_rows<1, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
       case 2: return launch_proj_rows<2, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
+      case 3: return launch_proj_rows<3, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
       case 4: return launch_proj_rows<4, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
+      case 5: return launch_proj_rows<5, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
+      case 6: return launch_proj_rows<6, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
+      case 7: return launch_proj_rows<7, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
       case 8: return launch_proj_rows<8, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
       default: return launch_proj_rows<16, kNorms>(a, bm, out, batch, rows, cols, d, epi, stream);
     }

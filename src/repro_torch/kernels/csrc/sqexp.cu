@@ -11,12 +11,17 @@
 //
 // What bounds it on the card: bytes.  At every append event of the main
 // path (N = 5 clients, k = 5 new rows against cap = 192, d = 300) it reads
-// 1.2 MB of trajectory, 0.36 us at 3.35 TB/s, for 2.9 MFLOP.  The body is
-// the product of proj.cuh (its rows kernel for the k <= 16 new rows of an
-// append event: one warp per ring row, the lanes over d; its 64 x 64 tiles
-// at factor_init's cap x cap) with the row norms summed in the same d loop
-// and the distance, clamp and expf fused into the store, so neither the
-// cross products nor the distances go to device memory.
+// 1.2 MB of trajectory, 0.36 us at 3.35 TB/s, for 2.9 MFLOP; at the
+// iterate's event (k = 1) 1.15 MB, 0.34 us.  The body is the product of
+// proj.cuh with the row norms summed in the same d loop and the distance,
+// clamp and expf fused into the store, so neither the cross products nor
+// the distances go to device memory.  An append event (k <= 16 new rows)
+// takes its rows kernel: a block owns 8 ring rows of one client, copies
+// them and the k new rows into shared memory by cp.async, all issued at
+// once, sums the new rows' norms while the ring rows land, then one warp
+// per ring row (the lanes over d) sums k + 1 compensated pairs, and k lanes
+// apply the epilogue at once.  factor_init's cap x cap Gram takes its
+// 64 x 64 tiles.
 //
 // Accuracy: the three terms of the expanded distance arrive as compensated
 // pairs (proj.cuh) and are combined by TwoSum, so the distance is rounded

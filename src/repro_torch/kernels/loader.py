@@ -46,7 +46,7 @@ SIGNATURES = {
     "fz_grad_single_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     "fz_grad_single_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "fz_rff_features": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    "fz_rff_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "fz_rff_grad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "fz_sqexp": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 

@@ -3,11 +3,11 @@
 ``rff_grad_rows`` takes x (n, d), the bank v (M, d) and b (M,), and one
 weight vector per row, ws (n, M); ``rff_grad`` one w (M,) for every row.
 Both return grad phi(X)^T w, (n, d), through the same kernel entry (the
-weight stride selects the form).  One launch is two device kernels, the
-sine stage and the fixed-order reduction over M, with an (n, M) scratch
-allocated here.  On CPU tensors the wrappers compute the plain versions;
-on CUDA tensors they launch the kernel (building it on first use) or
-raise.  ``LAUNCHES`` counts the launches of the entry.
+weight stride selects the form): one device kernel, a thread block
+cluster per row, with no scratch (S stays in shared memory).  On CPU
+tensors the wrappers compute the plain versions; on CUDA tensors they
+launch the kernel (building it on first use) or raise.  ``LAUNCHES``
+counts the launches of the entry.
 """
 
 from __future__ import annotations
@@ -24,11 +24,10 @@ LAUNCHES = {"rff_grad": 0}
 def _launch(x, v, b, w, w_stride):
     n, d = x.shape
     m = v.shape[0]
-    s = torch.empty((n, m), dtype=torch.float32, device=x.device)
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     err = loader.library().fz_rff_grad(x.data_ptr(), v.data_ptr(), b.data_ptr(), w.data_ptr(),
-                                       s.data_ptr(), out.data_ptr(), n, m, d, w_stride,
-                                       math.sqrt(2.0 / m), loader.stream())
+                                       out.data_ptr(), n, m, d, w_stride, math.sqrt(2.0 / m),
+                                       loader.stream())
     loader.check(err, "rff_grad")
     LAUNCHES["rff_grad"] += 1
     return out

@@ -6,7 +6,8 @@ client-batched Gram exp(-max(|x1|^2 + |x2|^2 - 2 x1.x2, 0) / 2 l^2),
 The kernel masks ragged a, b and d itself, so nothing is padded.  On CPU
 tensors it computes the plain version; on CUDA tensors it launches the
 kernel (building it on first use) or raises.  ``LAUNCHES`` counts the
-kernel launches.
+kernel launches, ``LAUNCHES_BY_ROWS`` the same launches by the number of
+rows a of x1 (an append event's 1 or k new rows, factor_init's cap).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from repro_torch.kernels import loader, ref
 
 LAUNCHES = {"sqexp": 0}
+LAUNCHES_BY_ROWS: dict[int, int] = {}
 
 
 def sqexp_clients(x1, x2, *, lengthscale):
@@ -30,4 +32,5 @@ def sqexp_clients(x1, x2, *, lengthscale):
                                     0.5 / float(lengthscale) ** 2, loader.stream())
     loader.check(err, "sqexp")
     LAUNCHES["sqexp"] += 1
+    LAUNCHES_BY_ROWS[a] = LAUNCHES_BY_ROWS.get(a, 0) + 1
     return out

@@ -450,6 +450,68 @@ def test_cluster_geometry_covers_every_row_and_column_once(n, cap, d):
         assert autotune.select_blocks("grad_clients", n=1, cap=cap, d=d) == (1, 192)
 
 
+# (M, d): the main path's B5 shape, the launcher's M=1000, M past the
+# earlier kernel's 1024-column chunk of S, fewer features than groups, a
+# bank whose rows need several chunks, and d not a multiple of 4.
+RFF_LAYOUTS = [(512, 300), (1000, 300), (1100, 257), (32, 3), (5, 8), (4096, 300), (100, 5000)]
+
+
+@pytest.mark.parametrize("m,d", RFF_LAYOUTS)
+def test_rff_grad_layout_covers_every_feature_and_column_once(m, d):
+    """The RFF gradient kernel's layout (``autotune.rff_grad_layout``, as
+    csrc/rff_grad.cu computes it): over a row's cluster every feature is
+    projected and summed exactly once, by the block owning its group
+    (m mod 32), each group's features in ascending order across the chunks;
+    every output column is received and added up by exactly one block, the
+    one whose slice of d holds it; the blocks own the 32 groups in order;
+    shared memory fits."""
+    blocks = autotune.rff_grad_layout(m, d)
+    assert len(blocks) == autotune.RFF_GRAD_CLUSTER
+    assert [g for blk in blocks for g in blk["groups"]] == list(range(autotune.RFF_GRAD_GROUPS))
+    seen = []
+    for blk in blocks:
+        for gl, g in enumerate(blk["groups"]):
+            feats = [f for chunk in blk["chunks"] for f in chunk[gl]]
+            assert feats == list(range(g, m, autotune.RFF_GRAD_GROUPS))  # ascending, all of g
+            seen += feats
+    assert sorted(seen) == list(range(m))
+    assert [c for blk in blocks for c in blk["columns"]] == list(range(d))
+    assert all(blk["columns"] == list(blk["slice"]) for blk in blocks)
+    smax = -(-d // autotune.RFF_GRAD_CLUSTER)  # the receive buffer's columns per group
+    assert all(len(blk["columns"]) <= smax for blk in blocks)
+    slots = autotune.rff_grad_slots(m, d)
+    ns = -(-m // autotune.RFF_GRAD_GROUPS)
+    assert slots >= 1
+    assert autotune.rff_grad_smem(d, slots, slots < ns) <= autotune.SMEM_BYTES
+    assert len(blocks[0]["chunks"]) == -(-ns // slots)
+    if (m, d) == (512, 300):  # the main path: one chunk, every copy issued at once
+        assert slots == ns == 16
+    if (m, d) == (4096, 300):
+        assert 1 < len(blocks[0]["chunks"])
+
+
+def test_rff_grad_refuses_what_shared_memory_cannot_hold():
+    """x, one feature row per group and the groups' pairs must fit a block:
+    d above about 5,000 has no slot where M needs chunks, above about 8,000
+    where one chunk holds M (the kernel returns an error)."""
+    assert autotune.rff_grad_slots(512, 5000) == 1
+    assert autotune.rff_grad_slots(512, 5400) == 0
+    assert autotune.rff_grad_slots(32, 8000) == 1
+    assert autotune.rff_grad_slots(32, 8400) == 0
+
+
+@pytest.mark.parametrize("rows,d,route", [(5, 300, ("rows", 5)), (1, 300, ("rows", 1)),
+                                          (8, 20, ("rows", 8)), (9, 20, ("rows", 16)),
+                                          (16, 2400, ("rows", 16)), (16, 2500, ("tile", 64)),
+                                          (17, 3, ("tile", 64)), (192, 300, ("tile", 64))])
+def test_sqexp_rows_route(rows, d, route):
+    """The SE Gram's route (``autotune.rows_route``, as csrc/proj.cuh
+    ``launch_proj`` picks it): an append event's 1 or 5 rows take the rows
+    kernel with BN equal to the row count, so no chain is summed for a
+    missing row; factor_init's cap x cap Gram takes the 64 x 64 tiles."""
+    assert autotune.rows_route(rows, d) == route
+
+
 def test_loader_builds_every_source_and_binds_every_entry():
     """Every ``csrc`` source and header is in the build (and so in its
     digest), and every bound entry is an ``extern "C"`` function of one."""
@@ -549,3 +611,49 @@ def _check_cuda_rff_and_gram(dev, n, d, m):
     assert after["rff_features"] == before["rff_features"] + 1
     assert after["rff_grad"] == before["rff_grad"] + 3
     assert after["sqexp"] == before["sqexp"] + 2
+
+
+# Ragged shapes of the RFF gradient's kernel on the card: n rows (clusters),
+# M features (M=4096 at d=300 needs several chunks), by d.
+CUDA_RFF_N, CUDA_RFF_M = (1, 5, 16, 17), (32, 512, 1000, 1100)
+
+
+@pytest.mark.parametrize("d", [3, 8, 257, 300])
+def test_cuda_rff_grad_matches_plain_and_repeats(d):
+    """B5 on the card, per-row w and one w, against its plain version on the
+    CPU (RFF_ATOL), and bitwise the same on a second launch (fixed-order
+    sums, no float atomics), over n in CUDA_RFF_N and M in CUDA_RFF_M; a d
+    that shared memory cannot hold raises."""
+    dev = _cuda()
+    c = lambda a: T(a).to(dev)
+    for n in CUDA_RFF_N:
+        for m in CUDA_RFF_M + ((4096,) if d == 300 else ()):
+            x, v, b, ws = _rff_inputs(n, d, m, seed=n + m + d)
+            got = ops.rff_grad_rows(c(x), c(v), c(b), c(ws))
+            _close(got.cpu(), ref.rff_grad_rows(T(x), T(v), T(b), T(ws)), RFF_ATOL)
+            assert torch.equal(got, ops.rff_grad_rows(c(x), c(v), c(b), c(ws)))
+            one = ops.rff_grad(c(x), c(v), c(b), c(ws[0]))
+            _close(one.cpu(), ref.rff_grad(T(x), T(v), T(b), T(ws[0])), RFF_ATOL)
+            assert torch.equal(one, ops.rff_grad(c(x), c(v), c(b), c(ws[0])))
+    if d == 300:  # no slot fits shared memory (autotune.rff_grad_slots): the launch raises
+        x, v, b, ws = _rff_inputs(2, 5400, 512, seed=1)
+        with pytest.raises(RuntimeError, match="rff_grad launch failed"):
+            ops.rff_grad_rows(c(x), c(v), c(b), c(ws))
+
+
+@pytest.mark.parametrize("d", [3, 8, 257, 300])
+def test_cuda_sqexp_rows_matches_plain_and_repeats(d):
+    """B9's rows route on the card (a new rows against the (N, cap, d) ring)
+    against float64 within the plain version's error (``_close_gram``) and
+    bitwise the same on a second launch, over a in (1, 5, 16) and cap in
+    (1, 16, 192, 193)."""
+    dev = _cuda()
+    c = lambda a: T(a).to(dev)
+    for a in (1, 5, 16):
+        for cap in (1, 16, 192, 193):
+            x1, x2 = _gram_inputs(3, a, cap, d, seed=a + cap + d)
+            k = ops.sqexp(c(x1), c(x2), RFF_LS)
+            assert torch.equal(k, ops.sqexp(c(x1), c(x2), RFF_LS))
+            for i in range(3):
+                _close_gram(k[i].cpu(), (ref.sqexp(T(x1[i]), T(x2[i]), RFF_LS),),
+                            _gram_truth(x1[i], x2[i]))
