@@ -16,9 +16,13 @@ Phases, each a hard check (any failure exits non-zero):
    engine's (one client, the same n, cap and d), the RFF gradient (B5),
    the RFF features (B6) and the SE Gram (B9) at the main path's shapes
    (see ``rff_and_gram_specs``; B9 at an append event of 5 rows and of 1
-   row); the cluster kernels of B1 and B3, B5 and B9's append events
-   launched twice for the same bits (``REPEATED``), B1 and B3 beside the
-   cuBLAS products inside them (``cluster_yardsticks``);
+   row); the cluster kernels of B1 and B3, the single-client scoring (B7a)
+   and the cap-tiled scoring (B2, B7b), B5 and B9's append events launched
+   twice for the same bits (``REPEATED``), B1 and B3 beside the cuBLAS
+   products inside them (``cluster_yardsticks``); the cap-tiled scoring
+   against float64 at large and ragged sizes, no less accurate than its
+   plain version, with its device time against its bound at cap 1000 and
+   more (``check_tiled_accuracy``);
 4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
    width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
    settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
@@ -28,7 +32,8 @@ Phases, each a hard check (any failure exits non-zero):
    must agree (printed beside it: each side's eigh fallbacks per round and
    the coordinates of x that differ by more than eta/2); B1, B3, B5, B6 and
    B9 on that small engine's own inputs, each no less accurate than its
-   plain version against float64 (``check_engine_inputs``);
+   plain version against float64 (``check_engine_inputs``), and B2 there
+   with cap tiles of 8;
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -38,8 +43,8 @@ Phases, each a hard check (any failure exits non-zero):
    3 rounds, and 1 round on the pinned cap tiles, with exact launch counts
    of the single-client kernels; the small card-vs-CPU check for it and for
    the seed engine (``use_factor_cache=False``); B5, B6, B9, B7a and B8a on
-   the small per-client engine's own inputs (``check_engine_inputs``); one
-   of its rounds profiled;
+   the small per-client engine's own inputs (``check_engine_inputs``), and
+   B7b there with cap tiles of 8; one of its rounds profiled;
 8. the FD baselines (fedzo, fedprox, scaffold1, scaffold2) at d=300, N=5,
    q=20, 2 rounds each, with no launch but factor_init's SE Gram;
 9. one JSON line describing every kernel, and the result line.
@@ -70,9 +75,18 @@ F32_FLOPS_S = 67e12
 D, N_CLIENTS, CAP, CANDS, M = 300, 5, 192, 50, 512
 ROUNDS, OTHER_ROUNDS = 5, 2
 #: Kernels phase 3 launches a second time to show the same bits (the
-#: cluster kernels reduce across blocks in a fixed order, with no atomics;
-#: so do the RFF gradient's and the SE Gram's rows kernel).
-REPEATED = ("score_resident", "grad_resident", "rff_grad", "sqexp", "sqexp[1 row]")
+#: cluster kernels and the cap-tiled scoring reduce across blocks in a
+#: fixed order, with no atomics; so do the RFF gradient's and the SE Gram's
+#: rows kernel).
+REPEATED = ("score_resident", "grad_resident", "rff_grad", "sqexp", "sqexp[1 row]",
+            "score_tiled", "score_single_resident", "score_single_tiled")
+#: Sizes of the cap-tiled scoring's accuracy check (clients, candidates,
+#: cap, d, cap tile): one client and five at cap 1000, one at 4096, d=1500,
+#: and ragged ones (cap and n not multiples of the tiles), the main path's
+#: pinned tile and the small engines' width.
+TILED_ACCURACY = ((1, 50, 1000, 300, 256), (1, 50, 4096, 300, 256), (5, 50, 1000, 300, 256),
+                  (1, 50, 1024, 1500, 256), (2, 9, 45, 1029, 8), (5, 7, 192, 300, 64),
+                  (1, 12, 16, 8, 8))
 PER_CLIENT_ROUNDS, FD_ROUNDS = 3, 2
 TILE = 64  # the cap tile pinned for the other route
 
@@ -113,21 +127,23 @@ def device_ms(fn, reps: int = 20) -> float:
     return us / 1e3 / reps
 
 
-def path_inputs(dev):
+def path_inputs(dev, nb=N_CLIENTS, n=CANDS, cap=CAP, d=D):
     """Scoring and gradient-mean inputs as the main path builds them: a
     full ring of points near the iterate, its factor, the masked inverse,
-    the centroid-shifted coordinates and candidates in the 0.01 ball."""
+    the centroid-shifted coordinates and candidates in the 0.01 ball; by
+    default at the main path's shapes, else at (nb clients, n candidates,
+    cap, d) from the same seed."""
     from repro_torch.core import gp_surrogate as gp
 
     g = torch.Generator(device=dev).manual_seed(0)
     hyper = gp.GPHyper(0.5, 1e-5)
-    center = 0.5 + 0.02 * torch.rand(N_CLIENTS, 1, D, generator=g, device=dev)
-    walk = 0.01 * torch.randn(N_CLIENTS, CAP, D, generator=g, device=dev).cumsum(1) / CAP**0.5
+    center = 0.5 + 0.02 * torch.rand(nb, 1, d, generator=g, device=dev)
+    walk = 0.01 * torch.randn(nb, cap, d, generator=g, device=dev).cumsum(1) / cap**0.5
     xs = (center + walk).clamp(0, 1)
-    ys = torch.randn(N_CLIENTS, CAP, generator=g, device=dev)
-    traj = gp.Trajectory(xs, ys, torch.full((N_CLIENTS,), CAP, dtype=torch.int32, device=dev))
+    ys = torch.randn(nb, cap, generator=g, device=dev)
+    traj = gp.Trajectory(xs, ys, torch.full((nb,), cap, dtype=torch.int32, device=dev))
     factor = gp.factor_init(traj, hyper)
-    cands = (xs[:, -1:] + 0.01 * (2 * torch.rand(N_CLIENTS, CANDS, D, generator=g, device=dev)
+    cands = (xs[:, -1:] + 0.01 * (2 * torch.rand(nb, n, d, generator=g, device=dev)
                                   - 1)).clamp(0, 1)
     masks = traj.valid_mask()
     binv = gp.factor_inverse(factor) * (masks[:, :, None] * masks[:, None, :])
@@ -135,7 +151,7 @@ def path_inputs(dev):
     xs_sh = ((xs - c0[:, None]) * masks[:, :, None]).contiguous()
     pmat = (binv * (xs_sh @ xs_sh.transpose(-1, -2))).contiguous()
     alpha = gp.gp_alpha_cached_clients(traj, factor).contiguous()
-    prior = D / hyper.lengthscale**2
+    prior = d / hyper.lengthscale**2
     return dict(cands=(cands - c0[:, None]).contiguous(), xs_sh=xs_sh, binv=binv.contiguous(),
                 pmat=pmat, xs=xs.contiguous(), alpha=alpha, query=xs[:, -1:].contiguous(),
                 ls=hyper.lengthscale, prior=prior)
@@ -257,6 +273,50 @@ def check_kernels(dev):
               f"{max(bound_b, bound_f):.6f} ms ({rows[-1]['bound_by']}); device time "
               f"{dev_ms:.6f} ms per call (profiler)", flush=True)
     return rows
+
+
+def check_tiled_accuracy(dev) -> None:
+    """Phase 3, the cap-tiled scoring through ``kernels.ops`` (B7b for one
+    client, B2 for more) at each size of ``TILED_ACCURACY`` on
+    ``path_inputs`` of that shape: against the plain version on float64
+    copies of the same inputs (the truth), the kernel's max error over the
+    candidates must be no more than the plain version's on the card (f32).
+    Prints each side's max and mean error and the candidates where the
+    kernel is further off; at cap 1000 and more also the kernel's device
+    time against its bound."""
+    from repro_torch.kernels import gp_score, ops
+
+    for nb, n, cap, d, tile in TILED_ACCURACY:
+        p = path_inputs(dev, nb, n, cap, d)
+        args = (p["cands"], p["xs_sh"], p["binv"], p["pmat"])
+        kw = dict(lengthscale=p["ls"], prior=p["prior"], block_cap=tile)
+        if nb == 1:
+            kernel = lambda: ops.uncertainty_scores(*(a[0] for a in args), **kw)[None]
+        else:
+            kernel = lambda: ops.uncertainty_scores_clients(*args, **kw)
+        got = kernel()
+        plain = gp_score.scores_tiled_plain(*args, p["ls"], p["prior"], tile)
+        truth = gp_score.scores_tiled_plain(*(a.double() for a in args), p["ls"], p["prior"],
+                                            tile)
+        k_err, p_err = (got.double() - truth).abs(), (plain.double() - truth).abs()
+        ok = (bool(torch.isfinite(got).all()) and got.shape == truth.shape
+              and k_err.max().item() <= p_err.max().item())
+        print(f"[tiled accuracy] N={nb} n={n} cap={cap} d={d} tile={tile}: max|out-f64| kernel "
+              f"{k_err.max().item():.4e} (mean {k_err.mean().item():.4e}), plain "
+              f"{p_err.max().item():.4e} (mean {p_err.mean().item():.4e}), largest score "
+              f"{truth.max().item():.6g}; kernel further off in {int((k_err > p_err).sum())} of "
+              f"{k_err.numel()} candidates; {'ok' if ok else 'LESS ACCURATE'}", flush=True)
+        if not ok:
+            fail(f"the tiled scoring at N={nb} n={n} cap={cap} d={d} is less accurate than its "
+                 "plain version")
+        if cap >= 1000:
+            nbytes = 4 * nb * (2 * cap * cap + cap * d + n * d + n)
+            flops = nb * n * (2 * cap * d + 4 * cap * cap + 6 * cap + 2 * d)
+            bound_b, bound_f = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+            print(f"[tiled accuracy] N={nb} n={n} cap={cap} d={d} tile={tile}: device time "
+                  f"{device_ms(kernel, reps=5):.6f} ms per call (profiler), bound "
+                  f"{max(bound_b, bound_f):.6f} ms "
+                  f"({'bytes' if bound_b >= bound_f else 'operations'})", flush=True)
 
 
 def cluster_yardsticks(p, score_args, grad_args) -> None:
@@ -504,8 +564,9 @@ def recording(names):
 
 def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
     """B5, B6, B9 and the scoring and gradient-mean ops (B1/B3 on the
-    deferred engine, B7a/B8a on the per-client one) on the inputs the small
-    engine of ``check_small_against_cpu`` gives them: every call of one
+    deferred engine, B7a/B8a on the per-client one, B7b there with
+    ``score_block_cap`` pinned below cap) on the inputs the small engine of
+    ``check_small_against_cpu`` gives them: every call of one
     card run is recorded, keyword arguments included, with the kernel's
     output, then the kernel's output and its plain version's on the card
     are held against a float64 evaluation of the same call.  A kernel less
@@ -514,19 +575,25 @@ def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
     each step's two B5 calls.  Returns the recorded calls of each op."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core import objectives as obj
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import gp_score, ref
 
     plain = {
         "rff_features": lambda x, v, b: ref.rff_features(
             x.reshape(-1, x.shape[-1]), v, b).reshape(*x.shape[:-1], v.shape[0]),
         "rff_grad_rows": ref.rff_grad_rows,
         "sqexp": ref.sqexp,
-        # the block pins (block_n, block_cap) choose a route, not the function
-        "uncertainty_scores_clients": lambda *a, lengthscale, prior, **_:
-            ref.uncertainty_scores_clients_fused(*a, lengthscale, prior),
+        # the block pins (block_n, block_cap) choose a route, not the function;
+        # a pinned cap tile below cap is held against the tiled route's plain
+        # version, the same sum in its tiles
+        "uncertainty_scores_clients": lambda *a, lengthscale, prior, block_cap=None, **_:
+            gp_score.scores_tiled_plain(*a, lengthscale, prior, block_cap)
+            if block_cap and block_cap < a[1].shape[-2]
+            else ref.uncertainty_scores_clients_fused(*a, lengthscale, prior),
         "grad_mean_clients": lambda *a, lengthscale, **_: ref.grad_mean_clients(*a, lengthscale),
-        "uncertainty_scores": lambda *a, lengthscale, prior, **_:
-            ref.uncertainty_scores(*a, lengthscale, prior),
+        "uncertainty_scores": lambda *a, lengthscale, prior, block_cap=None, **_:
+            gp_score.scores_tiled_plain(*(t[None] for t in a), lengthscale, prior, block_cap)[0]
+            if block_cap and block_cap < a[1].shape[-2]
+            else ref.uncertainty_scores(*a, lengthscale, prior),
         "grad_mean_batch": lambda *a, lengthscale, **_: ref.grad_mean_batch(*a, lengthscale),
     }
     cfg = alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
@@ -627,6 +694,8 @@ def check_per_client(cobjs, dev) -> dict:
     check_small_against_cpu(dev, "small per-client", defer_repair=False)
     check_small_against_cpu(dev, "small seed", use_factor_cache=False)
     check_engine_inputs(dev, "small per-client engine inputs", defer_repair=False)
+    check_engine_inputs(dev, "small per-client engine inputs, cap tiles of 8",
+                        defer_repair=False, score_block_cap=8)
     profile_round(cfg, cobjs, dev, "per-client profile")
     return {**counts, **{k: v for k, v in tcounts.items() if v}}
 
@@ -669,6 +738,7 @@ def main() -> int:
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = check_kernels(dev)
+    check_tiled_accuracy(dev)
 
     cfg = main_config()
     cobjs = obj.make_quadratic(0, N_CLIENTS, D, 5.0, 0.001, device=dev)
@@ -688,6 +758,7 @@ def main() -> int:
         fail(f"main path: {one_row} SE Gram launches with 1 row, expected {steps}")
     check_small_against_cpu(dev)
     check_engine_inputs(dev, "small engine inputs")
+    check_engine_inputs(dev, "small engine inputs, cap tiles of 8", score_block_cap=8)
     profile_round(cfg, cobjs, dev)
 
     ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)

@@ -1,36 +1,45 @@
 #!/usr/bin/env python3
-"""The RFF gradient (B5) and the SE Gram (B9) of this tree against another
-tree's, bit for bit and in device time, on one card.
+"""The kernels of this tree against another tree's, bit for bit, by the
+active-query picks they lead to, and in device time, on one card.
 
     python3 scripts/kernel_bits.py --parent DIR   # on a machine with one CUDA card
 
 ``DIR`` is the root of the other tree (for example a ``git archive`` of the
 parent commit unpacked under ``build/``).  Its kernel library is built by
-its own ``kernels/loader.py`` (loaded from its file, so the two trees'
-modules do not mix) and its ``fz_rff_grad`` and ``fz_sqexp`` are called
-through ctypes as its wrappers call them, with the scratch of an RFF
-gradient entry that takes one.  This tree's kernels run through
-``kernels.ops``.  The same inputs go to both:
+its own ``kernels/loader.py`` and its block choices come from its own
+``kernels/autotune.py`` (both loaded from their files, so the two trees'
+modules do not mix); its ``fz_rff_grad``, ``fz_sqexp`` and scoring entries
+are called through ctypes as its wrappers call them (padding, geometry,
+scratch or work buffers as its signatures take them).  This tree's kernels
+run through ``kernels.ops``.  The same inputs go to both:
 
-* the main path's shapes (``chip_smoke.rff_and_gram_inputs``): B5 with
-  per-row w and with one w, B9's append events of 5 rows and of 1 row,
-  and factor_init's init Gram (the tile route, unchanged);
-* every B5 and B9 call of one main-path round (d=300, N=5, M=512,
+* the main path's shapes (``chip_smoke.rff_and_gram_inputs``,
+  ``chip_smoke.path_inputs``): B5 with per-row w and with one w, B9's
+  append events of 5 rows and of 1 row, factor_init's init Gram, and the
+  client-batched resident scoring (B1);
+* every B5, B9 and B1 call of one main-path round (d=300, N=5, M=512,
   cap=192), and of the small deferred and per-client engines of
   ``chip_smoke.check_engine_inputs`` (d=8, N=3, cap=16, 3 rounds), as this
   tree's kernels received them.
 
 For each group it prints the calls, the calls whose outputs differ in any
-bit, the most differing elements of one call and the largest |difference|;
-then the profiler's device time per call of B5 and of the two append
-events, the other tree's and this tree's in turns (other, this, this,
-other), with the card's name and power limit.  Exits 1 if any output
-differs.
+bit, the most differing elements of one call and the largest |difference|.
+The single-client scoring (B7a, and B7b on the per-client engine with cap
+tiles of 8) may differ by design: for each of its calls on the small
+per-client engines it compares the active-query picks (the top 2 by a
+stable descending sort, as the engine takes them) index for index and
+prints, for any call whose picks differ, the candidates, both trees'
+scores and their float64 truth.  Then the profiler's device time per call
+of B5, the two append events, B1, B7a, and B7b and B2 with cap tiles of
+64, the other tree's and this tree's in turns (other, this, this, other),
+with the card's name and power limit.  Exits 1 if any output of B5, B9 or
+B1 differs.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import math
 import subprocess
@@ -46,17 +55,27 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
-NAMES = ("rff_grad_rows", "sqexp")
+NAMES = ("rff_grad_rows", "sqexp", "uncertainty_scores_clients", "uncertainty_scores")
+#: Active queries the small engines pick per call (active_per_iter, active_round_end).
+PICKS = 2
+
+
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def other_tree(root: Path):
     """The other tree's kernel library and its entries, as its wrappers
     call them: (rff_grad_rows(x, v, b, ws), rff_grad(x, v, b, w),
-    sqexp(x1, x2, lengthscale))."""
-    path = root / "src" / "repro_torch" / "kernels" / "loader.py"
-    spec = importlib.util.spec_from_file_location("other_tree_loader", path)
-    loader = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(loader)
+    sqexp(x1, x2, lengthscale), scores(cands, xs, binv, pmat, lengthscale=,
+    prior=, block_n=, block_cap=) for one client's (n, d) or client-batched
+    (N, n, d) candidates)."""
+    kernels = root / "src" / "repro_torch" / "kernels"
+    loader = _module(kernels / "loader.py", "other_tree_loader")
+    tune = _module(kernels / "autotune.py", "other_tree_autotune")
     lib = loader.library()
     scratch = len(loader.SIGNATURES["fz_rff_grad"]) == 12  # (n, M) scratch S before out
 
@@ -85,8 +104,45 @@ def other_tree(root: Path):
         loader.check(err, "other tree's sqexp")
         return out[0] if two_d else out
 
+    def scores(cands, xs, binv, pmat, *, lengthscale, prior, block_n=None, block_cap=None):
+        single = cands.dim() == 2
+        c, x, b, p = (t[None] if single else t for t in (cands, xs, binv, pmat))
+        (nb, n, d), cap = c.shape, x.shape[1]
+        kind = "score" if single else "score_clients"
+        bn, bc = tune.select_blocks(kind, n=n, cap=cap, d=d)
+        bn, bc = block_n or bn, block_cap or bc
+        npad = -(-n // bn) * bn
+        c = ops._pad_axis(c, 1, npad).contiguous()
+        out = torch.empty((nb, npad), device=c.device)
+        name = "fz_score_" + ("single_" if single else "") + ("resident" if bc >= cap else "tiled")
+        sig = loader.SIGNATURES[name]
+        work = []
+        if bc >= cap:  # the cluster geometry where the entry takes it
+            geo = ()
+            if not single:
+                geo = tune.cluster_geometry(cap)
+            elif len(sig) == 15:
+                geo = tune.cluster_geometry(cap, single=True)
+            tail = [cap, d, bn, *geo]
+        elif sig[5] is ctypes.c_void_p:  # a work buffer
+            work = [torch.empty(tune.score_tiled_work(nb, npad, cap, bc), dtype=torch.float64,
+                                device=c.device)]
+            tail = [cap, d, bn, bc]
+        else:  # the earlier tiled entries: the trajectory padded to a tile multiple
+            cpad = -(-cap // bc) * bc
+            x, b, p = ops._pad_axis(x, 1, cpad), ops._pad_gram(b, cpad), ops._pad_gram(p, cpad)
+            tail = [cpad, d, bn, bc]
+        x, b, p = x.contiguous(), b.contiguous(), p.contiguous()
+        l2 = float(lengthscale) ** 2
+        err = getattr(lib, name)(
+            c.data_ptr(), x.data_ptr(), b.data_ptr(), p.data_ptr(), out.data_ptr(),
+            *(w.data_ptr() for w in work), *([npad] if single else [nb, npad]), *tail,
+            0.5 / l2, 1 / l2**2, float(prior), torch.cuda.current_stream().cuda_stream)
+        loader.check(err, "other tree's " + name)
+        return out[0, :n] if single else out[:, :n]
+
     return (lambda x, v, b, ws: grad(x, v, b, ws, v.shape[0]),
-            lambda x, v, b, w: grad(x, v, b, w, 0), sqexp)
+            lambda x, v, b, w: grad(x, v, b, w, 0), sqexp, scores)
 
 
 def differ(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
@@ -110,8 +166,8 @@ def compare(label: str, pairs) -> bool:
 
 
 def engine_calls(dev):
-    """B5 and B9 calls of one main-path round and of both small engines,
-    with this tree's outputs: {label: {name: [(args, kwargs, out)]}}."""
+    """B5, B9 and scoring calls of one main-path round and of the small
+    engines, with this tree's outputs: {label: {name: [(args, kwargs, out)]}}."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core import objectives as obj
 
@@ -125,7 +181,36 @@ def engine_calls(dev):
         "small deferred engine": chip_smoke.check_engine_inputs(dev, "small engine inputs"),
         "small per-client engine": chip_smoke.check_engine_inputs(
             dev, "small per-client engine inputs", defer_repair=False),
+        "small per-client engine, cap tiles of 8": chip_smoke.check_engine_inputs(
+            dev, "small per-client engine inputs, cap tiles of 8", defer_repair=False,
+            score_block_cap=8),
     }
+
+
+def top(scores: torch.Tensor) -> list[int]:
+    """The engine's picks: the PICKS highest scores, ties to the lower index."""
+    return torch.sort(scores, descending=True, stable=True).indices[:PICKS].tolist()
+
+
+def compare_picks(label: str, calls, other_scores) -> None:
+    """The single-client scoring's picks, this tree's against the other's,
+    on each recorded call; prints every call whose picks differ."""
+    from repro_torch.kernels import ref
+
+    differ_calls, big = 0, 0.0
+    for k, (args, kwargs, out) in enumerate(calls):
+        theirs = other_scores(*args, **kwargs)
+        big = max(big, (out.double() - theirs.double()).abs().max().item())
+        if top(out) != top(theirs):
+            differ_calls += 1
+            truth = ref.uncertainty_scores(*(a.double() for a in args), kwargs["lengthscale"],
+                                           kwargs["prior"])
+            for i in sorted(set(top(out)) | set(top(theirs))):
+                print(f"[picks] {label}: call {k}: candidate {i}: this {out[i].item():.9g}, other "
+                      f"{theirs[i].item():.9g}, float64 {truth[i].item():.12g}; picks this "
+                      f"{top(out)}, other {top(theirs)}", flush=True)
+    print(f"[picks] {label}: {len(calls)} calls, {differ_calls} whose top-{PICKS} picks differ; "
+          f"max|this - other| = {big:.3e}", flush=True)
 
 
 def main() -> int:
@@ -139,10 +224,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    o_rows, o_one, o_sqexp = other_tree(args.parent.resolve())
+    o_rows, o_one, o_sqexp, o_scores = other_tree(args.parent.resolve())
     p = chip_smoke.path_inputs(dev)
     x_it, v, b, ws, xs, _, k_new, k_one = chip_smoke.rff_and_gram_inputs(dev, p)
     ls = p["ls"]
+    skw = dict(lengthscale=ls, prior=p["prior"])
+    sargs = (p["cands"], p["xs_sh"], p["binv"], p["pmat"])
+    one = tuple(a[0] for a in sargs)
     same = True
     for label, this, other in (
         ("B5, per-row w (5, 300), M=512", lambda: ops.rff_grad_rows(x_it, v, b, ws),
@@ -155,14 +243,21 @@ def main() -> int:
          lambda: o_sqexp(k_one, xs, ls)),
         ("B9, init Gram (5, 192, 192)", lambda: ops.sqexp(xs, xs, ls),
          lambda: o_sqexp(xs, xs, ls)),
+        ("B1, scores (5, 50) at cap=192, d=300", lambda: ops.uncertainty_scores_clients(
+            *sargs, **skw), lambda: o_scores(*sargs, **skw)),
     ):
         same &= compare(label, [(this(), other())])
-    other_ops = {"rff_grad_rows": o_rows, "sqexp": o_sqexp}
+    compare("B7a, one client's scores (50,) at cap=192, d=300 (may differ)",
+            [(ops.uncertainty_scores(*one, **skw), o_scores(*one, **skw))])
+    other_ops = {"rff_grad_rows": o_rows, "sqexp": o_sqexp, "uncertainty_scores_clients": o_scores}
     for label, calls in engine_calls(dev).items():
-        for name in NAMES:
-            same &= compare(f"{label}: {name}",
-                            [(out, other_ops[name](*a, **kw)) for a, kw, out in calls[name]])
-    print(f"[bits] every output bit-identical: {same}", flush=True)
+        for name in NAMES[:3]:
+            if calls[name]:
+                same &= compare(f"{label}: {name}",
+                                [(out, other_ops[name](*a, **kw)) for a, kw, out in calls[name]])
+        if calls["uncertainty_scores"]:
+            compare_picks(f"{label}: uncertainty_scores", calls["uncertainty_scores"], o_scores)
+    print(f"[bits] every output of B5, B9 and B1 bit-identical: {same}", flush=True)
 
     for label, this, other in (
         ("B5 (5, 300), per-row w, M=512", lambda: ops.rff_grad_rows(x_it, v, b, ws),
@@ -171,6 +266,16 @@ def main() -> int:
          lambda: o_sqexp(k_new, xs, ls)),
         ("B9 append event, 1 row", lambda: ops.sqexp(k_one, xs, ls),
          lambda: o_sqexp(k_one, xs, ls)),
+        ("B1 scores (5, 50), cap=192", lambda: ops.uncertainty_scores_clients(*sargs, **skw),
+         lambda: o_scores(*sargs, **skw)),
+        ("B7a one client's scores (50,), cap=192", lambda: ops.uncertainty_scores(*one, **skw),
+         lambda: o_scores(*one, **skw)),
+        (f"B7b one client's scores, cap tiles of {chip_smoke.TILE}",
+         lambda: ops.uncertainty_scores(*one, **skw, block_cap=chip_smoke.TILE),
+         lambda: o_scores(*one, **skw, block_cap=chip_smoke.TILE)),
+        (f"B2 scores (5, 50), cap tiles of {chip_smoke.TILE}",
+         lambda: ops.uncertainty_scores_clients(*sargs, **skw, block_cap=chip_smoke.TILE),
+         lambda: o_scores(*sargs, **skw, block_cap=chip_smoke.TILE)),
     ):
         t = [chip_smoke.device_ms(f, reps=200) for f in (other, this, this, other)]
         e = [chip_smoke.cuda_ms(f, reps=200) for f in (other, this, this, other)]

@@ -4,29 +4,33 @@
 scoring or gradient-mean kernels; ``block_cap >= cap`` routes to the
 resident kernel, a smaller one to the cap-tiled kernel (``kernels.ops``).
 The kinds are "score" and "grad" for the single-client kernels and
-"score_clients" and "grad_clients" for the client-batched ones, whose
-resident route is a different kernel (a thread block cluster per client
-and candidate tile) with its own shared memory; their cap-tiled route is
-the single-client kernels' body and budget.  The choice is a pure function
-of the kind and the per-client shape (n, cap, d), so it is deterministic
-and needs no cache.  The budget is the shared memory one block may use on
-an H100 (227 KB); what a block keeps there, per route:
+"score_clients" and "grad_clients" for the client-batched ones.  Both
+scoring kinds run the same two routes: the resident one is a thread block
+cluster per client and candidate tile (``score_cluster_kernel``), with
+clusters of up to 8 blocks client-batched and up to 16 for one client
+(``cluster_geometry``); the cap-tiled one an h pass, a panel pass and the
+sums.  The gradient's client-batched resident route is a cluster kernel
+too; its single-client resident route and both cap-tiled ones are one
+block per candidate tile.  The choice is a pure function of the kind and
+the per-client shape (n, cap, d), so it is deterministic and needs no
+cache.  The budget is the shared memory one block may use on an H100 (227
+KB); what a block keeps there, per route:
 
-* score resident (single client): the candidate tile (block_n x d) and
-  h and c.x over the whole trajectory (2 block_n cap), f32;
-* score tiled:    the candidate tile and h_j, h_k, c.x_k tiles
-  (3 block_n block_cap), f32;
+* score and score_clients resident (``score_cluster_kernel``): h over the
+  whole trajectory (cap block_n, f64), the candidates (d block_n), c.x of
+  the block's rows (rmax block_n), |c|^2 and the cluster's partials (cs
+  block_n, f64), STAGES chunks of its columns of B and P in flight (2
+  STAGES chunk rmax, f32), and one region holding first its rows of X (rmax
+  x rows_ld(d), f32) with the row dot products' partials, then its column
+  sums (2 block_n x 256, f64); rmax = ceil(cap / cs);
+* score and score_clients tiled: the h pass the candidate tile in f64
+  (block_n d), the panel pass STAGES chunks of its rows of B and P and of
+  their h (``panel_smem``: at most 160 KB, whatever n); block_cap is the
+  panel's rows;
 * grad resident (single client): the candidate tile, w over the whole
   trajectory and the product (block_n cap + block_n d), f32;
 * grad tiled:     the candidate tile, one w tile and the product
   (block_n block_cap + block_n d), f32;
-* score_clients resident (``score_cluster_kernel``): h over the whole
-  trajectory (cap block_n, f64), the candidates (d block_n), c.x of the
-  block's rows (rmax block_n), |c|^2 and the cluster's partials, STAGES
-  chunks of its columns of B and P in flight (2 STAGES chunk rmax, f32), and
-  one region holding first its rows of X (rmax x rows_ld(d), f32) with the row
-  dot products' partials, then its column sums (2 block_n x 256, f64);
-  rmax = ceil(cap / cluster);
 * grad_clients resident (``grad_cluster_kernel``): in f64 the candidates
   (d block_n), |c|^2 and w of its rows (rmax block_n), its rows of X
   (f32), and one region holding first the row dot products' partials,
@@ -34,7 +38,10 @@ an H100 (227 KB); what a block keeps there, per route:
 
 ``cluster_geometry`` gives the cluster kernels' cluster size and chunk
 rows, and ``split`` the parts of the trajectory (and of d) each block of a
-cluster owns, as ``csrc/common.cuh`` ``split_at`` computes them.
+cluster owns, as ``csrc/common.cuh`` ``split_at`` computes them;
+``score_tiled_layout`` what each block of the cap-tiled scoring's passes
+computes, and ``score_tiled_work`` the f64 work buffer its wrapper
+allocates.
 ``rff_grad_layout`` gives the same for the RFF gradient's kernel (B5):
 which features each block of a row's cluster projects in which chunk, and
 which output columns it sums; ``rows_route`` which kernel of
@@ -55,15 +62,26 @@ BLOCK_N = (1, 2, 4, 8, 16)
 BLOCK_CAP = (256, 128, 64, 32)
 #: Largest candidate tile the tuner picks: eight candidates keep 16
 #: accumulators per thread in the scoring sweep and still give one block
-#: (or cluster) per 8 candidates of each client.
-_DEFAULT_BLOCK_N = 8
+#: (or cluster) per 8 candidates of each client; one client's scoring takes
+#: 4, so its 50 candidates make 13 clusters.
+_DEFAULT_BLOCK_N = {"score": 4}
 #: Blocks per cluster of the client-batched resident kernels: the portable
 #: cluster size on Hopper (csrc/common.cuh kMaxCluster).
 CLUSTER = 8
+#: Blocks per cluster of the single-client resident scoring (B7a): the
+#: largest (non-portable) size on Hopper (csrc/common.cuh
+#: kMaxClusterNonPortable), each block owning about SINGLE_ROWS rows.
+SINGLE_CLUSTER = 16
+SINGLE_ROWS = 12
 #: Trajectory rows of B and P in one staging chunk of the scoring cluster
-#: kernel, and the chunks in flight (csrc/gp_score.cu kStages).
+#: kernel and of the tiled panels, and the chunks in flight
+#: (csrc/gp_score.cu kPanelChunk, kStages).
 CHUNK_ROWS = 32
 STAGES = 4
+#: The cap-tiled scoring: trajectory rows of one block of the h pass, and a
+#: panel's columns (csrc/gp_score.cu kHRows, kPanelCols).
+H_ROWS = 16
+PANEL_COLS = 32
 
 KINDS = ("score", "grad", "score_clients", "grad_clients")
 
@@ -74,11 +92,15 @@ def split(total: int, parts: int) -> list[int]:
     return [total * r // parts for r in range(parts + 1)]
 
 
-def cluster_geometry(cap: int) -> tuple[int, int]:
-    """``(cluster size, chunk rows)`` of the client-batched resident kernels
-    at trajectory capacity ``cap``: enough blocks that each owns at most 32
-    trajectory rows (one warp's lanes, one row or column each) up to
-    ``CLUSTER`` blocks, so every block owns at least one row."""
+def cluster_geometry(cap: int, single: bool = False) -> tuple[int, int]:
+    """``(cluster size, chunk rows)`` of the resident cluster kernels at
+    trajectory capacity ``cap``.  Client-batched: enough blocks that each
+    owns at most 32 trajectory rows (one warp's lanes, one row or column
+    each) up to ``CLUSTER`` blocks.  ``single`` (the single-client scoring,
+    B7a): blocks of about ``SINGLE_ROWS`` rows up to ``SINGLE_CLUSTER``, so
+    one client fills the card.  Every block owns at least one row."""
+    if single:
+        return min(SINGLE_CLUSTER, -(-cap // SINGLE_ROWS)), min(CHUNK_ROWS, cap)
     return min(CLUSTER, -(-cap // 32)), min(CHUNK_ROWS, cap)
 
 
@@ -94,33 +116,82 @@ def _al(nbytes: int) -> int:
     return -(-nbytes // 16) * 16
 
 
+def panel_cpw(n: int) -> int:
+    """Candidates per warp of the tiled scoring's panel pass for n
+    (padded) candidates: the fewest of 1, 2, 4, 8, 16 covering n with 8
+    warps, 16 past 64 candidates, which then go in groups of 128
+    (csrc/gp_score.cu ``panel_cpw``)."""
+    cpw = 1
+    while cpw < 16 and (THREADS // 32) * cpw < n:
+        cpw *= 2
+    return cpw
+
+
+def panel_smem(cpw: int, block_cap: int) -> int:
+    """Shared memory of one block of the panel pass: STAGES chunks of
+    min(CHUNK_ROWS, block_cap) rows of its 32 columns of B and P (f32) and
+    of h at its group's 8 cpw candidates (f64)."""
+    return STAGES * min(CHUNK_ROWS, block_cap) * (2 * 4 * PANEL_COLS + 8 * (THREADS // 32) * cpw)
+
+
+def score_tiled_work(nb: int, n: int, cap: int, block_cap: int) -> int:
+    """f64 words of the tiled scoring's work buffer for nb clients of n
+    (padded) candidates: h and m = 2 c.x - |c|^2 at every (row, candidate),
+    then each candidate's part of corr from every panel."""
+    cells = -(-cap // PANEL_COLS) * -(-cap // block_cap)
+    return nb * n * (2 * cap + cells)
+
+
+def score_tiled_layout(n: int, cap: int, block_n: int, block_cap: int) -> dict:
+    """What each block of the tiled scoring computes for one client of n
+    (padded, a multiple of block_n) candidates, as csrc/gp_score.cu
+    launches it: ``h`` the (rows, candidates) of each block of the h pass;
+    ``panels`` the (rows, columns, candidates) of each block of the panel
+    pass in cell order (cell = row panel x column blocks + column block,
+    the order the sums add them in), one entry per candidate group;
+    ``cpw`` and ``cells``."""
+    cpw = panel_cpw(n)
+    group = (THREADS // 32) * cpw
+    h = [(range(t0, min(t0 + H_ROWS, cap)), range(i0, i0 + block_n))
+         for i0 in range(0, n, block_n) for t0 in range(0, cap, H_ROWS)]
+    panels = [(range(j0, min(j0 + block_cap, cap)), range(k0, min(k0 + PANEL_COLS, cap)),
+               range(g0, min(g0 + group, n)))
+              for g0 in range(0, n, group) for j0 in range(0, cap, block_cap)
+              for k0 in range(0, cap, PANEL_COLS)]
+    return {"h": h, "panels": panels, "cpw": cpw,
+            "cells": -(-cap // PANEL_COLS) * -(-cap // block_cap)}
+
+
 def smem_bytes(kind: str, *, block_n: int, block_cap: int, cap: int, d: int) -> int:
-    """Shared memory of one block for the route ``block_cap`` selects."""
+    """Shared memory of one block for the route ``block_cap`` selects (the
+    tiled scoring: the larger of its two passes' blocks, the panel pass at
+    its largest group)."""
     if kind not in KINDS:
         raise ValueError(f"unknown kernel kind {kind!r}")
     resident = block_cap >= cap
-    if resident and kind.endswith("_clients"):
-        cs, jc = cluster_geometry(cap)
-        rmax, bn = -(-cap // cs), block_n
+    bn = block_n
+    if kind.startswith("score") and not resident:
+        return max(8 * bn * d + 8 * bn, panel_smem(16, block_cap))
+    if resident and (kind != "grad"):
+        cs, jc = cluster_geometry(cap, single=kind == "score")
+        rmax = -(-cap // cs)
         rows = _al(4 * rmax * rows_ld(d))  # the own rows of X
         rows_dot = 8 * 32 * (bn + 1)  # its partials per warp of 8: 32 x (bn + 1) values
-        if kind == "score_clients":  # csrc/gp_score.cu ScoreClusterSmem
+        if kind.startswith("score"):  # csrc/gp_score.cu score_cluster_smem
             union = max(rows + 4 * rows_dot, 8 * THREADS * 2 * bn)
             return (_al(8 * cap * bn) + _al(4 * d * bn) + _al(4 * bn) + _al(4 * rmax * bn)
-                    + _al(8 * CLUSTER * bn) + 2 * _al(4 * STAGES * jc * rmax) + _al(union))
+                    + _al(8 * cs * bn) + 2 * _al(4 * STAGES * jc * rmax) + _al(union))
         union = max(8 * rows_dot, 8 * bn * d)  # csrc/gp_grad.cu GradClusterSmem
         return _al(8 * d * bn) + _al(8 * bn) + _al(8 * rmax * bn) + rows + _al(union)
     t = cap if resident else block_cap
-    words = block_n * d + block_n  # candidate tile and its squared norms
-    if kind.startswith("score"):
-        words += (2 if resident else 3) * block_n * t + 8 * block_n
-    else:
-        words += block_n * t + block_n * d + block_n
+    words = bn * d + bn  # candidate tile and its squared norms
+    words += bn * t + bn * d + bn
     return 4 * words
 
 
 def _fits(kind, bn, bc, cap, d) -> bool:
-    if kind == "score_clients" and bc >= cap and -(-cap // cluster_geometry(cap)[0]) > THREADS:
+    if kind.startswith("score") and bc >= cap and \
+            -(-cap // cluster_geometry(cap, single=kind == "score")[0]) > THREADS:
         return False  # the cluster kernel gives each of a block's columns its own threads
     return smem_bytes(kind, block_n=bn, block_cap=bc, cap=cap, d=d) <= SMEM_BYTES
 
@@ -129,11 +200,11 @@ def select_blocks(kind: str, *, n: int, cap: int, d: int) -> tuple[int, int]:
     """Deterministic ``(block_n, block_cap)`` for a kernel kind and shape.
 
     block_n is the smallest instantiated tile covering ``min(n, 8)``
-    candidates (n = 1 on the gradient path gives 1: no padded rows).  The
-    resident route is taken whenever it fits; otherwise the largest cap
-    tile that fits.
+    candidates (``min(n, 4)`` for one client's scoring; n = 1 on the
+    gradient path gives 1: no padded rows).  The resident route is taken
+    whenever it fits; otherwise the largest cap tile that fits.
     """
-    want = min(max(n, 1), _DEFAULT_BLOCK_N)
+    want = min(max(n, 1), _DEFAULT_BLOCK_N.get(kind, 8))
     start = next(bn for bn in BLOCK_N if bn >= want)
     for bn in reversed([b for b in BLOCK_N if b <= start]):
         if _fits(kind, bn, cap, cap, d):

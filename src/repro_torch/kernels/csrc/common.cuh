@@ -3,11 +3,12 @@
 //
 // Two block organisations use them:
 //  * one block per (client, candidate tile) that loops over the whole
-//    trajectory itself, so no sum is carried between blocks: the cap-tiled
-//    kernels and the single-client entries (f32 arithmetic);
-//  * one thread block cluster per (client, candidate tile): the
-//    client-batched resident kernels (score_cluster_kernel,
-//    grad_cluster_kernel).  Each block of the cluster owns one part of the
+//    trajectory itself, so no sum is carried between blocks: the gradient
+//    mean's cap-tiled kernel and its single-client entries (f32 arithmetic);
+//  * one thread block cluster per (client, candidate tile): the resident
+//    scoring kernel (score_cluster_kernel, client-batched and single-client)
+//    and the client-batched resident gradient mean (grad_cluster_kernel).
+//    Each block of the cluster owns one part of the
 //    trajectory (split_at); the parts are exchanged through distributed
 //    shared memory and the per-block partial sums are reduced in rank
 //    order, with f64 accumulators and no atomics.
@@ -85,32 +86,13 @@ __device__ void h_tile(const float* sc, const float* sn1, const float* __restric
   }
 }
 
-// Sum acc[i] over the block; thread 0 receives the totals in tot (the
-// other threads get 0).  red holds kWarps * BN floats of shared memory.
-template <int BN>
-__device__ void block_sum(float (&acc)[BN], float* red, float (&tot)[BN]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < BN; ++i) {
-    const float v = warp_sum(acc[i]);
-    if (lane == 0) red[warp * BN + i] = v;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < BN; ++i) {
-    float s = 0.f;
-    if (threadIdx.x == 0) {
-      for (int w = 0; w < kWarps; ++w) s += red[w * BN + i];
-    }
-    tot[i] = s;
-  }
-}
-
 // ---- helpers of the cluster kernels -------------------------------------
 
 //: Most blocks in one cluster: the portable cluster size on Hopper
-//: (kernels/autotune.py CLUSTER).
+//: (kernels/autotune.py CLUSTER), and the largest that Hopper takes once a
+//: kernel allows non-portable sizes (kernels/autotune.py SINGLE_CLUSTER).
 constexpr int kMaxCluster = 8;
+constexpr int kMaxClusterNonPortable = 16;
 
 // Start of part r when `total` items are split into `parts` near-equal
 // parts: part r is [split_at(total, parts, r), split_at(total, parts, r + 1)).
@@ -294,12 +276,18 @@ __device__ void rows_dot(const T* sc, const float* sx, int ldx, int d, int rows,
 }
 
 // Launch `kernel` on clusters of cs blocks along x, with `smem` bytes of
-// dynamic shared memory (opted in above the default).  Returns the
+// dynamic shared memory (opted in above the default); clusters of more than
+// kMaxCluster blocks are allowed as non-portable sizes.  Returns the
 // cudaError_t of the launch, including a refused cluster size or smem.
 template <typename... Params, typename... Args>
 int launch_cluster(void (*kernel)(Params...), dim3 grid, int cs, size_t smem,
                    cudaStream_t stream, Args... args) {
-  if (cs < 1 || cs > kMaxCluster || grid.x % cs) return (int)cudaErrorInvalidValue;
+  if (cs < 1 || cs > kMaxClusterNonPortable || grid.x % cs) return (int)cudaErrorInvalidValue;
+  if (cs > kMaxCluster) {
+    if (cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
+      return (int)e;
+  }
   if (smem > kDefaultSmem) {
     if (cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))

@@ -287,7 +287,7 @@ template <int BN>
 int launch_cluster_grad(const float* c, const float* x, const float* alpha, float* out, int nb,
                         int n, int cap, int d, int cs, float inv_two_l2, float inv_l2,
                         cudaStream_t stream) {
-  if (cs < 1 || cs > cap) return (int)cudaErrorInvalidValue;
+  if (cs < 1 || cs > cap || cs > kMaxCluster) return (int)cudaErrorInvalidValue;
   dim3 grid(cs * (n / BN), nb);
   return launch_cluster(grad_cluster_kernel<BN>, grid, cs, grad_cluster_smem<BN>(cap, d, cs),
                         stream, c, x, alpha, out, n, cap, d, inv_two_l2, inv_l2);

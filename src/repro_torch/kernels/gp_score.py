@@ -4,9 +4,13 @@ The client-batched wrappers ``uncertainty_scores_resident`` and
 ``uncertainty_scores_tiled`` take already padded inputs (``kernels.ops``
 pads and routes): candidates (N, n, d) with n a multiple of ``block_n``,
 trajectory xs (N, cap, d), the masked Gram inverse B and P = B o XX^T
-(N, cap, cap), and for the tiled route cap a multiple of ``block_cap``.
-They return the scores (N, n).  The ``*_single_*`` wrappers take one
-client's inputs, the same shapes without N, and return (n,).
+(N, cap, cap); the tiled route takes any cap, ``block_cap`` being the rows
+of its panels, and an f64 work buffer the wrapper allocates
+(``autotune.score_tiled_work``).  They return the scores (N, n).  The
+``*_single_*`` wrappers take one client's inputs, the same shapes without
+N, and return (n,): the resident one launches the cluster kernel with one
+client and its own geometry (``autotune.cluster_geometry(cap,
+single=True)``), the tiled one the same passes as the client-batched one.
 
 On CPU tensors each wrapper computes its kernel's plain version; on CUDA
 tensors it launches the kernel (building it on first use) or raises.
@@ -32,23 +36,31 @@ def _checked(name, cands, xs, binv, pmat, block_n, block_cap=None):
     })
     if n % block_n:
         raise ValueError(f"{name}: n={n} is not a multiple of block_n={block_n}")
-    if block_cap is not None and cap % block_cap:
-        raise ValueError(f"{name}: cap={cap} is not a multiple of block_cap={block_cap}")
+    if block_cap is not None and block_cap < 1:
+        raise ValueError(f"{name}: block_cap={block_cap} must be positive")
 
 
-def _launch(name, cands, xs, binv, pmat, lengthscale, prior, block_n, geometry=()):
+def _launch(name, cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap=None):
     """One launch of the kernel behind ``name`` on checked client-batched
-    CUDA tensors; the single-client entries take no client count.
-    ``geometry`` is the route's further ints: the cap tile, or the cluster
-    kernel's cluster size and chunk rows."""
+    CUDA tensors; the single-client entries take no client count.  The
+    resident route passes its cluster geometry, the tiled route its work
+    buffer, its panel rows and f64 scalars."""
     nb, n, d = cands.shape
+    cap = xs.shape[1]
     out = torch.empty((nb, n), dtype=torch.float32, device=cands.device)
     l2 = float(lengthscale) ** 2
-    sizes = (n,) if name.startswith("score_single") else (nb, n)
-    sizes += (xs.shape[1], d, block_n, *geometry)
+    ptrs = [cands.data_ptr(), xs.data_ptr(), binv.data_ptr(), pmat.data_ptr(), out.data_ptr()]
+    sizes = [n] if name.startswith("score_single") else [nb, n]
+    sizes += [cap, d, block_n]
+    if block_cap is None:
+        sizes += autotune.cluster_geometry(cap, single=name.startswith("score_single"))
+    else:
+        work = torch.empty(autotune.score_tiled_work(nb, n, cap, block_cap),
+                           dtype=torch.float64, device=cands.device)
+        ptrs.append(work.data_ptr())
+        sizes.append(block_cap)
     err = getattr(loader.library(), "fz_" + name)(
-        cands.data_ptr(), xs.data_ptr(), binv.data_ptr(), pmat.data_ptr(), out.data_ptr(),
-        *sizes, 0.5 / l2, 1.0 / (l2 * l2), float(prior), loader.stream())
+        *ptrs, *sizes, 0.5 / l2, 1.0 / (l2 * l2), float(prior), loader.stream())
     loader.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -61,8 +73,7 @@ def uncertainty_scores_resident(cands, xs, binv, pmat, *, lengthscale, prior, bl
     _checked("score_resident", cands, xs, binv, pmat, block_n)
     if loader.on_cpu(cands, xs, binv, pmat):
         return ref.uncertainty_scores_clients_fused(cands, xs, binv, pmat, lengthscale, prior)
-    return _launch("score_resident", cands, xs, binv, pmat, lengthscale, prior, block_n,
-                   autotune.cluster_geometry(xs.shape[1]))
+    return _launch("score_resident", cands, xs, binv, pmat, lengthscale, prior, block_n)
 
 
 def scores_tiled_plain(cands, xs, binv, pmat, lengthscale, prior, block_cap):
@@ -81,12 +92,11 @@ def scores_tiled_plain(cands, xs, binv, pmat, lengthscale, prior, block_cap):
 
 
 def uncertainty_scores_tiled(cands, xs, binv, pmat, *, lengthscale, prior, block_n, block_cap):
-    """Scores over (block_cap x block_cap) cells of B and P: (N, n)."""
+    """Scores by panels of block_cap rows of B and P, in f64: (N, n)."""
     _checked("score_tiled", cands, xs, binv, pmat, block_n, block_cap)
     if loader.on_cpu(cands, xs, binv, pmat):
         return scores_tiled_plain(cands, xs, binv, pmat, lengthscale, prior, block_cap)
-    return _launch("score_tiled", cands, xs, binv, pmat, lengthscale, prior, block_n,
-                   (block_cap,))
+    return _launch("score_tiled", cands, xs, binv, pmat, lengthscale, prior, block_n, block_cap)
 
 
 def uncertainty_scores_single_resident(cands, xs, binv, pmat, *, lengthscale, prior, block_n):
@@ -100,9 +110,9 @@ def uncertainty_scores_single_resident(cands, xs, binv, pmat, *, lengthscale, pr
 
 def uncertainty_scores_single_tiled(cands, xs, binv, pmat, *, lengthscale, prior, block_n,
                                     block_cap):
-    """One client's scores over (block_cap x block_cap) cells: (n, d) -> (n,)."""
+    """One client's scores by panels of block_cap rows: (n, d) -> (n,)."""
     args = (cands[None], xs[None], binv[None], pmat[None])
     _checked("score_single_tiled", *args, block_n, block_cap)
     if loader.on_cpu(cands, xs, binv, pmat):
         return scores_tiled_plain(*args, lengthscale, prior, block_cap)[0]
-    return _launch("score_single_tiled", *args, lengthscale, prior, block_n, (block_cap,))[0]
+    return _launch("score_single_tiled", *args, lengthscale, prior, block_n, block_cap)[0]

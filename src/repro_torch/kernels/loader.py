@@ -36,13 +36,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 SIGNATURES = {
     "fz_score_resident": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
-    "fz_score_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    "fz_score_tiled": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _P),
     "fz_grad_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "fz_grad_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    "fz_score_single_resident": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
-    "fz_score_single_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    "fz_score_single_resident": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    "fz_score_single_tiled": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _P),
     "fz_grad_single_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     "fz_grad_single_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "fz_rff_features": (_P, _P, _P, _P, _I, _I, _I, _F, _P),

@@ -13,14 +13,15 @@ The GP scoring and gradient-mean kernels come client-batched
 
 Each call picks block sizes (``kernels.autotune`` unless pinned; pinned
 pairs are validated; the client-batched calls as the kinds
-"score_clients" and "grad_clients", whose resident kernel is a thread block
-cluster per client and candidate tile, the single-client calls as "score"
-and "grad"), zero-pads the candidate axis to a ``block_n``
-multiple, and routes: ``block_cap >= cap`` to the resident kernel, a
-smaller ``block_cap`` to the cap-tiled kernel with the trajectory axis
-zero-padded to a tile multiple.  Padded slots contribute exactly zero
-(zero B/P rows and columns for the scores, zero alpha for the gradient
-mean); padded candidate rows are sliced away.  A CPU tensor runs the
+"score_clients" and "grad_clients", the single-client calls as "score"
+and "grad"; both scoring kinds' resident kernel is a thread block cluster
+per client and candidate tile), zero-pads the candidate axis to a
+``block_n`` multiple, and routes: ``block_cap >= cap`` to the resident
+kernel, a smaller ``block_cap`` to the cap-tiled kernel, the scoring's at
+any cap (its panels of ``block_cap`` rows mask the ragged edge), the
+gradient mean's with the trajectory axis zero-padded to a tile multiple,
+whose padded slots contribute exactly zero (zero alpha); padded
+candidate rows are sliced away.  A CPU tensor runs the
 kernel's plain version, a CUDA tensor the kernel.  Lengthscale and prior
 are runtime scalars, so the kernels run on the jitted-free main path.
 """
@@ -104,14 +105,12 @@ def _scores(kind, resident, tiled, cands, xs, binv, pmat, lengthscale, prior, bl
     cap = xs.shape[-2]
     block_n, block_cap = _resolve_blocks(kind, n, cap, d, block_n, block_cap)
     c = _pad_axis(cands, cands.dim() - 2, _round_up(n, block_n)).contiguous()
+    args = (c, xs.contiguous(), binv.contiguous(), pmat.contiguous())
     if block_cap >= cap:
-        out = resident(c, xs.contiguous(), binv.contiguous(), pmat.contiguous(),
-                       lengthscale=lengthscale, prior=prior, block_n=block_n)
+        out = resident(*args, lengthscale=lengthscale, prior=prior, block_n=block_n)
     else:
-        cpad = _round_up(cap, block_cap)
-        out = tiled(c, _pad_axis(xs, xs.dim() - 2, cpad).contiguous(),
-                    _pad_gram(binv, cpad).contiguous(), _pad_gram(pmat, cpad).contiguous(),
-                    lengthscale=lengthscale, prior=prior, block_n=block_n, block_cap=block_cap)
+        out = tiled(*args, lengthscale=lengthscale, prior=prior, block_n=block_n,
+                    block_cap=block_cap)
     return out[..., :n]
 
 

@@ -9,7 +9,9 @@ arguments the engines pass (lengthscale, prior, the block pins), as many
 times as the engine's schedule makes them: per round of T local steps on N
 clients, the deferred engine scores once per step and once at the round
 end and takes one gradient mean per step for all clients together, the
-per-client engine does the same once per client.
+per-client engine does the same once per client; with the scoring's cap
+tile pinned (``score_block_cap``, the route B2 and B7b take) the scoring
+calls carry the pin.
 """
 
 import importlib.util
@@ -28,8 +30,10 @@ def _smoke():
     return mod
 
 
-@pytest.mark.parametrize("engine,per", [({}, 1), ({"defer_repair": False}, N)],
-                         ids=["deferred", "per_client"])
+@pytest.mark.parametrize("engine,per", [({}, 1), ({"defer_repair": False}, N),
+                                        ({"score_block_cap": 8}, 1),
+                                        ({"defer_repair": False, "score_block_cap": 8}, N)],
+                         ids=["deferred", "per_client", "deferred_tiled", "per_client_tiled"])
 def test_check_engine_inputs_records_every_call(engine, per):
     calls = _smoke().check_engine_inputs("cpu", "cpu", **engine)
     batched = per == 1
@@ -43,7 +47,8 @@ def test_check_engine_inputs_records_every_call(engine, per):
     assert {name: len(recs) for name, recs in calls.items()} == want
     for name in ("uncertainty_scores_clients", "uncertainty_scores"):
         for _, kwargs, out in calls[name]:
-            assert kwargs == dict(lengthscale=0.5, prior=8 / 0.25, block_n=None, block_cap=None)
+            assert kwargs == dict(lengthscale=0.5, prior=8 / 0.25, block_n=None,
+                                  block_cap=engine.get("score_block_cap"))
             assert out.shape[-1] == 12  # active_candidates
     for name in ("grad_mean_clients", "grad_mean_batch"):
         for args, kwargs, out in calls[name]:

@@ -386,12 +386,26 @@ def test_autotune_is_deterministic_and_fits():
     main = autotune.select_blocks("score", n=50, cap=192, d=300)
     assert main == autotune.select_blocks("score", n=50, cap=192, d=300)
     assert main[1] >= 192  # the main path's scoring runs resident
+    assert main == (4, 192)  # one client's scoring: tiles of 4 candidates (B7a's clusters)
     assert autotune.select_blocks("grad", n=1, cap=192, d=300) == (1, 192)
     big = autotune.select_blocks("score", n=50, cap=8192, d=300)
     assert big[1] < 8192  # the resident h tile no longer fits: tiled
-    for kind, (bn, bc), cap in (("score", main, 192), ("score", big, 8192)):
+    # the single-client resident route is the cluster kernel's: at d=300 it
+    # fits up to cap=1280 (16 blocks of up to 80 rows), then the tiled route
+    # takes panels of 256 rows; the client-batched one up to cap=615
+    assert autotune.select_blocks("score", n=50, cap=1280, d=300) == (4, 1280)
+    assert autotune.select_blocks("score", n=50, cap=1281, d=300) == (4, 256)
+    assert autotune.select_blocks("score_clients", n=50, cap=615, d=300) == (8, 615)
+    assert autotune.select_blocks("score_clients", n=50, cap=616, d=300) == (8, 256)
+    for kind, (bn, bc), cap in (("score", main, 192), ("score", big, 8192),
+                                ("score", (4, 256), 4096), ("score_clients", (8, 64), 192)):
         assert autotune.smem_bytes(kind, block_n=bn, block_cap=bc, cap=cap, d=300) \
             <= autotune.SMEM_BYTES
+    # the tiled scoring: the larger of the h pass's candidates (f64) and the
+    # panel pass at its largest group, whatever n
+    assert autotune.smem_bytes("score", block_n=8, block_cap=64, cap=192, d=300) == \
+        max(8 * 8 * 300 + 64, autotune.panel_smem(16, 64))
+    assert autotune.panel_smem(16, 256) == 4 * 32 * (256 + 1024) <= autotune.SMEM_BYTES
 
 
 def test_validate_blocks_rejects_what_the_kernels_cannot_take():
@@ -403,6 +417,18 @@ def test_validate_blocks_rejects_what_the_kernels_cannot_take():
     with pytest.raises(ValueError):  # pinned through ops
         ops.grad_mean_clients(torch.zeros(1, 1, 4), torch.zeros(1, 8, 4), torch.zeros(1, 8),
                               lengthscale=1.0, block_n=5)
+    # the new score budget: the cluster kernel past its cap, the tiled h pass
+    # past its candidates' f64 width; any positive panel height is taken
+    with pytest.raises(ValueError, match="shared memory"):
+        autotune.validate_blocks("score", block_n=4, block_cap=1281, cap=1281, d=300)
+    with pytest.raises(ValueError, match="shared memory"):
+        autotune.validate_blocks("score_clients", block_n=16, block_cap=64, cap=192, d=2000)
+    assert autotune.validate_blocks("score", block_n=4, block_cap=1280, cap=1280, d=300) == \
+        (4, 1280)
+    assert autotune.validate_blocks("score_clients", block_n=8, block_cap=3, cap=192,
+                                    d=1500) == (8, 3)
+    with pytest.raises(ValueError, match="positive"):
+        autotune.validate_blocks("score", block_n=4, block_cap=0, cap=192, d=300)
 
 
 # (n, cap, d): the main path's scoring and gradient shapes, ragged ones, a
@@ -448,6 +474,64 @@ def test_cluster_geometry_covers_every_row_and_column_once(n, cap, d):
         assert autotune.cluster_geometry(cap) == (6, 32)
         assert autotune.select_blocks("score_clients", n=50, cap=cap, d=d) == (8, 192)
         assert autotune.select_blocks("grad_clients", n=1, cap=cap, d=d) == (1, 192)
+
+
+@pytest.mark.parametrize("n,cap,d", GEOMETRY)
+def test_single_client_cluster_geometry_spreads_one_client(n, cap, d):
+    """B7a's launch (``autotune.cluster_geometry(cap, single=True)``, the
+    tuner's candidate tile): up to 16 blocks per cluster, every trajectory
+    row owned by exactly one block, at most 256 rows a block; at the
+    per-client engine's shapes one client spreads over 208 blocks."""
+    cs, jc = autotune.cluster_geometry(cap, single=True)
+    assert 1 <= cs <= autotune.SINGLE_CLUSTER and 1 <= jc <= cap
+    b = autotune.split(cap, cs)
+    assert [t for r in range(cs) for t in range(b[r], b[r + 1])] == list(range(cap))
+    assert min(np.diff(b)) >= 1 and -(-cap // cs) <= autotune.THREADS
+    bn, bc = autotune.select_blocks("score", n=n, cap=cap, d=d)
+    if bc >= cap:
+        assert autotune.smem_bytes("score", block_n=bn, block_cap=bc, cap=cap, d=d) \
+            <= autotune.SMEM_BYTES
+    if (n, cap, d) == (50, 192, 300):
+        assert (cs, bn, bc) == (16, 4, 192)
+        assert cs * -(-n // bn) == 208
+
+
+# (n, cap, block_n, block_cap): the per-client engine's pinned tile, the
+# tuned tiled route at cap 1000 and 4096 (panels of 256 rows), ragged caps
+# and panels, more candidates than one group of 128, and the small engine's.
+TILED_LAYOUTS = [(52, 192, 4, 64), (52, 1000, 4, 256), (52, 4096, 4, 256), (12, 45, 4, 8),
+                 (8, 192, 8, 64), (200, 100, 8, 33), (12, 16, 4, 8), (1, 5, 1, 2)]
+
+
+@pytest.mark.parametrize("n,cap,block_n,block_cap", TILED_LAYOUTS)
+def test_score_tiled_layout_covers_every_cell_once(n, cap, block_n, block_cap):
+    """The cap-tiled scoring's passes (``autotune.score_tiled_layout``, as
+    csrc/gp_score.cu launches them): the h pass computes every (trajectory
+    row, candidate) exactly once; for every candidate the panel pass sums
+    every (row, column) cell of B and P exactly once, in panels whose cells
+    are numbered in the order the sums add them; the work buffer holds h,
+    m and every candidate's partial of every cell; shared memory fits."""
+    lay = autotune.score_tiled_layout(n, cap, block_n, block_cap)
+    h = np.zeros((cap, n), dtype=np.int32)
+    for rows, cands in lay["h"]:
+        h[rows.start:rows.stop, cands.start:cands.stop] += 1
+    assert (h == 1).all()
+    group = 8 * lay["cpw"]
+    assert lay["cpw"] in (1, 2, 4, 8, 16) and (group >= n or lay["cpw"] == 16)
+    groups = {}  # each candidate group: how often it sums each cell of B and P
+    cells = []
+    for rows, cols, cands in lay["panels"]:
+        assert len(cols) <= autotune.PANEL_COLS and len(rows) <= block_cap and len(cands) <= group
+        if cands.start == 0:
+            cells.append((rows.start, cols.start))
+        cover = groups.setdefault((cands.start, cands.stop), np.zeros((cap, cap), dtype=np.int32))
+        cover[rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert sorted(i for g in groups for i in range(*g)) == list(range(n))
+    assert all((cover == 1).all() for cover in groups.values())
+    assert len(cells) == lay["cells"]
+    assert cells == sorted(cells)  # row panels outer, column blocks inner
+    assert autotune.score_tiled_work(3, n, cap, block_cap) == 3 * n * (2 * cap + lay["cells"])
+    assert autotune.panel_smem(lay["cpw"], block_cap) <= autotune.SMEM_BYTES
 
 
 # (M, d): the main path's B5 shape, the launcher's M=1000, M past the
@@ -657,3 +741,52 @@ def test_cuda_sqexp_rows_matches_plain_and_repeats(d):
             for i in range(3):
                 _close_gram(k[i].cpu(), (ref.sqexp(T(x1[i]), T(x2[i]), RFF_LS),),
                             _gram_truth(x1[i], x2[i]))
+
+
+# (N, n, cap, d, cap tile): the sizes of the smoke's tiled-accuracy check
+# (chip_smoke.TILED_ACCURACY): one client and five at cap 1000, one at 4096,
+# d=1500, ragged caps and candidate counts, the pinned tile and the small
+# engines' width; and the single-client resident route's largest cap at
+# d=300 (1280: clusters of 16 blocks of 80 rows).
+CUDA_SCORES = [(1, 50, 1000, 300, 256), (1, 50, 4096, 300, 256), (5, 50, 1000, 300, 256),
+               (1, 50, 1024, 1500, 256), (2, 9, 45, 1029, 8), (5, 7, 192, 300, 64),
+               (1, 12, 16, 8, 8), (1, 7, 1280, 300, 256)]
+
+
+@pytest.mark.parametrize("nb,n,cap,d,tile", CUDA_SCORES)
+def test_cuda_scores_match_plain_and_repeat(nb, n, cap, d, tile):
+    """The scoring kernels of the per-client engine on the card.  The
+    cap-tiled route (B2 client-batched, B7b one client) against float64 (the
+    tiled plain version on float64 copies of the inputs): its max error is
+    no more than the f32 plain version's; the single-client entry on client
+    0 gives row 0 of the client-batched entry bit for bit; a second launch
+    gives the same bits.  The single-client resident route (B7a, the
+    cluster kernel), where the tuner takes it at this shape, against its
+    plain version (ATOL) and bitwise the same on a second launch."""
+    dev = _cuda()
+    cands, xs, binv, pmat, _ = _inputs(nb, n, d, cap, seed=cap + n + d)
+    c = lambda a: T(a).to(dev)
+    prior = d / LS**2
+    kw = dict(lengthscale=LS, prior=prior)
+    before = _all_launches()
+    args = (c(cands), c(xs), c(binv), c(pmat))
+    got = ops.uncertainty_scores_clients(*args, **kw, block_cap=tile)
+    assert torch.equal(got, ops.uncertainty_scores_clients(*args, **kw, block_cap=tile))
+    one = ops.uncertainty_scores(*(a[0] for a in args), **kw, block_cap=tile)
+    assert torch.equal(one, got[0])
+    assert torch.equal(one, ops.uncertainty_scores(*(a[0] for a in args), **kw, block_cap=tile))
+    f64 = lambda a: T(a).double()
+    truth = gp_score.scores_tiled_plain(f64(cands), f64(xs), f64(binv), f64(pmat), LS, prior,
+                                        tile)
+    plain = gp_score.scores_tiled_plain(T(cands), T(xs), T(binv), T(pmat), LS, prior, tile)
+    assert torch.isfinite(got).all() and got.shape == (nb, n)
+    assert (got.cpu().double() - truth).abs().max() <= (plain.double() - truth).abs().max()
+    after = _all_launches()
+    assert after["score_tiled"] == before["score_tiled"] + 2
+    assert after["score_single_tiled"] == before["score_single_tiled"] + 2
+    if autotune.select_blocks("score", n=n, cap=cap, d=d)[1] >= cap:
+        s1 = ops.uncertainty_scores(*(a[0] for a in args), **kw)
+        _close(s1.cpu(), ref.uncertainty_scores(T(cands[0]), T(xs[0]), T(binv[0]), T(pmat[0]),
+                                                LS, prior))
+        assert torch.equal(s1, ops.uncertainty_scores(*(a[0] for a in args), **kw))
+        assert _all_launches()["score_single_resident"] == before["score_single_resident"] + 2
