@@ -17,12 +17,14 @@ Phases, each a hard check (any failure exits non-zero):
    the RFF features (B6) and the SE Gram (B9) at the main path's shapes
    (see ``rff_and_gram_specs``; B9 at an append event of 5 rows and of 1
    row); the cluster kernels of B1 and B3, the single-client scoring (B7a)
-   and the cap-tiled scoring (B2, B7b), B5 and B9's append events launched
-   twice for the same bits (``REPEATED``), B1 and B3 beside the cuBLAS
-   products inside them (``cluster_yardsticks``); the cap-tiled scoring
-   against float64 at large and ragged sizes, no less accurate than its
-   plain version, with its device time against its bound at cap 1000 and
-   more (``check_tiled_accuracy``);
+   and the cap-tiled scoring (B2, B7b), every gradient route (B3, B4,
+   B8a, B8b), B5 and B9's append events launched twice for the same bits
+   (``REPEATED``), B1 and B3 beside the cuBLAS products inside them
+   (``cluster_yardsticks``); the cap-tiled scoring and the cap-tiled
+   gradient against float64 at large and ragged sizes, each no less
+   accurate than its plain version, with its device time against its bound
+   at cap 1000 and more (``check_tiled_accuracy``,
+   ``check_tiled_grad_accuracy``);
 4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
    width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
    settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
@@ -32,8 +34,8 @@ Phases, each a hard check (any failure exits non-zero):
    must agree (printed beside it: each side's eigh fallbacks per round and
    the coordinates of x that differ by more than eta/2); B1, B3, B5, B6 and
    B9 on that small engine's own inputs, each no less accurate than its
-   plain version against float64 (``check_engine_inputs``), and B2 there
-   with cap tiles of 8;
+   plain version against float64 (``check_engine_inputs``), B2 there
+   with cap tiles of 8 and B4 with gradient cap tiles of 8;
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -43,8 +45,9 @@ Phases, each a hard check (any failure exits non-zero):
    3 rounds, and 1 round on the pinned cap tiles, with exact launch counts
    of the single-client kernels; the small card-vs-CPU check for it and for
    the seed engine (``use_factor_cache=False``); B5, B6, B9, B7a and B8a on
-   the small per-client engine's own inputs (``check_engine_inputs``), and
-   B7b there with cap tiles of 8; one of its rounds profiled;
+   the small per-client engine's own inputs (``check_engine_inputs``), B7b
+   there with cap tiles of 8 and B8b with gradient cap tiles of 8; one of
+   its rounds profiled;
 8. the FD baselines (fedzo, fedprox, scaffold1, scaffold2) at d=300, N=5,
    q=20, 2 rounds each, with no launch but factor_init's SE Gram;
 9. one JSON line describing every kernel, and the result line.
@@ -75,11 +78,12 @@ F32_FLOPS_S = 67e12
 D, N_CLIENTS, CAP, CANDS, M = 300, 5, 192, 50, 512
 ROUNDS, OTHER_ROUNDS = 5, 2
 #: Kernels phase 3 launches a second time to show the same bits (the
-#: cluster kernels and the cap-tiled scoring reduce across blocks in a
-#: fixed order, with no atomics; so do the RFF gradient's and the SE Gram's
-#: rows kernel).
+#: cluster kernels, the cap-tiled scoring and every gradient route reduce
+#: across blocks in a fixed order, with no atomics; so do the RFF
+#: gradient's and the SE Gram's rows kernel).
 REPEATED = ("score_resident", "grad_resident", "rff_grad", "sqexp", "sqexp[1 row]",
-            "score_tiled", "score_single_resident", "score_single_tiled")
+            "score_tiled", "score_single_resident", "score_single_tiled", "grad_tiled",
+            "grad_single_resident", "grad_single_tiled")
 #: Sizes of the cap-tiled scoring's accuracy check (clients, candidates,
 #: cap, d, cap tile): one client and five at cap 1000, one at 4096, d=1500,
 #: and ragged ones (cap and n not multiples of the tiles), the main path's
@@ -87,6 +91,12 @@ REPEATED = ("score_resident", "grad_resident", "rff_grad", "sqexp", "sqexp[1 row
 TILED_ACCURACY = ((1, 50, 1000, 300, 256), (1, 50, 4096, 300, 256), (5, 50, 1000, 300, 256),
                   (1, 50, 1024, 1500, 256), (2, 9, 45, 1029, 8), (5, 7, 192, 300, 64),
                   (1, 12, 16, 8, 8))
+#: Sizes of the cap-tiled gradient's accuracy check (clients, query points,
+#: cap, d, cap tile): as ``TILED_ACCURACY``, with the engines' one query
+#: point per client where they take one.
+TILED_GRAD_ACCURACY = ((1, 1, 1000, 300, 256), (1, 1, 4096, 300, 256), (5, 1, 1000, 300, 256),
+                       (1, 1, 1024, 1500, 256), (2, 7, 45, 1029, 8), (5, 1, 192, 300, 64),
+                       (1, 1, 16, 8, 8))
 PER_CLIENT_ROUNDS, FD_ROUNDS = 3, 2
 TILE = 64  # the cap tile pinned for the other route
 
@@ -319,6 +329,50 @@ def check_tiled_accuracy(dev) -> None:
                   f"({'bytes' if bound_b >= bound_f else 'operations'})", flush=True)
 
 
+def check_tiled_grad_accuracy(dev) -> None:
+    """Phase 3, the cap-tiled gradient mean through ``kernels.ops`` (B8b
+    for one client, B4 for more) at each size of ``TILED_GRAD_ACCURACY``
+    on ``path_inputs`` of that shape, the query points its last rows of xs
+    (one: the iterate, as the engines take it): against the tiled plain
+    version on float64 copies of the same inputs (the truth), the kernel's
+    max error must be no more than the plain version's on the card (f32).
+    Prints each side's max and mean error and the elements where the
+    kernel is further off; at cap 1000 and more also the kernel's device
+    time against its bound."""
+    from repro_torch.kernels import gp_grad, ops
+
+    for nb, n, cap, d, tile in TILED_GRAD_ACCURACY:
+        p = path_inputs(dev, nb, 1, cap, d)
+        args = (p["xs"][:, -n:].contiguous(), p["xs"], p["alpha"])
+        kw = dict(lengthscale=p["ls"], block_cap=tile)
+        if nb == 1:
+            kernel = lambda: ops.grad_mean_batch(*(a[0] for a in args), **kw)[None]
+        else:
+            kernel = lambda: ops.grad_mean_clients(*args, **kw)
+        got = kernel()
+        plain = gp_grad.grad_mean_tiled_plain(*args, p["ls"], tile)
+        truth = gp_grad.grad_mean_tiled_plain(*(a.double() for a in args), p["ls"], tile)
+        k_err, p_err = (got.double() - truth).abs(), (plain.double() - truth).abs()
+        ok = (bool(torch.isfinite(got).all()) and got.shape == truth.shape
+              and k_err.max().item() <= p_err.max().item())
+        print(f"[tiled gradient accuracy] N={nb} n={n} cap={cap} d={d} tile={tile}: max|out-f64| "
+              f"kernel {k_err.max().item():.4e} (mean {k_err.mean().item():.4e}), plain "
+              f"{p_err.max().item():.4e} (mean {p_err.mean().item():.4e}), largest |grad| "
+              f"{truth.abs().max().item():.6g}; kernel further off in {int((k_err > p_err).sum())} "
+              f"of {k_err.numel()} elements; {'ok' if ok else 'LESS ACCURATE'}", flush=True)
+        if not ok:
+            fail(f"the tiled gradient at N={nb} n={n} cap={cap} d={d} is less accurate than its "
+                 "plain version")
+        if cap >= 1000:
+            nbytes = 4 * nb * (cap * d + cap + 2 * n * d)
+            flops = nb * n * (4 * cap * d + 6 * cap + 2 * d)
+            bound_b, bound_f = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+            print(f"[tiled gradient accuracy] N={nb} n={n} cap={cap} d={d} tile={tile}: device "
+                  f"time {device_ms(kernel, reps=5):.6f} ms per call (profiler), bound "
+                  f"{max(bound_b, bound_f):.6f} ms "
+                  f"({'bytes' if bound_b >= bound_f else 'operations'})", flush=True)
+
+
 def cluster_yardsticks(p, score_args, grad_args) -> None:
     """The cuBLAS products inside B1 and B3 at the main path's shapes,
     timed by CUDA events as a yardstick for the cluster kernels (the port
@@ -476,20 +530,44 @@ def check_result(res, cfg, rounds, label, must_fall=True):
 
 
 class SameDraws:
-    """Replays one draw source's draws on another device, so a run on the
-    card and a run on the CPU see the same random numbers."""
+    """Replays one draw source's draws on another device (in another
+    floating type), so a run on the card and a run on the CPU see the same
+    random numbers."""
 
-    def __init__(self, base, device):
-        self.base, self.device = base, device
+    def __init__(self, base, device, dtype=torch.float32):
+        self.base, self.device, self.dtype = base, device, dtype
 
     def bank(self, m, d):
-        return tuple(t.to(self.device) for t in self.base.bank(m, d))
+        return tuple(t.to(self.device, self.dtype) for t in self.base.bank(m, d))
 
     def deltas(self, n, d, radius):
-        return self.base.deltas(n, d, radius).to(self.device)
+        return self.base.deltas(n, d, radius).to(self.device, self.dtype)
 
     def noise(self, k):
-        return self.base.noise(k).to(self.device)
+        return self.base.noise(k).to(self.device, self.dtype)
+
+
+def small_config(**engine):
+    """The small engine of the card-vs-CPU and engine-input checks: d=8,
+    N=3, cap=16, M=32, T=3, 12 candidates, 2+2 active queries."""
+    from repro_torch.core import algorithms as alg
+
+    return alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
+                          n_features=32, traj_capacity=16, active_candidates=12,
+                          active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5,
+                          **engine)
+
+
+def small_run(where, dtype=torch.float32, **engine):
+    """``small_config`` 3 rounds on ``where`` on the draws of
+    ``ClientDraws(2, ...)`` (made on the CPU, replayed in ``dtype``)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import objectives as obj
+
+    q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=where)
+    draws = SameDraws(alg.ClientDraws(2, range(3), "cpu"), where, dtype)
+    return alg.simulate(small_config(**engine), 2, q, obj.quadratic_query,
+                        obj.quadratic_global_value, 3, draws=draws, device=where)
 
 
 def fallback_events(res, cfg) -> list:
@@ -508,20 +586,8 @@ def check_small_against_cpu(dev, label="small", **engine):
     the same small input and draws: F within 1e-3, x within 1e-2 per round,
     the bound tests/test_torch_algorithms.py holds the port to against the
     JAX reference."""
-    from repro_torch.core import algorithms as alg
-    from repro_torch.core import objectives as obj
-
-    cfg = alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
-                         n_features=32, traj_capacity=16, active_candidates=12,
-                         active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5,
-                         **engine)
-    out = {}
-    for where in ("cpu", dev):
-        q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=where)
-        draws = SameDraws(alg.ClientDraws(2, range(3), "cpu"), where)
-        out[str(where)] = alg.simulate(cfg, 2, q, obj.quadratic_query,
-                                       obj.quadratic_global_value, 3, draws=draws, device=where)
-    cpu, gpu = out["cpu"], out[str(dev)]
+    cfg = small_config(**engine)
+    cpu, gpu = small_run("cpu", **engine), small_run(dev, **engine)
     df = (cpu.f_values - gpu.f_values.cpu()).abs().max().item()
     dx = (cpu.xs - gpu.xs.cpu()).abs().max().item()
     print(f"[{label}] card vs CPU on the same draws: max|dF|={df:.3e} max|dx|={dx:.3e}",
@@ -564,18 +630,17 @@ def recording(names):
 
 def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
     """B5, B6, B9 and the scoring and gradient-mean ops (B1/B3 on the
-    deferred engine, B7a/B8a on the per-client one, B7b there with
-    ``score_block_cap`` pinned below cap) on the inputs the small engine of
-    ``check_small_against_cpu`` gives them: every call of one
+    deferred engine, B7a/B8a on the per-client one; B2/B7b with
+    ``score_block_cap`` pinned below cap, B4/B8b with ``grad_block_cap``)
+    on the inputs the small engine of ``check_small_against_cpu`` gives
+    them: every call of one
     card run is recorded, keyword arguments included, with the kernel's
     output, then the kernel's output and its plain version's on the card
     are held against a float64 evaluation of the same call.  A kernel less
     accurate than its plain version over the run (max error over the
     calls) fails; so is printed the eq. 8 correction, the difference of
     each step's two B5 calls.  Returns the recorded calls of each op."""
-    from repro_torch.core import algorithms as alg
-    from repro_torch.core import objectives as obj
-    from repro_torch.kernels import gp_score, ref
+    from repro_torch.kernels import gp_grad, gp_score, ref
 
     plain = {
         "rff_features": lambda x, v, b: ref.rff_features(
@@ -589,22 +654,21 @@ def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
             gp_score.scores_tiled_plain(*a, lengthscale, prior, block_cap)
             if block_cap and block_cap < a[1].shape[-2]
             else ref.uncertainty_scores_clients_fused(*a, lengthscale, prior),
-        "grad_mean_clients": lambda *a, lengthscale, **_: ref.grad_mean_clients(*a, lengthscale),
+        "grad_mean_clients": lambda *a, lengthscale, block_cap=None, **_:
+            gp_grad.grad_mean_tiled_plain(*a, lengthscale, block_cap)
+            if block_cap and block_cap < a[1].shape[-2]
+            else ref.grad_mean_clients(*a, lengthscale),
         "uncertainty_scores": lambda *a, lengthscale, prior, block_cap=None, **_:
             gp_score.scores_tiled_plain(*(t[None] for t in a), lengthscale, prior, block_cap)[0]
             if block_cap and block_cap < a[1].shape[-2]
             else ref.uncertainty_scores(*a, lengthscale, prior),
-        "grad_mean_batch": lambda *a, lengthscale, **_: ref.grad_mean_batch(*a, lengthscale),
+        "grad_mean_batch": lambda *a, lengthscale, block_cap=None, **_:
+            gp_grad.grad_mean_tiled_plain(*(t[None] for t in a), lengthscale, block_cap)[0]
+            if block_cap and block_cap < a[1].shape[-2]
+            else ref.grad_mean_batch(*a, lengthscale),
     }
-    cfg = alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
-                         n_features=32, traj_capacity=16, active_candidates=12,
-                         active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5,
-                         **engine)
-    q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=dev)
-    draws = SameDraws(alg.ClientDraws(2, range(3), "cpu"), dev)
     with recording(plain) as calls:
-        alg.simulate(cfg, 2, q, obj.quadratic_query, obj.quadratic_global_value, 3,
-                     draws=draws, device=dev)
+        small_run(dev, **engine)
     f64 = lambda args: [a.double() if torch.is_tensor(a) else a for a in args]
     for name, recs in calls.items():
         if not recs:
@@ -696,6 +760,8 @@ def check_per_client(cobjs, dev) -> dict:
     check_engine_inputs(dev, "small per-client engine inputs", defer_repair=False)
     check_engine_inputs(dev, "small per-client engine inputs, cap tiles of 8",
                         defer_repair=False, score_block_cap=8)
+    check_engine_inputs(dev, "small per-client engine inputs, gradient cap tiles of 8",
+                        defer_repair=False, grad_block_cap=8)
     profile_round(cfg, cobjs, dev, "per-client profile")
     return {**counts, **{k: v for k, v in tcounts.items() if v}}
 
@@ -739,6 +805,7 @@ def main() -> int:
 
     rows = check_kernels(dev)
     check_tiled_accuracy(dev)
+    check_tiled_grad_accuracy(dev)
 
     cfg = main_config()
     cobjs = obj.make_quadratic(0, N_CLIENTS, D, 5.0, 0.001, device=dev)
@@ -759,6 +826,7 @@ def main() -> int:
     check_small_against_cpu(dev)
     check_engine_inputs(dev, "small engine inputs")
     check_engine_inputs(dev, "small engine inputs, cap tiles of 8", score_block_cap=8)
+    check_engine_inputs(dev, "small engine inputs, gradient cap tiles of 8", grad_block_cap=8)
     profile_round(cfg, cobjs, dev)
 
     ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the GP scoring and gradient-mean kernels goes: the
-client-batched cluster kernels (B1, B3), the single-client scoring (B7a)
-and the cap-tiled scoring (B7b for one client, B2 for five).
+client-batched cluster kernels (B1, B3), the single-client scoring (B7a),
+the cap-tiled scoring (B7b for one client, B2 for five) and the other
+gradient routes (B8a, and B8b and B4 on cap tiles).
 
     python3 scripts/cluster_phases.py [--csrc DIR]   # on a machine with one CUDA card
 
@@ -19,16 +20,20 @@ launches, through that tree's C entries:
 * B7a on client 0 of the same inputs, and B7b and B2 (one client, five)
   with the cap tile pinned at ``chip_smoke.TILE`` = 64 rows;
 * B7b at cap=1000 and cap=4096 (n=50, d=300, tile 256), as the smoke's
-  tiled-accuracy line runs it.
+  tiled-accuracy line runs it;
+* the gradient mean at one query point per client: B8a on one client of
+  the main path's shapes, B8b and B4 (one client, five) with the cap tile
+  pinned at ``chip_smoke.TILE``, and B8b at cap=1000 and cap=4096 (tile
+  256), as the smoke's tiled-gradient line runs it.
 
 A lap adds the time since the block's previous lap to its step, so a step
 inside a loop sums over the loop.  For each launch it prints the blocks,
 the span, when the blocks started (one wave or more) and each step's mean
 and max over the blocks, then the profiler's device time per call of the
 stamped kernels; and the device time of one empty kernel launch, the floor
-of any kernel.  The laps cost a few instructions per step; the kernels' own
-library is not touched.  A step boundary that is no longer where the laps
-go raises.
+of any kernel; first the card's name and power limit.  The laps cost a
+few instructions per step; the kernels' own library is not touched.  A
+step boundary that is no longer where the laps go raises.
 """
 
 from __future__ import annotations
@@ -138,7 +143,9 @@ PLAN = {
          ], ["sums, store"]),
     ],
     "gp_grad.cu": [
-        ("grad_cluster_kernel(const float* __restrict__ c,", "  const int cs = (int)cluster",
+        # the earlier client-batched resident body (B3 before the gradient
+        # routes became one cluster kernel)
+        ("grad_cluster_kernel(const float* __restrict__ c,", "  SmemCarve m{(uintptr_t)smem_raw};",
          "grad", "  cg::cluster_group cluster = cg::this_cluster();\n", [
              ("  cp_async_wait<0>();\n  __syncthreads();\n", 1, False),
              ("  for (int k = threadIdx.x; k < d; k += blockDim.x) {\n    double acc[BN]", 2, True),
@@ -146,6 +153,44 @@ PLAN = {
              ("  const int k0 = split_at(d, cs, rank)", 4, True),
              ("  cluster.sync();  // the other ranks have read", 5, True),
          ], ["staging", "w rows", "partial sums", "barrier", "rank sums"]),
+        # every gradient route (B3, B4, B8a, B8b): the rows streamed in chunks
+        ("grad_cluster_kernel(const float* __restrict__ c,",
+         "  const GradClusterSmem at = grad_cluster_smem<BN>(d, jc, nbuf);", "grad_stream",
+         "  cg::cluster_group cluster = cg::this_cluster();\n", [
+             ("  load_cands_t<BN, double>(c + ((size_t)cl * n + row0) * d, d, sc, sn1);\n", 1,
+              False),
+             ("    cp_async_wait<1>();  // chunk ch has landed\n"
+              "    __syncthreads();     // ... for every thread\n", 2, False),
+             ("    for (int k = threadIdx.x; k < d; k += blockDim.x) {\n      double acc[BN]", 3,
+              True),
+             ("    __syncthreads();  // the chunk's buffer and w are free again\n", 4, False),
+             ("  cluster.sync();  // every rank's partials are written\n", 5, False),
+             ("  cluster.sync();  // the other ranks have read", 6, True),
+         ], ["candidates", "copy waits", "w rows", "partial sums", "barrier", "rank sums"]),
+        # the earlier single-client resident body (B8a), one block per tile
+        ("grad_resident_kernel(const float* __restrict__ c,",
+         "  weight_tile<BN>(sw, cap, cap, alpha", "grad_resident",
+         "  const float* xb = x + (size_t)cl * cap * d;\n", [
+             ("  load_cands<BN>(c + ((size_t)cl * n + row0) * d, d, sc, sn1);\n", 1, False),
+             ("  h_tile<BN>(sc, sn1, xb, d, 0, cap, inv_two_l2, sw, nullptr, cap);\n"
+              "  __syncthreads();\n", 2, False),
+             ("  weight_tile<BN>(sw, cap, cap, alpha + (size_t)cl * cap, 0, ss);\n", 3, False),
+             ("  product_tile<BN>(sw, cap, cap, xb, 0, d, sacc, true);\n", 4, False),
+             ("  grad_store<BN>(sacc, ss, sc, out + ((size_t)cl * n + row0) * d, d, inv_l2);\n", 5,
+              False),
+         ], ["candidates", "h rows", "weight sum", "product", "store"]),
+        # the earlier cap-tiled body (B4, B8b), one block per tile
+        ("grad_tiled_kernel(const float* __restrict__ c,",
+         "  for (int t0 = 0; t0 < cap; t0 += bc) {", "grad_tiled", "  const float* ab = alpha + (size_t)cl * cap;\n", [
+             ("  load_cands<BN>(c + ((size_t)cl * n + row0) * d, d, sc, sn1);\n", 1, False),
+             ("    h_tile<BN>(sc, sn1, xb, d, t0, bc, inv_two_l2, sw, nullptr, bc);\n"
+              "    __syncthreads();\n", 2, False),
+             ("    weight_tile<BN>(sw, bc, bc, ab, t0, ss);\n", 3, False),
+             ("    product_tile<BN>(sw, bc, bc, xb, t0, d, sacc, t0 == 0);\n"
+              "    __syncthreads();  // the next tile overwrites sw\n", 4, False),
+             ("  grad_store<BN>(sacc, ss, sc, out + ((size_t)cl * n + row0) * d, d, inv_l2);\n", 5,
+              False),
+         ], ["candidates", "h tiles", "weight sums", "products", "store"]),
     ],
 }
 
@@ -243,6 +288,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("cluster_phases: no CUDA device available", file=sys.stderr)
         return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     csrc = args.csrc.resolve()
     lib, bufs = build(csrc)
     score_src = (csrc / "gp_score.cu").read_text()
@@ -305,6 +352,36 @@ def main() -> int:
             return lambda: lib.fz_score_single_tiled(*args, npad, *tail)
         return lambda: lib.fz_score_tiled(*args, nbt, npad, *tail)
 
+    # the gradient mean at one query point per client: the earlier single-
+    # client resident entry took no cluster size, the earlier tiled entries
+    # a cap tile dividing cap (the trajectory zero-padded to it)
+    grad_src = (csrc / "gp_grad.cu").read_text()
+    grad_cluster = entry_takes(grad_src, "fz_grad_single_resident", "int cs")
+    l2 = main["ls"] ** 2
+    gsc = (F(0.5 / l2), F(1 / l2))
+
+    def grad(nbg, capg, tile=None):
+        """A gradient-mean launch: B8a (one client, tile None), B8b (one
+        client, cap tile) or B4 (more clients, cap tile)."""
+        p = chip_smoke.path_inputs(dev, nbg, 1, capg, d)
+        q, xg, ag = p["query"], p["xs"], p["alpha"]
+        out = torch.empty((nbg, 1, d), device=dev)
+        if tile is None:
+            geo = autotune.cluster_geometry(capg, single=True)[:1] if grad_cluster else ()
+            return lambda: lib.fz_grad_single_resident(ptr(q), ptr(xg), ptr(ag), ptr(out), 1,
+                                                       capg, d, 1, *geo, *gsc, stream())
+        if grad_cluster:
+            geo = autotune.grad_geometry(capg, d, 1, tile)
+        else:
+            cpad = -(-capg // tile) * tile
+            xg = ops._pad_axis(xg, 1, cpad).contiguous()
+            ag = ops._pad_axis(ag, 1, cpad).contiguous()
+            capg, geo = cpad, (tile,)
+        head = (ptr(q), ptr(xg), ptr(ag), ptr(out))
+        if nbg == 1:
+            return lambda: lib.fz_grad_single_tiled(*head, 1, capg, d, 1, *geo, *gsc, stream())
+        return lambda: lib.fz_grad_tiled(*head, nbg, 1, capg, d, 1, *geo, *gsc, stream())
+
     tile = chip_smoke.TILE
     runs = [
         (f"B1 score_cluster_kernel<{bn1}> (N={nb}, cluster {cs}, chunks of {jc} rows)", b1,
@@ -316,6 +393,11 @@ def main() -> int:
         (f"B2 {nb} clients, cap tile {tile}", tiled(nb, n, cap, tile), "gp_score.cu"),
         ("B7b one client, cap=1000, tile 256", tiled(1, n, 1000, 256), "gp_score.cu"),
         ("B7b one client, cap=4096, tile 256", tiled(1, n, 4096, 256), "gp_score.cu"),
+        (f"B8a one client's gradient mean, cap={cap}", grad(1, cap), "gp_grad.cu"),
+        (f"B8b one client's gradient mean, cap tile {tile}", grad(1, cap, tile), "gp_grad.cu"),
+        (f"B4 {nb} clients' gradient mean, cap tile {tile}", grad(nb, cap, tile), "gp_grad.cu"),
+        ("B8b one client's gradient mean, cap=1000, tile 256", grad(1, 1000, 256), "gp_grad.cu"),
+        ("B8b one client's gradient mean, cap=4096, tile 256", grad(1, 4096, 256), "gp_grad.cu"),
     ]
     for label, fn, src in runs:
         for _ in range(3):  # warm; the last launch's laps are read

@@ -8,19 +8,21 @@ active-query picks they lead to, and in device time, on one card.
 parent commit unpacked under ``build/``).  Its kernel library is built by
 its own ``kernels/loader.py`` and its block choices come from its own
 ``kernels/autotune.py`` (both loaded from their files, so the two trees'
-modules do not mix); its ``fz_rff_grad``, ``fz_sqexp`` and scoring entries
-are called through ctypes as its wrappers call them (padding, geometry,
-scratch or work buffers as its signatures take them).  This tree's kernels
-run through ``kernels.ops``.  The same inputs go to both:
+modules do not mix); its ``fz_rff_grad``, ``fz_sqexp``, scoring and
+gradient-mean entries are called through ctypes as its wrappers call them
+(padding, geometry, scratch or work buffers as its signatures take them).
+This tree's kernels run through ``kernels.ops``.  The same inputs go to
+both:
 
 * the main path's shapes (``chip_smoke.rff_and_gram_inputs``,
   ``chip_smoke.path_inputs``): B5 with per-row w and with one w, B9's
-  append events of 5 rows and of 1 row, factor_init's init Gram, and the
-  client-batched resident scoring (B1);
-* every B5, B9 and B1 call of one main-path round (d=300, N=5, M=512,
+  append events of 5 rows and of 1 row, factor_init's init Gram, the
+  client-batched resident scoring (B1) and gradient mean (B3);
+* every B5, B9, B1 and B3 call of one main-path round (d=300, N=5, M=512,
   cap=192), and of the small deferred and per-client engines of
-  ``chip_smoke.check_engine_inputs`` (d=8, N=3, cap=16, 3 rounds), as this
-  tree's kernels received them.
+  ``chip_smoke.check_engine_inputs`` (d=8, N=3, cap=16, 3 rounds; also
+  with the gradient's cap tiles pinned to 8), as this tree's kernels
+  received them.
 
 For each group it prints the calls, the calls whose outputs differ in any
 bit, the most differing elements of one call and the largest |difference|.
@@ -29,11 +31,13 @@ tiles of 8) may differ by design: for each of its calls on the small
 per-client engines it compares the active-query picks (the top 2 by a
 stable descending sort, as the engine takes them) index for index and
 prints, for any call whose picks differ, the candidates, both trees'
-scores and their float64 truth.  Then the profiler's device time per call
-of B5, the two append events, B1, B7a, and B7b and B2 with cap tiles of
-64, the other tree's and this tree's in turns (other, this, this, other),
-with the card's name and power limit.  Exits 1 if any output of B5, B9 or
-B1 differs.
+scores and their float64 truth.  So may the single-client gradient mean
+(B8a, and B8b and B4 with gradient cap tiles of 8), whose largest
+difference is printed.  Then the profiler's device time per call of B5,
+the two append events, B1, B7a, B7b and B2 with cap tiles of 64, B3, B8a,
+and B8b and B4 with cap tiles of 64, the other tree's and this tree's in
+turns (other, this, this, other), with the card's name and power limit.
+Exits 1 if any output of B5, B9, B1 or B3 differs.
 """
 
 from __future__ import annotations
@@ -55,7 +59,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
-NAMES = ("rff_grad_rows", "sqexp", "uncertainty_scores_clients", "uncertainty_scores")
+NAMES = ("rff_grad_rows", "sqexp", "uncertainty_scores_clients", "grad_mean_clients",
+         "uncertainty_scores", "grad_mean_batch")
+#: The ops whose every output must keep the other tree's bits.
+BITWISE = NAMES[:4]
 #: Active queries the small engines pick per call (active_per_iter, active_round_end).
 PICKS = 2
 
@@ -71,8 +78,9 @@ def other_tree(root: Path):
     """The other tree's kernel library and its entries, as its wrappers
     call them: (rff_grad_rows(x, v, b, ws), rff_grad(x, v, b, w),
     sqexp(x1, x2, lengthscale), scores(cands, xs, binv, pmat, lengthscale=,
-    prior=, block_n=, block_cap=) for one client's (n, d) or client-batched
-    (N, n, d) candidates)."""
+    prior=, block_n=, block_cap=) and grads(cands, xs, alpha, lengthscale=,
+    block_n=, block_cap=) for one client's (n, d) or client-batched (N, n,
+    d) candidates)."""
     kernels = root / "src" / "repro_torch" / "kernels"
     loader = _module(kernels / "loader.py", "other_tree_loader")
     tune = _module(kernels / "autotune.py", "other_tree_autotune")
@@ -141,8 +149,37 @@ def other_tree(root: Path):
         loader.check(err, "other tree's " + name)
         return out[0, :n] if single else out[:, :n]
 
+    def grads(cands, xs, alpha, *, lengthscale, block_n=None, block_cap=None):
+        single = cands.dim() == 2
+        c, x, a = (t[None] if single else t for t in (cands, xs, alpha))
+        (nb, n, d), cap = c.shape, x.shape[1]
+        bn, bc = tune.select_blocks("grad" if single else "grad_clients", n=n, cap=cap, d=d)
+        bn, bc = block_n or bn, block_cap or bc
+        npad = -(-n // bn) * bn
+        c = ops._pad_axis(c, 1, npad).contiguous()
+        out = torch.empty((nb, npad, d), device=c.device)
+        resident = bc >= cap
+        name = "fz_grad_" + ("single_" if single else "") + ("resident" if resident else "tiled")
+        if hasattr(tune, "grad_geometry"):  # one cluster kernel for every route
+            geo = tune.grad_geometry(cap, d, bn, None if resident else bc, single=single)
+            geo = geo[:1] if resident else geo
+        elif resident:  # the earlier single-client entry took no cluster size
+            geo = () if single else tune.cluster_geometry(cap)[:1]
+        else:  # the earlier tiled entries: the trajectory zero-padded to a tile multiple
+            cpad = -(-cap // bc) * bc
+            x, a = ops._pad_axis(x, 1, cpad), ops._pad_axis(a, 1, cpad)
+            cap, geo = cpad, (bc,)
+        x, a = x.contiguous(), a.contiguous()
+        l2 = float(lengthscale) ** 2
+        err = getattr(lib, name)(
+            c.data_ptr(), x.data_ptr(), a.data_ptr(), out.data_ptr(),
+            *([npad] if single else [nb, npad]), cap, d, bn, *geo, 0.5 / l2, 1 / l2,
+            torch.cuda.current_stream().cuda_stream)
+        loader.check(err, "other tree's " + name)
+        return out[0, :n] if single else out[:, :n]
+
     return (lambda x, v, b, ws: grad(x, v, b, ws, v.shape[0]),
-            lambda x, v, b, w: grad(x, v, b, w, 0), sqexp, scores)
+            lambda x, v, b, w: grad(x, v, b, w, 0), sqexp, scores, grads)
 
 
 def differ(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
@@ -166,8 +203,9 @@ def compare(label: str, pairs) -> bool:
 
 
 def engine_calls(dev):
-    """B5, B9 and scoring calls of one main-path round and of the small
-    engines, with this tree's outputs: {label: {name: [(args, kwargs, out)]}}."""
+    """B5, B9, scoring and gradient-mean calls of one main-path round and of
+    the small engines, with this tree's outputs: {label: {name: [(args,
+    kwargs, out)]}}."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core import objectives as obj
 
@@ -184,6 +222,11 @@ def engine_calls(dev):
         "small per-client engine, cap tiles of 8": chip_smoke.check_engine_inputs(
             dev, "small per-client engine inputs, cap tiles of 8", defer_repair=False,
             score_block_cap=8),
+        "small deferred engine, gradient cap tiles of 8": chip_smoke.check_engine_inputs(
+            dev, "small engine inputs, gradient cap tiles of 8", grad_block_cap=8),
+        "small per-client engine, gradient cap tiles of 8": chip_smoke.check_engine_inputs(
+            dev, "small per-client engine inputs, gradient cap tiles of 8", defer_repair=False,
+            grad_block_cap=8),
     }
 
 
@@ -224,13 +267,16 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    o_rows, o_one, o_sqexp, o_scores = other_tree(args.parent.resolve())
+    o_rows, o_one, o_sqexp, o_scores, o_grads = other_tree(args.parent.resolve())
     p = chip_smoke.path_inputs(dev)
     x_it, v, b, ws, xs, _, k_new, k_one = chip_smoke.rff_and_gram_inputs(dev, p)
     ls = p["ls"]
     skw = dict(lengthscale=ls, prior=p["prior"])
     sargs = (p["cands"], p["xs_sh"], p["binv"], p["pmat"])
     one = tuple(a[0] for a in sargs)
+    gargs = (p["query"], p["xs"], p["alpha"])
+    gone = tuple(a[0] for a in gargs)
+    gkw, tile = dict(lengthscale=ls), chip_smoke.TILE
     same = True
     for label, this, other in (
         ("B5, per-row w (5, 300), M=512", lambda: ops.rff_grad_rows(x_it, v, b, ws),
@@ -245,19 +291,36 @@ def main() -> int:
          lambda: o_sqexp(xs, xs, ls)),
         ("B1, scores (5, 50) at cap=192, d=300", lambda: ops.uncertainty_scores_clients(
             *sargs, **skw), lambda: o_scores(*sargs, **skw)),
+        ("B3, gradient means (5, 1, 300) at cap=192", lambda: ops.grad_mean_clients(
+            *gargs, **gkw), lambda: o_grads(*gargs, **gkw)),
     ):
         same &= compare(label, [(this(), other())])
     compare("B7a, one client's scores (50,) at cap=192, d=300 (may differ)",
             [(ops.uncertainty_scores(*one, **skw), o_scores(*one, **skw))])
-    other_ops = {"rff_grad_rows": o_rows, "sqexp": o_sqexp, "uncertainty_scores_clients": o_scores}
+    for label, kw in (("B8a", {}), (f"B8b, cap tiles of {tile},", dict(block_cap=tile))):
+        compare(f"{label} one client's gradient mean (1, 300) at cap=192 (may differ)",
+                [(ops.grad_mean_batch(*gone, **gkw, **kw), o_grads(*gone, **gkw, **kw))])
+    compare(f"B4, gradient means (5, 1, 300), cap tiles of {tile} (may differ)",
+            [(ops.grad_mean_clients(*gargs, **gkw, block_cap=tile),
+              o_grads(*gargs, **gkw, block_cap=tile))])
+    other_ops = {"rff_grad_rows": o_rows, "sqexp": o_sqexp, "uncertainty_scores_clients": o_scores,
+                 "grad_mean_clients": o_grads, "grad_mean_batch": o_grads}
     for label, calls in engine_calls(dev).items():
-        for name in NAMES[:3]:
-            if calls[name]:
-                same &= compare(f"{label}: {name}",
-                                [(out, other_ops[name](*a, **kw)) for a, kw, out in calls[name]])
+        for name in BITWISE:
+            recs = calls[name]
+            if not recs:
+                continue
+            pairs = [(out, other_ops[name](*a, **kw)) for a, kw, out in recs]
+            if name == "grad_mean_clients" and recs[0][1].get("block_cap"):
+                compare(f"{label}: {name} (B4, may differ)", pairs)
+            else:
+                same &= compare(f"{label}: {name}", pairs)
         if calls["uncertainty_scores"]:
             compare_picks(f"{label}: uncertainty_scores", calls["uncertainty_scores"], o_scores)
-    print(f"[bits] every output of B5, B9 and B1 bit-identical: {same}", flush=True)
+        if calls["grad_mean_batch"]:
+            compare(f"{label}: grad_mean_batch (may differ)",
+                    [(out, o_grads(*a, **kw)) for a, kw, out in calls["grad_mean_batch"]])
+    print(f"[bits] every output of B5, B9, B1 and B3 bit-identical: {same}", flush=True)
 
     for label, this, other in (
         ("B5 (5, 300), per-row w, M=512", lambda: ops.rff_grad_rows(x_it, v, b, ws),
@@ -276,6 +339,16 @@ def main() -> int:
         (f"B2 scores (5, 50), cap tiles of {chip_smoke.TILE}",
          lambda: ops.uncertainty_scores_clients(*sargs, **skw, block_cap=chip_smoke.TILE),
          lambda: o_scores(*sargs, **skw, block_cap=chip_smoke.TILE)),
+        ("B3 gradient means (5, 1, 300), cap=192", lambda: ops.grad_mean_clients(*gargs, **gkw),
+         lambda: o_grads(*gargs, **gkw)),
+        ("B8a one client's gradient mean (1, 300), cap=192",
+         lambda: ops.grad_mean_batch(*gone, **gkw), lambda: o_grads(*gone, **gkw)),
+        (f"B8b one client's gradient mean, cap tiles of {tile}",
+         lambda: ops.grad_mean_batch(*gone, **gkw, block_cap=tile),
+         lambda: o_grads(*gone, **gkw, block_cap=tile)),
+        (f"B4 gradient means (5, 1, 300), cap tiles of {tile}",
+         lambda: ops.grad_mean_clients(*gargs, **gkw, block_cap=tile),
+         lambda: o_grads(*gargs, **gkw, block_cap=tile)),
     ):
         t = [chip_smoke.device_ms(f, reps=200) for f in (other, this, this, other)]
         e = [chip_smoke.cuda_ms(f, reps=200) for f in (other, this, this, other)]

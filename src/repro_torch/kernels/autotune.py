@@ -9,12 +9,12 @@ scoring kinds run the same two routes: the resident one is a thread block
 cluster per client and candidate tile (``score_cluster_kernel``), with
 clusters of up to 8 blocks client-batched and up to 16 for one client
 (``cluster_geometry``); the cap-tiled one an h pass, a panel pass and the
-sums.  The gradient's client-batched resident route is a cluster kernel
-too; its single-client resident route and both cap-tiled ones are one
-block per candidate tile.  The choice is a pure function of the kind and
-the per-client shape (n, cap, d), so it is deterministic and needs no
-cache.  The budget is the shared memory one block may use on an H100 (227
-KB); what a block keeps there, per route:
+sums.  Every gradient route is one cluster kernel (``grad_cluster_kernel``)
+whose blocks stream their part of the trajectory in chunks; the routes
+differ in the geometry ``grad_geometry`` gives it.  The choice is a pure
+function of the kind and the per-client shape (n, cap, d), so it is
+deterministic and needs no cache.  The budget is the shared memory one
+block may use on an H100 (227 KB); what a block keeps there, per route:
 
 * score and score_clients resident (``score_cluster_kernel``): h over the
   whole trajectory (cap block_n, f64), the candidates (d block_n), c.x of
@@ -27,20 +27,22 @@ KB); what a block keeps there, per route:
   (block_n d), the panel pass STAGES chunks of its rows of B and P and of
   their h (``panel_smem``: at most 160 KB, whatever n); block_cap is the
   panel's rows;
-* grad resident (single client): the candidate tile, w over the whole
-  trajectory and the product (block_n cap + block_n d), f32;
-* grad tiled:     the candidate tile, one w tile and the product
-  (block_n block_cap + block_n d), f32;
-* grad_clients resident (``grad_cluster_kernel``): in f64 the candidates
-  (d block_n), |c|^2 and w of its rows (rmax block_n), its rows of X
-  (f32), and one region holding first the row dot products' partials,
-  then its partial sums (block_n d, f64).
+* every gradient route (``grad_smem``): one or two chunks of its rows of X
+  (jc x rows_ld(d), f32) and, in f64, the candidates (d block_n), |c|^2, w
+  of a chunk (jc block_n), the row dot products' partials and its partial
+  sums (block_n d).  The resident routes take a block's whole part as one
+  chunk (jc = rmax), so they end where that part no longer fits: at d=300,
+  cap 2960 for one client (16 blocks) and 1480 client-batched (8 blocks);
+  the tiled routes take chunks of at most block_cap and GRAD_CHUNK rows,
+  halved until they fit, so any cap fits.
 
 ``cluster_geometry`` gives the cluster kernels' cluster size and chunk
 rows, and ``split`` the parts of the trajectory (and of d) each block of a
 cluster owns, as ``csrc/common.cuh`` ``split_at`` computes them;
-``score_tiled_layout`` what each block of the cap-tiled scoring's passes
-computes, and ``score_tiled_work`` the f64 work buffer its wrapper
+``grad_geometry`` the gradient kernel's cluster size and chunk rows per
+route, and ``grad_layout`` the rows and columns of each of its blocks;
+``score_tiled_layout`` what each block of the cap-tiled scoring's
+passes computes, and ``score_tiled_work`` the f64 work buffer its wrapper
 allocates.
 ``rff_grad_layout`` gives the same for the RFF gradient's kernel (B5):
 which features each block of a row's cluster projects in which chunk, and
@@ -68,8 +70,8 @@ _DEFAULT_BLOCK_N = {"score": 4}
 #: Blocks per cluster of the client-batched resident kernels: the portable
 #: cluster size on Hopper (csrc/common.cuh kMaxCluster).
 CLUSTER = 8
-#: Blocks per cluster of the single-client resident scoring (B7a): the
-#: largest (non-portable) size on Hopper (csrc/common.cuh
+#: Blocks per cluster of the single-client routes (B7a, B8a, the tiled
+#: gradient): the largest (non-portable) size on Hopper (csrc/common.cuh
 #: kMaxClusterNonPortable), each block owning about SINGLE_ROWS rows.
 SINGLE_CLUSTER = 16
 SINGLE_ROWS = 12
@@ -82,6 +84,9 @@ STAGES = 4
 #: panel's columns (csrc/gp_score.cu kHRows, kPanelCols).
 H_ROWS = 16
 PANEL_COLS = 32
+#: Most trajectory rows in one chunk of the tiled gradient routes: one pass
+#: of the row dot products, a row per lane.
+GRAD_CHUNK = 32
 
 KINDS = ("score", "grad", "score_clients", "grad_clients")
 
@@ -96,12 +101,60 @@ def cluster_geometry(cap: int, single: bool = False) -> tuple[int, int]:
     """``(cluster size, chunk rows)`` of the resident cluster kernels at
     trajectory capacity ``cap``.  Client-batched: enough blocks that each
     owns at most 32 trajectory rows (one warp's lanes, one row or column
-    each) up to ``CLUSTER`` blocks.  ``single`` (the single-client scoring,
-    B7a): blocks of about ``SINGLE_ROWS`` rows up to ``SINGLE_CLUSTER``, so
-    one client fills the card.  Every block owns at least one row."""
+    each) up to ``CLUSTER`` blocks.  ``single`` (the single-client scoring
+    B7a, the single-client gradient B8a and both tiled gradient routes):
+    blocks of about ``SINGLE_ROWS`` rows up to ``SINGLE_CLUSTER``, so one
+    client fills more of the card.  Every block owns at least one row."""
     if single:
         return min(SINGLE_CLUSTER, -(-cap // SINGLE_ROWS)), min(CHUNK_ROWS, cap)
     return min(CLUSTER, -(-cap // 32)), min(CHUNK_ROWS, cap)
+
+
+def grad_smem(block_n: int, d: int, jc: int, nbuf: int) -> int:
+    """Shared memory of one block of the gradient's cluster kernel with
+    nbuf chunk buffers of jc rows (csrc/gp_grad.cu ``grad_cluster_smem``)."""
+    return (_al(4 * nbuf * jc * rows_ld(d)) + _al(8 * d * block_n) + _al(8 * block_n)
+            + _al(8 * jc * block_n) + _al(8 * (THREADS // 32) * 32 * (block_n + 1))
+            + _al(8 * block_n * d))
+
+
+def grad_geometry(cap: int, d: int, block_n: int, block_cap: int | None = None,
+                  single: bool = False) -> tuple[int, int]:
+    """``(cluster size, chunk rows)`` of the gradient's cluster kernel.
+    Resident (``block_cap`` None): ``cluster_geometry(cap, single)``'s
+    clusters, each block's part in one chunk.  Tiled: the single-client
+    clusters for one client and for many (so one client's gradient is its
+    row of a client-batched call bit for bit), chunks of at most
+    ``block_cap`` and ``GRAD_CHUNK`` rows, halved until two buffers of them
+    fit shared memory (down to 1 row)."""
+    if block_cap is None:
+        cs = cluster_geometry(cap, single)[0]
+        return cs, -(-cap // cs)
+    cs = cluster_geometry(cap, single=True)[0]
+    rmax = -(-cap // cs)
+    jc = min(block_cap, GRAD_CHUNK, rmax)
+    while jc > 1 and grad_smem(block_n, d, jc, grad_buffers(rmax, jc)) > SMEM_BYTES:
+        jc //= 2
+    return cs, jc
+
+
+def grad_layout(cap: int, d: int, block_n: int, block_cap: int | None = None,
+                single: bool = False) -> list[dict]:
+    """What each block (rank) of a cluster of the gradient kernel takes, as
+    csrc/gp_grad.cu computes it for ``grad_geometry``: ``chunks``, its
+    trajectory rows chunk by chunk in the order it sums them, and
+    ``columns``, the output columns whose rank-order sums it writes."""
+    cs, jc = grad_geometry(cap, d, block_n, block_cap, single)
+    rows, cols = split(cap, cs), split(d, cs)
+    return [{"chunks": [range(t, min(t + jc, end)) for t in range(start, end, jc)],
+             "columns": range(cols[r], cols[r + 1])}
+            for r, (start, end) in enumerate(zip(rows, rows[1:]))]
+
+
+def grad_buffers(rmax: int, jc: int) -> int:
+    """Chunk buffers of a block part of at most rmax rows taken in chunks of
+    jc: two when it has more than one chunk (csrc/gp_grad.cu ``grad_buffers``)."""
+    return 2 if rmax > jc else 1
 
 
 def rows_ld(d: int) -> int:
@@ -172,21 +225,17 @@ def smem_bytes(kind: str, *, block_n: int, block_cap: int, cap: int, d: int) -> 
     bn = block_n
     if kind.startswith("score") and not resident:
         return max(8 * bn * d + 8 * bn, panel_smem(16, block_cap))
-    if resident and (kind != "grad"):
-        cs, jc = cluster_geometry(cap, single=kind == "score")
-        rmax = -(-cap // cs)
-        rows = _al(4 * rmax * rows_ld(d))  # the own rows of X
-        rows_dot = 8 * 32 * (bn + 1)  # its partials per warp of 8: 32 x (bn + 1) values
-        if kind.startswith("score"):  # csrc/gp_score.cu score_cluster_smem
-            union = max(rows + 4 * rows_dot, 8 * THREADS * 2 * bn)
-            return (_al(8 * cap * bn) + _al(4 * d * bn) + _al(4 * bn) + _al(4 * rmax * bn)
-                    + _al(8 * cs * bn) + 2 * _al(4 * STAGES * jc * rmax) + _al(union))
-        union = max(8 * rows_dot, 8 * bn * d)  # csrc/gp_grad.cu GradClusterSmem
-        return _al(8 * d * bn) + _al(8 * bn) + _al(8 * rmax * bn) + rows + _al(union)
-    t = cap if resident else block_cap
-    words = bn * d + bn  # candidate tile and its squared norms
-    words += bn * t + bn * d + bn
-    return 4 * words
+    if kind.startswith("grad"):
+        cs, jc = grad_geometry(cap, d, bn, None if resident else block_cap, single=kind == "grad")
+        return grad_smem(bn, d, jc, grad_buffers(-(-cap // cs), jc))
+    # the scoring's resident cluster kernel: csrc/gp_score.cu score_cluster_smem
+    cs, jc = cluster_geometry(cap, single=kind == "score")
+    rmax = -(-cap // cs)
+    rows = _al(4 * rmax * rows_ld(d))  # the own rows of X
+    rows_dot = 8 * 32 * (bn + 1)  # its partials per warp of 8: 32 x (bn + 1) values
+    union = max(rows + 4 * rows_dot, 8 * THREADS * 2 * bn)
+    return (_al(8 * cap * bn) + _al(4 * d * bn) + _al(4 * bn) + _al(4 * rmax * bn)
+            + _al(8 * cs * bn) + 2 * _al(4 * STAGES * jc * rmax) + _al(union))
 
 
 def _fits(kind, bn, bc, cap, d) -> bool:

@@ -1,17 +1,13 @@
-// Shared device helpers of the client-batched and single-client GP kernels
-// (gp_score.cu, gp_grad.cu).
+// Shared device helpers of the GP kernels (gp_score.cu, gp_grad.cu) and the
+// projection kernels (proj.cuh).
 //
-// Two block organisations use them:
-//  * one block per (client, candidate tile) that loops over the whole
-//    trajectory itself, so no sum is carried between blocks: the gradient
-//    mean's cap-tiled kernel and its single-client entries (f32 arithmetic);
-//  * one thread block cluster per (client, candidate tile): the resident
-//    scoring kernel (score_cluster_kernel, client-batched and single-client)
-//    and the client-batched resident gradient mean (grad_cluster_kernel).
-//    Each block of the cluster owns one part of the
-//    trajectory (split_at); the parts are exchanged through distributed
-//    shared memory and the per-block partial sums are reduced in rank
-//    order, with f64 accumulators and no atomics.
+// The GP kernels' resident and gradient routes are thread block clusters,
+// one per (client, candidate tile): the scoring's score_cluster_kernel
+// (client-batched and single-client) and the gradient mean's
+// grad_cluster_kernel (all four entries).  Each block of the cluster owns
+// one part of the trajectory (split_at); the parts are exchanged through
+// distributed shared memory and the per-block partial sums are reduced in
+// rank order, with f64 accumulators and no atomics.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -25,66 +21,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // Dynamic shared memory above this needs an explicit opt-in per kernel.
 constexpr size_t kDefaultSmem = 48 * 1024;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copy the block's BN candidate rows (BN x d) into shared memory and store
-// their squared norms in sn1.
-template <int BN>
-__device__ void load_cands(const float* __restrict__ c, int d, float* sc, float* sn1) {
-  for (int i = threadIdx.x; i < BN * d; i += blockDim.x) sc[i] = c[i];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < BN; i += kWarps) {
-    float s = 0.f;
-    for (int k = lane; k < d; k += 32) {
-      const float v = sc[i * d + k];
-      s += v * v;
-    }
-    s = warp_sum(s);
-    if (lane == 0) sn1[i] = s;
-  }
-  __syncthreads();
-}
-
-// SE kernel-vector tile for trajectory rows t0 .. t0+len-1:
-//   sh[i*ld + r]  = exp(-max(|c_i|^2 + |x_t|^2 - 2 c_i.x_t, 0) * inv_two_l2)
-//   scr[i*ld + r] = c_i.x_t            (skipped when scr is null)
-// with t = t0 + r.  One warp per trajectory row: the lanes read the row
-// coalesced and keep BN partial dot products, then reduce by shuffles.
-// The caller synchronises before reading sh / scr.
-template <int BN>
-__device__ void h_tile(const float* sc, const float* sn1, const float* __restrict__ x, int d,
-                       int t0, int len, float inv_two_l2, float* sh, float* scr, int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < len; r += kWarps) {
-    const float* xr = x + (size_t)(t0 + r) * d;
-    float dot[BN];
-#pragma unroll
-    for (int i = 0; i < BN; ++i) dot[i] = 0.f;
-    float n2 = 0.f;
-    for (int k = lane; k < d; k += 32) {
-      const float xv = xr[k];
-      n2 += xv * xv;
-#pragma unroll
-      for (int i = 0; i < BN; ++i) dot[i] += sc[i * d + k] * xv;
-    }
-    n2 = warp_sum(n2);
-#pragma unroll
-    for (int i = 0; i < BN; ++i) {
-      const float cr = warp_sum(dot[i]);
-      if (lane == 0) {
-        const float d2 = fmaxf(sn1[i] + n2 - 2.f * cr, 0.f);
-        sh[i * ld + r] = expf(-d2 * inv_two_l2);
-        if (scr != nullptr) scr[i * ld + r] = cr;
-      }
-    }
-  }
-}
 
 // ---- helpers of the cluster kernels -------------------------------------
 
@@ -104,7 +40,12 @@ __host__ __device__ __forceinline__ int split_at(int total, int parts, int r) {
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return __fma_rn(a, b, c); }
 
-// f64 warp sum; the float one is above.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -207,13 +148,7 @@ __device__ void load_cands_t(const float* __restrict__ c, int d, T* sc, T* sn1) 
   __syncthreads();
 }
 
-// Dot products c_i.x_r of the BN candidates (sc, [k][BN]) with `rows`
-// trajectory rows (sx, f32, leading dimension ldx) and the rows' squared
-// norms, accumulated in T: the warps split d into kWarps contiguous
-// segments, the lanes take one row each (32 rows per pass), and the
-// segments' partials (in part: kWarps x 32 x (BN + 1) T) are summed in warp
-// order.  emit(i, r, cross, |x_r|^2) is called once for each (i, r), by one
-// thread.  Ends synchronised.
+// One column k of rows_dot: x_r[k] into the BN dot products and the norm.
 template <int BN, typename T>
 __device__ __forceinline__ void dot_step(const T* sc, int k, float x, T (&dot)[BN], T& n2) {
   const T xv = (T)x;

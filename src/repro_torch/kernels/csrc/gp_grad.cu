@@ -16,313 +16,215 @@
 // What bounds it on the card: bytes.  A launch reads N (cap d + cap + n d)
 // floats and does about 4 N n cap d flops; on the main path n = 1, so it is
 // a per-client GEMV over the trajectory (about 1.2 MB at N=5, cap=192,
-// d=300: a third of a microsecond at full HBM rate).  Three kernels, routed
-// by the wrapper (kernels/ops.py, kernels/autotune.py):
-//  * client-batched resident (grad_cluster_kernel, the main path): one
-//    thread block cluster per (client, candidate tile), each block owning
-//    up to 32 trajectory rows, so X is read from HBM once, by N cap / 32
-//    blocks (30 at the main path's shapes) instead of N; the blocks' partial
-//    sums meet in distributed shared memory and are added in rank order (no
-//    atomics).  f64 sums in the difference form make it more accurate than
-//    its f32 plain version, whose two terms nearly cancel.  Its note is
-//    above the kernel.
-//  * resident, one block per (client, tile) (grad_resident_kernel: the
-//    single-client entries): w = h o alpha for the whole trajectory
-//    (BN x cap) in shared memory; the block reads X twice (the second pass
-//    mostly hits L2).  At n = 1 one block: latency-bound.
-//  * cap-tiled (grad_tiled_kernel: client-batched and single-client): bc
-//    trajectory rows at a time; the (BN x d) product and the (BN) sum
-//    accumulate in shared memory across tiles, so shared memory does not
-//    grow with cap.
+// d=300: a third of a microsecond at full HBM rate).  What costs at these
+// sizes is spreading a client's few hundred rows over the card and the
+// latency of each step.  One kernel serves all four entries
+// (grad_cluster_kernel): a thread block cluster per (client, candidate
+// tile), each block owning a part of the trajectory, which it streams
+// through shared memory in chunks, so X is read from HBM once per call and
+// shared memory is bounded by the chunk.  The routes differ only in the
+// geometry the wrapper gives (kernels/autotune.py grad_geometry):
+//  * client-batched resident (B3, the main path): clusters of up to 8
+//    blocks of at least 32 rows, each block's part in one chunk;
+//  * single-client resident (B8a, the per-client engine): clusters of up
+//    to 16 blocks (non-portable) of about 12 rows, one chunk;
+//  * cap-tiled, client-batched and single-client (B4, B8b): the single-
+//    client geometry for both, so one client's gradient is its row of a
+//    client-batched call bit for bit, in chunks of at most block_cap rows
+//    (double-buffered), at any cap.
+// Every sum is f64 in a fixed order with no atomics, in the difference
+// form, so a second launch gives the same bits and the kernel is more
+// accurate than its f32 plain version, whose two terms nearly cancel.
 #include "common.cuh"
 
 namespace fz {
 
-// sw[i*ld + r] *= alpha[t0 + r] for the len rows of the tile, then
-// ss[i] += sum_r sw[i*ld + r].  Ends synchronised.
-template <int BN>
-__device__ void weight_tile(float* sw, int ld, int len, const float* __restrict__ alpha, int t0,
-                            float* ss) {
-  for (int e = threadIdx.x; e < BN * len; e += blockDim.x) {
-    const int i = e / len, r = e - i * len;
-    sw[i * ld + r] *= alpha[t0 + r];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < BN; i += kWarps) {
-    float s = 0.f;
-    for (int r = lane; r < len; r += 32) s += sw[i * ld + r];
-    s = warp_sum(s);
-    if (lane == 0) ss[i] += s;
-  }
-  __syncthreads();
-}
-
-// acc[i*d + k] (+)= sum_r sw[i*ld + r] x[t0 + r][k] for the columns k this
-// thread owns.
-template <int BN>
-__device__ void product_tile(const float* sw, int ld, int len, const float* __restrict__ x,
-                             int t0, int d, float* acc, bool first) {
-  for (int k = threadIdx.x; k < d; k += blockDim.x) {
-    float a[BN];
-#pragma unroll
-    for (int i = 0; i < BN; ++i) a[i] = first ? 0.f : acc[i * d + k];
-    for (int r = 0; r < len; ++r) {
-      const float xv = x[(size_t)(t0 + r) * d + k];
-#pragma unroll
-      for (int i = 0; i < BN; ++i) a[i] += sw[i * ld + r] * xv;
-    }
-#pragma unroll
-    for (int i = 0; i < BN; ++i) acc[i * d + k] = a[i];
-  }
-}
-
-// out[i][k] = (acc[i][k] - s_i c_i[k]) / l^2 for the columns this thread owns.
-template <int BN>
-__device__ void grad_store(const float* acc, const float* ss, const float* sc, float* out, int d,
-                           float inv_l2) {
-  for (int k = threadIdx.x; k < d; k += blockDim.x) {
-#pragma unroll
-    for (int i = 0; i < BN; ++i)
-      out[(size_t)i * d + k] = (acc[i * d + k] - ss[i] * sc[i * d + k]) * inv_l2;
-  }
-}
-
-// grid (n / BN, N); shared: c tile, |c|^2, w over the whole cap, the sums,
-// and the (BN x d) product.
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-grad_resident_kernel(const float* __restrict__ c, const float* __restrict__ x,
-                     const float* __restrict__ alpha, float* __restrict__ out, int n, int cap,
-                     int d, float inv_two_l2, float inv_l2) {
-  extern __shared__ float smem[];
-  __shared__ float ss[BN];
-  float* sc = smem;
-  float* sn1 = sc + BN * d;
-  float* sw = sn1 + BN;
-  float* sacc = sw + BN * cap;
-  const int cl = blockIdx.y, row0 = blockIdx.x * BN;
-  const float* xb = x + (size_t)cl * cap * d;
-
-  if (threadIdx.x < BN) ss[threadIdx.x] = 0.f;
-  load_cands<BN>(c + ((size_t)cl * n + row0) * d, d, sc, sn1);
-  h_tile<BN>(sc, sn1, xb, d, 0, cap, inv_two_l2, sw, nullptr, cap);
-  __syncthreads();
-  weight_tile<BN>(sw, cap, cap, alpha + (size_t)cl * cap, 0, ss);
-  product_tile<BN>(sw, cap, cap, xb, 0, d, sacc, true);
-  grad_store<BN>(sacc, ss, sc, out + ((size_t)cl * n + row0) * d, d, inv_l2);
-}
-
-// grid (n / BN, N); shared: c tile, |c|^2, one (BN x bc) w tile, the sums
-// and the (BN x d) running product.
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-grad_tiled_kernel(const float* __restrict__ c, const float* __restrict__ x,
-                  const float* __restrict__ alpha, float* __restrict__ out, int n, int cap,
-                  int d, int bc, float inv_two_l2, float inv_l2) {
-  extern __shared__ float smem[];
-  __shared__ float ss[BN];
-  float* sc = smem;
-  float* sn1 = sc + BN * d;
-  float* sw = sn1 + BN;
-  float* sacc = sw + BN * bc;
-  const int cl = blockIdx.y, row0 = blockIdx.x * BN;
-  const float* xb = x + (size_t)cl * cap * d;
-  const float* ab = alpha + (size_t)cl * cap;
-
-  if (threadIdx.x < BN) ss[threadIdx.x] = 0.f;
-  load_cands<BN>(c + ((size_t)cl * n + row0) * d, d, sc, sn1);
-  for (int t0 = 0; t0 < cap; t0 += bc) {
-    h_tile<BN>(sc, sn1, xb, d, t0, bc, inv_two_l2, sw, nullptr, bc);
-    __syncthreads();
-    weight_tile<BN>(sw, bc, bc, ab, t0, ss);
-    product_tile<BN>(sw, bc, bc, xb, t0, d, sacc, t0 == 0);
-    __syncthreads();  // the next tile overwrites sw
-  }
-  grad_store<BN>(sacc, ss, sc, out + ((size_t)cl * n + row0) * d, d, inv_l2);
-}
-
-template <typename K>
-int prepare_grad(K kernel, size_t smem) {
-  if (smem <= kDefaultSmem) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
-template <int BN>
-int launch_grad_resident(const float* c, const float* x, const float* alpha, float* out, int nb,
-                         int n, int cap, int d, float inv_two_l2, float inv_l2,
-                         cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)BN * d + BN + (size_t)BN * cap);
-  if (int e = prepare_grad(grad_resident_kernel<BN>, smem)) return e;
-  dim3 grid(n / BN, nb);
-  grad_resident_kernel<BN><<<grid, kThreads, smem, stream>>>(c, x, alpha, out, n, cap, d,
-                                                             inv_two_l2, inv_l2);
-  return (int)cudaGetLastError();
-}
-
-template <int BN>
-int launch_grad_tiled(const float* c, const float* x, const float* alpha, float* out, int nb,
-                      int n, int cap, int d, int bc, float inv_two_l2, float inv_l2,
-                      cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)BN * d + BN + (size_t)BN * bc);
-  if (int e = prepare_grad(grad_tiled_kernel<BN>, smem)) return e;
-  dim3 grid(n / BN, nb);
-  grad_tiled_kernel<BN><<<grid, kThreads, smem, stream>>>(c, x, alpha, out, n, cap, d, bc,
-                                                          inv_two_l2, inv_l2);
-  return (int)cudaGetLastError();
-}
-
-
-// ---- client-batched resident route: one cluster per (client, tile) ------
-//
 // grad_cluster_kernel: grid (cs * n / BN, N), clusters of cs blocks along x.
-// Block `rank` of a cluster owns trajectory rows R = split_at(cap, cs, rank)
-// and output columns split_at(d, cs, rank):
-//  1. stage its rows of X (cp.async; X is read from HBM once per call);
+// Block `rank` of a cluster owns trajectory rows [t0, t0 + rows) =
+// split_at(cap, cs, rank) and output columns split_at(d, cs, rank), and
+// takes its rows in chunks of jc (two buffers when it has more than one):
+//  1. stage chunks 0 and 1 of its rows of X (cp.async);
 //  2. the candidates in f64 ([k][BN]) and |c|^2;
-//  3. w_t = h_t alpha_t for its rows, in f64 (rows_dot: warps split d,
-//     lanes take rows).  On the engine's unshifted coordinates (|x|^2 ~ d/4)
-//     the expanded distance cancels by 1e3-1e4, so h needs every product of
-//     c.x exactly (f64 holds a product of two f32 values exactly);
-//  4. its partial sum_{t in R} w_t (x_t - c) over all d columns, f64, one
-//     thread per column: the difference form, whose terms are as small as
-//     the distances (x_t - c is exact in f64), where (h o alpha) @ X and
-//     (h . alpha) c nearly cancel;
+//  3. per chunk, w_t = h_t alpha_t for its rows, in f64 (rows_dot: warps
+//     split d, lanes take rows).  On the engine's unshifted coordinates
+//     (|x|^2 ~ d/4) the expanded distance cancels by 1e3-1e4, so h needs
+//     every product of c.x exactly (f64 holds a product of two f32 values
+//     exactly);
+//  4. per chunk, its partial sum_t w_t (x_t - c) over all d columns, f64,
+//     one thread per column, carried from chunk to chunk in shared memory:
+//     the difference form, whose terms are as small as the distances
+//     (x_t - c is exact in f64), where (h o alpha) @ X and (h . alpha) c
+//     nearly cancel; chunk ch + 2 is staged while ch + 1 is worked on;
 //  5. cluster barrier; each block sums its output columns over the ranks'
 //     partials in rank order (distributed shared memory) and writes them
 //     scaled by 1 / l^2;
 //  6. cluster barrier, so no block leaves while its partials are read.
-// Shared memory (GradClusterSmem; kernels/autotune.py mirrors it): the
-// candidates (d x BN, f64), |c|^2, w of the own rows (rmax x BN, f64), the
-// own rows of X (rmax x rows_ld(d), f32) and one region used first for
-// rows_dot's partials, then for the block's partial sums (BN x d, f64).
-template <int BN>
-__host__ __device__ size_t grad_cluster_union(int d) {
-  const size_t a = 8 * (size_t)kWarps * 32 * (BN + 1), b = 8 * (size_t)BN * d;
-  return a > b ? a : b;
-}
+// A column's partial runs over the block's rows in ascending order however
+// they are chunked, so jc changes no bit: the routes of one geometry give
+// the same bits.
+
+// Byte offsets of the shared-memory regions (kernels/autotune.py grad_smem
+// mirrors them), and `bytes` in all: nbuf chunks of X (jc x rows_ld(d),
+// f32), the candidates (d x BN, f64), |c|^2, w of a chunk (jc x BN, f64),
+// rows_dot's partials (kWarps x 32 x (BN + 1), f64) and the block's partial
+// sums (BN x d, f64).  Offsets, not pointers: a pointer the kernel derives
+// from its shared array keeps the shared state space, so its loads are
+// shared-memory loads.
+struct GradClusterSmem {
+  size_t sx, sc, sn1, sw, dots, part, bytes;
+};
 
 template <int BN>
-struct GradClusterSmem {
-  double* sc;   // the candidates ([k][BN])
-  double* sn1;  // |c|^2
-  double* sw;   // w of the own rows ([r][BN])
-  float* sx;    // the own rows of X (rmax x rows_ld(d))
-  double* u;    // rows_dot's partials, then the block's partial sums ([i][k])
-  __host__ __device__ GradClusterSmem(SmemCarve& m, int d, int rmax)
-      : sc(m.take<double>((size_t)d * BN)),
-        sn1(m.take<double>(BN)),
-        sw(m.take<double>((size_t)rmax * BN)),
-        sx(m.take<float>((size_t)rmax * rows_ld(d))),
-        u(m.take<double>(grad_cluster_union<BN>(d) / 8)) {}
-};
+__host__ __device__ inline GradClusterSmem grad_cluster_smem(int d, int jc, int nbuf) {
+  SmemCarve m{0};
+  GradClusterSmem s;
+  s.sx = (size_t)m.take<float>((size_t)nbuf * jc * rows_ld(d));
+  s.sc = (size_t)m.take<double>((size_t)d * BN);
+  s.sn1 = (size_t)m.take<double>(BN);
+  s.sw = (size_t)m.take<double>((size_t)jc * BN);
+  s.dots = (size_t)m.take<double>((size_t)kWarps * 32 * (BN + 1));
+  s.part = (size_t)m.take<double>((size_t)BN * d);
+  s.bytes = m.p;
+  return s;
+}
+
+// Chunk buffers of a block part of at most rmax rows in chunks of jc.
+__host__ __device__ __forceinline__ int grad_buffers(int rmax, int jc) { return rmax > jc ? 2 : 1; }
 
 template <int BN>
 __global__ void __launch_bounds__(kThreads)
 grad_cluster_kernel(const float* __restrict__ c, const float* __restrict__ x,
                     const float* __restrict__ alpha, float* __restrict__ out, int n, int cap,
-                    int d, float inv_two_l2, float inv_l2) {
+                    int d, int jc, float inv_two_l2, float inv_l2) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int cl = blockIdx.y, row0 = (blockIdx.x / cs) * BN;
-  const int rmax = (cap + cs - 1) / cs, ldx = rows_ld(d);
   const int t0 = split_at(cap, cs, rank), rows = split_at(cap, cs, rank + 1) - t0;
+  const int nbuf = grad_buffers((cap + cs - 1) / cs, jc), nch = (rows + jc - 1) / jc;
+  const int ldx = rows_ld(d);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemCarve m{(uintptr_t)smem_raw};
-  const GradClusterSmem<BN> sm(m, d, rmax);
-  double *sc = sm.sc, *sn1 = sm.sn1, *sw = sm.sw, *part = sm.u;
-  float* sx = sm.sx;
+  const GradClusterSmem at = grad_cluster_smem<BN>(d, jc, nbuf);
+  float* sx = reinterpret_cast<float*>(smem_raw + at.sx);
+  double* sc = reinterpret_cast<double*>(smem_raw + at.sc);
+  double* sn1 = reinterpret_cast<double*>(smem_raw + at.sn1);
+  double* sw = reinterpret_cast<double*>(smem_raw + at.sw);
+  double* dots = reinterpret_cast<double*>(smem_raw + at.dots);
+  double* part = reinterpret_cast<double*>(smem_raw + at.part);
 
-  stage_tile(sx, ldx, x + ((size_t)cl * cap + t0) * d, rows, d, d);
+  const float* xb = x + ((size_t)cl * cap + t0) * d;
+  const float* ab = alpha + (size_t)cl * cap + t0;
+  auto stage = [&](int ch) {
+    const int r0 = ch * jc;
+    stage_tile(sx + (size_t)(ch % nbuf) * jc * ldx, ldx, xb + (size_t)r0 * d, min(jc, rows - r0),
+               d, d);
+  };
+  // cp.async groups: chunk 0, then chunk 1 (empty when there is none)
+  stage(0);
+  cp_async_commit();
+  if (nch > 1) stage(1);
   cp_async_commit();
   load_cands_t<BN, double>(c + ((size_t)cl * n + row0) * d, d, sc, sn1);
-  cp_async_wait<0>();
-  __syncthreads();
-  const float* ab = alpha + (size_t)cl * cap + t0;
-  rows_dot<BN, double>(sc, sx, ldx, d, rows, part, [&](int i, int r, double cr, double n2) {
-    sw[r * BN + i] = exp(-fmax(sn1[i] + n2 - 2.0 * cr, 0.0) * (double)inv_two_l2) * (double)ab[r];
-  });
-  for (int k = threadIdx.x; k < d; k += blockDim.x) {
-    double acc[BN], ck[BN];
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<1>();  // chunk ch has landed
+    __syncthreads();     // ... for every thread
+    const int r0 = ch * jc, rn = min(jc, rows - r0);
+    const float* sxc = sx + (size_t)(ch % nbuf) * jc * ldx;
+    rows_dot<BN, double>(sc, sxc, ldx, d, rn, dots, [&](int i, int r, double cr, double n2) {
+      sw[r * BN + i] =
+          exp(-fmax(sn1[i] + n2 - 2.0 * cr, 0.0) * (double)inv_two_l2) * (double)ab[r0 + r];
+    });
+    for (int k = threadIdx.x; k < d; k += blockDim.x) {
+      double acc[BN], ck[BN];
 #pragma unroll
-    for (int i = 0; i < BN; ++i) {
-      acc[i] = 0.0;
-      ck[i] = sc[k * BN + i];
+      for (int i = 0; i < BN; ++i) {
+        acc[i] = ch == 0 ? 0.0 : part[(size_t)i * d + k];
+        ck[i] = sc[k * BN + i];
+      }
+      for (int r = 0; r < rn; ++r) {
+        const double xv = (double)sxc[(size_t)r * ldx + k];
+#pragma unroll
+        for (int i = 0; i < BN; ++i) acc[i] = fma(sw[r * BN + i], xv - ck[i], acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < BN; ++i) part[(size_t)i * d + k] = acc[i];
     }
-    for (int r = 0; r < rows; ++r) {
-      const double xv = (double)sx[(size_t)r * ldx + k];
-#pragma unroll
-      for (int i = 0; i < BN; ++i) acc[i] = fma(sw[r * BN + i], xv - ck[i], acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < BN; ++i) part[(size_t)i * d + k] = acc[i];
+    __syncthreads();  // the chunk's buffer and w are free again
+    if (ch + 2 < nch) stage(ch + 2);
+    cp_async_commit();
   }
   cluster.sync();  // every rank's partials are written
   const int k0 = split_at(d, cs, rank), kn = split_at(d, cs, rank + 1) - k0;
   for (int e = threadIdx.x; e < BN * kn; e += blockDim.x) {
     const int i = e / kn, k = k0 + (e - i * kn);
-    double v[kMaxCluster];
+    const size_t ik = (size_t)i * d + k;
+    double s = 0.0;  // rank order; the loads of four ranks in flight at once
+    for (int q0 = 0; q0 < cs; q0 += 4) {
+      double v[4];
 #pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q)
-      v[q] = q < cs ? cluster.map_shared_rank(part, q)[(size_t)i * d + k] : 0.0;
-    double s = 0.0;
+      for (int u = 0; u < 4; ++u)
+        v[u] = q0 + u < cs ? cluster.map_shared_rank(part, q0 + u)[ik] : 0.0;
 #pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q) s += v[q];
+      for (int u = 0; u < 4; ++u) s += v[u];
+    }
     out[((size_t)cl * n + row0 + i) * d + k] = (float)(s * (double)inv_l2);
   }
   cluster.sync();  // the other ranks have read this block's partials
 }
 
 template <int BN>
-size_t grad_cluster_smem(int cap, int d, int cs) {
-  SmemCarve m{0};
-  (void)GradClusterSmem<BN>(m, d, (cap + cs - 1) / cs);
-  return (size_t)m.p;
+int launch_grad(const float* c, const float* x, const float* alpha, float* out, int nb, int n,
+                int cap, int d, int cs, int jc, float inv_two_l2, float inv_l2,
+                cudaStream_t stream) {
+  if (cs < 1 || cs > cap || jc < 1 || nb < 1 || n % BN) return (int)cudaErrorInvalidValue;
+  const int nbuf = grad_buffers((cap + cs - 1) / cs, jc);
+  dim3 grid(cs * (n / BN), nb);
+  return launch_cluster(grad_cluster_kernel<BN>, grid, cs, grad_cluster_smem<BN>(d, jc, nbuf).bytes,
+                        stream, c, x, alpha, out, n, cap, d, jc, inv_two_l2, inv_l2);
 }
 
+// The resident routes: each block's whole part in one chunk.
 template <int BN>
-int launch_cluster_grad(const float* c, const float* x, const float* alpha, float* out, int nb,
-                        int n, int cap, int d, int cs, float inv_two_l2, float inv_l2,
-                        cudaStream_t stream) {
-  if (cs < 1 || cs > cap || cs > kMaxCluster) return (int)cudaErrorInvalidValue;
-  dim3 grid(cs * (n / BN), nb);
-  return launch_cluster(grad_cluster_kernel<BN>, grid, cs, grad_cluster_smem<BN>(cap, d, cs),
-                        stream, c, x, alpha, out, n, cap, d, inv_two_l2, inv_l2);
+int launch_grad_resident(const float* c, const float* x, const float* alpha, float* out, int nb,
+                         int n, int cap, int d, int cs, float inv_two_l2, float inv_l2,
+                         cudaStream_t stream) {
+  if (cs < 1) return (int)cudaErrorInvalidValue;
+  return launch_grad<BN>(c, x, alpha, out, nb, n, cap, d, cs, (cap + cs - 1) / cs, inv_two_l2,
+                         inv_l2, stream);
 }
 }  // namespace fz
 
 // C interface (bound with ctypes by kernels/loader.py).  Shapes: c (nb, n, d),
-// x (nb, cap, d), alpha (nb, cap), out (nb, n, d); n % bn == 0 and, for the
-// tiled route, cap % bc == 0.  Returns the cudaError_t of the launch.
+// x (nb, cap, d), alpha (nb, cap), out (nb, n, d); n % bn == 0, any cap.
+// Every entry takes the cluster size cs (1 <= cs <= min(cap, 16)); the
+// tiled ones also the chunk rows jc.  Returns the cudaError_t of the launch.
 extern "C" int fz_grad_resident(const float* c, const float* x, const float* alpha, float* out,
                                 int nb, int n, int cap, int d, int bn, int cs, float inv_two_l2,
                                 float inv_l2, void* stream) {
-  FZ_DISPATCH_BN(bn, fz::launch_cluster_grad, c, x, alpha, out, nb, n, cap, d, cs, inv_two_l2,
+  FZ_DISPATCH_BN(bn, fz::launch_grad_resident, c, x, alpha, out, nb, n, cap, d, cs, inv_two_l2,
                  inv_l2, (cudaStream_t)stream)
 }
 
 extern "C" int fz_grad_tiled(const float* c, const float* x, const float* alpha, float* out,
-                             int nb, int n, int cap, int d, int bn, int bc, float inv_two_l2,
-                             float inv_l2, void* stream) {
-  FZ_DISPATCH_BN(bn, fz::launch_grad_tiled, c, x, alpha, out, nb, n, cap, d, bc, inv_two_l2,
-                 inv_l2, (cudaStream_t)stream)
+                             int nb, int n, int cap, int d, int bn, int cs, int jc,
+                             float inv_two_l2, float inv_l2, void* stream) {
+  FZ_DISPATCH_BN(bn, fz::launch_grad, c, x, alpha, out, nb, n, cap, d, cs, jc, inv_two_l2, inv_l2,
+                 (cudaStream_t)stream)
 }
 
-// Single-client entries: the client body above launched with one client
-// (grid (n / bn, 1)).  Shapes: c (n, d), x (cap, d), alpha (cap), out (n, d).
+// Single-client entries: the same kernel launched with one client.
+// Shapes: c (n, d), x (cap, d), alpha (cap), out (n, d).
 extern "C" int fz_grad_single_resident(const float* c, const float* x, const float* alpha,
-                                       float* out, int n, int cap, int d, int bn,
+                                       float* out, int n, int cap, int d, int bn, int cs,
                                        float inv_two_l2, float inv_l2, void* stream) {
-  FZ_DISPATCH_BN(bn, fz::launch_grad_resident, c, x, alpha, out, 1, n, cap, d, inv_two_l2,
+  FZ_DISPATCH_BN(bn, fz::launch_grad_resident, c, x, alpha, out, 1, n, cap, d, cs, inv_two_l2,
                  inv_l2, (cudaStream_t)stream)
 }
 
 extern "C" int fz_grad_single_tiled(const float* c, const float* x, const float* alpha,
-                                    float* out, int n, int cap, int d, int bn, int bc,
+                                    float* out, int n, int cap, int d, int bn, int cs, int jc,
                                     float inv_two_l2, float inv_l2, void* stream) {
-  FZ_DISPATCH_BN(bn, fz::launch_grad_tiled, c, x, alpha, out, 1, n, cap, d, bc, inv_two_l2,
-                 inv_l2, (cudaStream_t)stream)
+  FZ_DISPATCH_BN(bn, fz::launch_grad, c, x, alpha, out, 1, n, cap, d, cs, jc, inv_two_l2, inv_l2,
+                 (cudaStream_t)stream)
 }

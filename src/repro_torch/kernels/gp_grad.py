@@ -1,12 +1,19 @@
-"""Wrappers of the gradient-mean kernels (csrc/gp_grad.cu).
+"""Wrappers of the gradient-mean kernel (csrc/gp_grad.cu).
 
-The client-batched wrappers ``grad_mean_resident`` and ``grad_mean_tiled``
-take already padded inputs (``kernels.ops`` pads and routes): query points
-(N, n, d) with n a multiple of ``block_n``, trajectory xs (N, cap, d) and
-alpha (N, cap) with the validity mask folded in, and for the tiled route
-cap a multiple of ``block_cap``.  They return grad mu (N, n, d).  The
-``*_single_*`` wrappers take one client's inputs, the same shapes without
-N, and return (n, d).
+Every route launches one kernel, ``grad_cluster_kernel``: a thread block
+cluster per (client, candidate tile) whose blocks stream their part of the
+trajectory in chunks; the wrappers give it its geometry
+(``autotune.grad_geometry``).  The resident wrappers take each block's part
+in one chunk, with clusters of up to 8 blocks client-batched (B3) and up to
+16 for one client (B8a); the tiled wrappers chunks of at most ``block_cap``
+rows with the single-client clusters for both (B4, B8b), at any cap, so one
+client's tiled gradient is its row of a client-batched call bit for bit.
+
+The client-batched wrappers take query points (N, n, d) with n a multiple
+of ``block_n`` (``kernels.ops`` pads the candidate axis and routes),
+trajectory xs (N, cap, d) and alpha (N, cap) with the validity mask folded
+in, and return grad mu (N, n, d).  The ``*_single_*`` wrappers take one
+client's inputs, the same shapes without N, and return (n, d).
 
 On CPU tensors each wrapper computes its kernel's plain version; on CUDA
 tensors it launches the kernel (building it on first use) or raises.
@@ -31,15 +38,15 @@ def _checked(name, cands, xs, alpha, block_n, block_cap=None):
     })
     if n % block_n:
         raise ValueError(f"{name}: n={n} is not a multiple of block_n={block_n}")
-    if block_cap is not None and cap % block_cap:
-        raise ValueError(f"{name}: cap={cap} is not a multiple of block_cap={block_cap}")
+    if block_cap is not None and block_cap < 1:
+        raise ValueError(f"{name}: block_cap={block_cap} must be positive")
 
 
 def _launch(name, cands, xs, alpha, lengthscale, block_n, geometry=()):
     """One launch of the kernel behind ``name`` on checked client-batched
     CUDA tensors; the single-client entries take no client count.
-    ``geometry`` is the route's further ints: the cap tile, or the cluster
-    kernel's cluster size."""
+    ``geometry`` is the route's further ints: the cluster size, and for the
+    tiled entries the chunk rows."""
     nb, n, d = cands.shape
     out = torch.empty((nb, n, d), dtype=torch.float32, device=cands.device)
     l2 = float(lengthscale) ** 2
@@ -61,12 +68,13 @@ def grad_mean_resident(cands, xs, alpha, *, lengthscale, block_n):
     if loader.on_cpu(cands, xs, alpha):
         return ref.grad_mean_clients(cands, xs, alpha, lengthscale)
     return _launch("grad_resident", cands, xs, alpha, lengthscale, block_n,
-                   autotune.cluster_geometry(xs.shape[1])[:1])
+                   autotune.grad_geometry(xs.shape[1], cands.shape[2], block_n)[:1])
 
 
 def grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap):
-    """Plain version of the tiled kernel: the product and the weight sum
-    accumulated over cap tiles."""
+    """Plain version of the tiled route: the product and the weight sum
+    accumulated over cap tiles (the last one ragged where block_cap does
+    not divide cap)."""
     acc = torch.zeros_like(cands)
     s = torch.zeros_like(cands[..., :1])
     for t0 in range(0, xs.shape[1], block_cap):
@@ -78,11 +86,13 @@ def grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap):
 
 
 def grad_mean_tiled(cands, xs, alpha, *, lengthscale, block_n, block_cap):
-    """Gradient mean accumulated over cap tiles of block_cap rows."""
+    """Gradient mean with each block's rows streamed in chunks of at most
+    block_cap rows, at any cap: (N, n, d)."""
     _checked("grad_tiled", cands, xs, alpha, block_n, block_cap)
     if loader.on_cpu(cands, xs, alpha):
         return grad_mean_tiled_plain(cands, xs, alpha, lengthscale, block_cap)
-    return _launch("grad_tiled", cands, xs, alpha, lengthscale, block_n, (block_cap,))
+    return _launch("grad_tiled", cands, xs, alpha, lengthscale, block_n,
+                   autotune.grad_geometry(xs.shape[1], cands.shape[2], block_n, block_cap))
 
 
 def grad_mean_single_resident(cands, xs, alpha, *, lengthscale, block_n):
@@ -91,13 +101,16 @@ def grad_mean_single_resident(cands, xs, alpha, *, lengthscale, block_n):
     _checked("grad_single_resident", *args, block_n)
     if loader.on_cpu(cands, xs, alpha):
         return ref.grad_mean_batch(cands, xs, alpha, lengthscale)
-    return _launch("grad_single_resident", *args, lengthscale, block_n)[0]
+    return _launch("grad_single_resident", *args, lengthscale, block_n,
+                   autotune.grad_geometry(xs.shape[0], cands.shape[1], block_n, single=True)[:1])[0]
 
 
 def grad_mean_single_tiled(cands, xs, alpha, *, lengthscale, block_n, block_cap):
-    """One client's gradient mean over cap tiles: (n, d) -> (n, d)."""
+    """One client's gradient mean, chunks of at most block_cap rows:
+    (n, d) -> (n, d)."""
     args = (cands[None], xs[None], alpha[None])
     _checked("grad_single_tiled", *args, block_n, block_cap)
     if loader.on_cpu(cands, xs, alpha):
         return grad_mean_tiled_plain(*args, lengthscale, block_cap)[0]
-    return _launch("grad_single_tiled", *args, lengthscale, block_n, (block_cap,))[0]
+    return _launch("grad_single_tiled", *args, lengthscale, block_n,
+                   autotune.grad_geometry(xs.shape[0], cands.shape[1], block_n, block_cap))[0]

@@ -28,9 +28,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gp_score.cu", "gp_grad.cu", "rff_features.cu", "rff_grad.cu", "sqexp.cu")
 HEADERS = ("common.cuh", "proj.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: -fno-gnu-unique keeps each library's template statics (the kernels'
+#: one-time shared-memory opt-ins) its own when two builds of the library
+#: are loaded in one process, as scripts/kernel_bits.py loads another tree's.
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique",
 )
 
 _P = ctypes.c_void_p
@@ -41,11 +44,11 @@ SIGNATURES = {
     "fz_score_resident": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     "fz_score_tiled": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _P),
     "fz_grad_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    "fz_grad_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "fz_grad_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "fz_score_single_resident": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     "fz_score_single_tiled": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _P),
-    "fz_grad_single_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
-    "fz_grad_single_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "fz_grad_single_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "fz_grad_single_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "fz_rff_features": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "fz_rff_grad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "fz_sqexp": (_P, _P, _P, _I, _I, _I, _I, _F, _P),

@@ -14,16 +14,19 @@ The GP scoring and gradient-mean kernels come client-batched
 Each call picks block sizes (``kernels.autotune`` unless pinned; pinned
 pairs are validated; the client-batched calls as the kinds
 "score_clients" and "grad_clients", the single-client calls as "score"
-and "grad"; both scoring kinds' resident kernel is a thread block cluster
-per client and candidate tile), zero-pads the candidate axis to a
-``block_n`` multiple, and routes: ``block_cap >= cap`` to the resident
-kernel, a smaller ``block_cap`` to the cap-tiled kernel, the scoring's at
-any cap (its panels of ``block_cap`` rows mask the ragged edge), the
-gradient mean's with the trajectory axis zero-padded to a tile multiple,
-whose padded slots contribute exactly zero (zero alpha); padded
-candidate rows are sliced away.  A CPU tensor runs the
-kernel's plain version, a CUDA tensor the kernel.  Lengthscale and prior
-are runtime scalars, so the kernels run on the jitted-free main path.
+and "grad"), zero-pads the candidate axis to a ``block_n`` multiple, and
+routes: ``block_cap >= cap`` to the resident route, a smaller
+``block_cap`` to the cap-tiled route, at any cap (neither pads the
+trajectory: the scoring's panels of ``block_cap`` rows and the gradient's
+chunks of at most ``block_cap`` rows mask the ragged edge); padded
+candidate rows are sliced away.  Both scoring kinds' resident kernel is a
+thread block cluster per client and candidate tile; every gradient route
+is one cluster kernel, whose resident routes take clusters of up to 8
+blocks client-batched and 16 for one client and end, at d=300, at cap
+1480 and 2960 (``kernels.autotune``), beyond which the tuner takes the
+tiled route.  A CPU tensor runs the kernel's plain version, a CUDA tensor
+the kernel.  Lengthscale and prior are runtime scalars, so the kernels
+run on the jitted-free main path.
 """
 
 from __future__ import annotations
@@ -120,14 +123,11 @@ def _grad(kind, resident, tiled, cands, xs, alpha, lengthscale, block_n, block_c
     cap = xs.shape[-2]
     block_n, block_cap = _resolve_blocks(kind, n, cap, d, block_n, block_cap)
     c = _pad_axis(cands, cands.dim() - 2, _round_up(n, block_n)).contiguous()
+    args = (c, xs.contiguous(), alpha.contiguous())
     if block_cap >= cap:
-        out = resident(c, xs.contiguous(), alpha.contiguous(), lengthscale=lengthscale,
-                       block_n=block_n)
+        out = resident(*args, lengthscale=lengthscale, block_n=block_n)
     else:
-        cpad = _round_up(cap, block_cap)
-        out = tiled(c, _pad_axis(xs, xs.dim() - 2, cpad).contiguous(),
-                    _pad_axis(alpha, alpha.dim() - 1, cpad).contiguous(),
-                    lengthscale=lengthscale, block_n=block_n, block_cap=block_cap)
+        out = tiled(*args, lengthscale=lengthscale, block_n=block_n, block_cap=block_cap)
     return out[..., :n, :]
 
 

@@ -11,7 +11,8 @@ clients, the deferred engine scores once per step and once at the round
 end and takes one gradient mean per step for all clients together, the
 per-client engine does the same once per client; with the scoring's cap
 tile pinned (``score_block_cap``, the route B2 and B7b take) the scoring
-calls carry the pin.
+calls carry the pin, with the gradient's (``grad_block_cap``, B4 and B8b)
+the gradient calls.
 """
 
 import importlib.util
@@ -32,8 +33,11 @@ def _smoke():
 
 @pytest.mark.parametrize("engine,per", [({}, 1), ({"defer_repair": False}, N),
                                         ({"score_block_cap": 8}, 1),
-                                        ({"defer_repair": False, "score_block_cap": 8}, N)],
-                         ids=["deferred", "per_client", "deferred_tiled", "per_client_tiled"])
+                                        ({"defer_repair": False, "score_block_cap": 8}, N),
+                                        ({"grad_block_cap": 8}, 1),
+                                        ({"defer_repair": False, "grad_block_cap": 8}, N)],
+                         ids=["deferred", "per_client", "deferred_tiled", "per_client_tiled",
+                              "deferred_grad_tiled", "per_client_grad_tiled"])
 def test_check_engine_inputs_records_every_call(engine, per):
     calls = _smoke().check_engine_inputs("cpu", "cpu", **engine)
     batched = per == 1
@@ -52,7 +56,8 @@ def test_check_engine_inputs_records_every_call(engine, per):
             assert out.shape[-1] == 12  # active_candidates
     for name in ("grad_mean_clients", "grad_mean_batch"):
         for args, kwargs, out in calls[name]:
-            assert kwargs == dict(lengthscale=0.5, block_n=None, block_cap=None)
+            assert kwargs == dict(lengthscale=0.5, block_n=None,
+                                  block_cap=engine.get("grad_block_cap"))
             assert out.shape == args[0].shape
     for name in ("rff_features", "rff_grad_rows", "sqexp"):
         assert all(kwargs == {} for _, kwargs, _ in calls[name])

@@ -339,9 +339,14 @@ def test_wrappers_check_arguments():
                                              lengthscale=LS, prior=1.0, block_n=4)
     with pytest.raises(ValueError):  # n=4 is not a multiple of block_n=8
         gp_grad.grad_mean_resident(T(cands), T(xs), T(alpha), lengthscale=LS, block_n=8)
-    with pytest.raises(ValueError):  # cap=8 is not a multiple of block_cap=3
+    # the tiled gradient takes any cap (cap=8, chunks of at most 3 rows); a
+    # non-positive tile is refused
+    ragged = gp_grad.grad_mean_tiled(T(cands), T(xs), T(alpha), lengthscale=LS, block_n=4,
+                                     block_cap=3)
+    _close(ragged, ref.grad_mean_clients(T(cands), T(xs), T(alpha), LS))
+    with pytest.raises(ValueError, match="block_cap"):
         gp_grad.grad_mean_tiled(T(cands), T(xs), T(alpha), lengthscale=LS, block_n=4,
-                                block_cap=3)
+                                block_cap=0)
     with pytest.raises(ValueError):
         gp_grad.grad_mean_resident(T(cands), T(xs).transpose(1, 2).contiguous().transpose(1, 2),
                                    T(alpha), lengthscale=LS, block_n=4)
@@ -353,9 +358,9 @@ def test_wrappers_check_arguments():
         gp_score.uncertainty_scores_single_resident(T(cands[0]), T(xs[0]), T(binv[0])[:4],
                                                     T(pmat[0]), lengthscale=LS, prior=1.0,
                                                     block_n=4)
-    with pytest.raises(ValueError):  # cap=8 is not a multiple of block_cap=3
+    with pytest.raises(ValueError, match="block_cap"):
         gp_grad.grad_mean_single_tiled(T(cands[0]), T(xs[0]), T(alpha[0]), lengthscale=LS,
-                                       block_n=4, block_cap=3)
+                                       block_n=4, block_cap=0)
     with pytest.raises(ValueError):  # alpha is not (cap,)
         gp_grad.grad_mean_single_resident(T(cands[0]), T(xs[0]), T(alpha), lengthscale=LS,
                                           block_n=4)
@@ -388,6 +393,17 @@ def test_autotune_is_deterministic_and_fits():
     assert main[1] >= 192  # the main path's scoring runs resident
     assert main == (4, 192)  # one client's scoring: tiles of 4 candidates (B7a's clusters)
     assert autotune.select_blocks("grad", n=1, cap=192, d=300) == (1, 192)
+    # the gradient's resident routes end where a block's part no longer fits
+    # as one chunk: at d=300 cap 2960 for one client (clusters of 16), 1480
+    # client-batched (8); beyond, chunks of at most 32 rows of 256-row tiles
+    assert autotune.select_blocks("grad", n=1, cap=2960, d=300) == (1, 2960)
+    assert autotune.select_blocks("grad", n=1, cap=2961, d=300) == (1, 256)
+    assert autotune.select_blocks("grad_clients", n=1, cap=1480, d=300) == (1, 1480)
+    assert autotune.select_blocks("grad_clients", n=1, cap=1481, d=300) == (1, 256)
+    assert autotune.grad_geometry(4096, 300, 1, 256) == (16, 32)
+    assert autotune.grad_geometry(1024, 1500, 1, 256) == (16, 16)  # halved to fit
+    assert autotune.grad_geometry(192, 300, 1, 64) == autotune.grad_geometry(192, 300, 1,
+                                                                             single=True)
     big = autotune.select_blocks("score", n=50, cap=8192, d=300)
     assert big[1] < 8192  # the resident h tile no longer fits: tiled
     # the single-client resident route is the cluster kernel's: at d=300 it
@@ -410,6 +426,14 @@ def test_autotune_is_deterministic_and_fits():
 
 def test_validate_blocks_rejects_what_the_kernels_cannot_take():
     assert autotune.validate_blocks("grad", block_n=1, block_cap=64, cap=192, d=300) == (1, 64)
+    # the gradient: any positive tile at any cap (ragged included); the
+    # resident route past its shared memory is refused
+    assert autotune.validate_blocks("grad_clients", block_n=1, block_cap=7, cap=4096,
+                                    d=1500) == (1, 7)
+    with pytest.raises(ValueError, match="shared memory"):
+        autotune.validate_blocks("grad", block_n=1, block_cap=2961, cap=2961, d=300)
+    with pytest.raises(ValueError, match="positive"):
+        autotune.validate_blocks("grad", block_n=1, block_cap=0, cap=192, d=300)
     with pytest.raises(ValueError, match="block_n"):
         autotune.validate_blocks("score", block_n=3, block_cap=64, cap=192, d=300)
     with pytest.raises(ValueError, match="shared memory"):
@@ -494,6 +518,91 @@ def test_single_client_cluster_geometry_spreads_one_client(n, cap, d):
     if (n, cap, d) == (50, 192, 300):
         assert (cs, bn, bc) == (16, 4, 192)
         assert cs * -(-n // bn) == 208
+
+
+# (kind, n, cap, d, block_cap): the main path's and the per-client
+# engine's routes (resident, pinned tile 64), the tuned tiled route at cap
+# 1000 and 4096, d=1500, ragged caps and tiles, the small engines' width.
+GRAD_LAYOUTS = [("grad_clients", 1, 192, 300, None), ("grad", 1, 192, 300, None),
+                ("grad", 1, 192, 300, 64), ("grad_clients", 1, 192, 300, 64),
+                ("grad", 1, 1000, 300, 256), ("grad", 1, 4096, 300, 256),
+                ("grad_clients", 1, 1000, 300, 256), ("grad", 1, 1024, 1500, 256),
+                ("grad_clients", 7, 45, 1029, 8), ("grad", 1, 16, 8, 8),
+                ("grad", 1, 2960, 300, None), ("grad_clients", 3, 300, 20, 7)]
+
+
+@pytest.mark.parametrize("kind,n,cap,d,block_cap", GRAD_LAYOUTS)
+def test_grad_layout_covers_every_row_and_column_once(kind, n, cap, d, block_cap):
+    """The gradient kernel's chunked split (``autotune.grad_layout``, as
+    csrc/gp_grad.cu computes it): over a cluster every trajectory row is
+    summed exactly once, each block's in ascending order, in chunks of at
+    most block_cap (and GRAD_CHUNK) rows on the tiled route and in one chunk
+    on the resident route; every output column is written by exactly one
+    block; the tiled route's clusters are the single-client ones whatever
+    the kind; shared memory fits the budget."""
+    bn, _ = autotune.select_blocks(kind, n=n, cap=cap, d=d)
+    single = kind == "grad"
+    blocks = autotune.grad_layout(cap, d, bn, block_cap, single)
+    cs, jc = autotune.grad_geometry(cap, d, bn, block_cap, single)
+    assert len(blocks) == cs <= min(cap, autotune.SINGLE_CLUSTER)
+    rows = [t for blk in blocks for ch in blk["chunks"] for t in ch]
+    assert rows == list(range(cap))
+    assert [c for blk in blocks for c in blk["columns"]] == list(range(d))
+    chunks = [len(ch) for blk in blocks for ch in blk["chunks"]]
+    assert min(chunks) >= 1 and max(chunks) <= jc
+    if block_cap is None:
+        assert all(len(blk["chunks"]) == 1 for blk in blocks)
+        assert cs == autotune.cluster_geometry(cap, single)[0]
+    else:
+        assert jc <= min(block_cap, autotune.GRAD_CHUNK)
+        assert cs == autotune.cluster_geometry(cap, single=True)[0]
+    bc = cap if block_cap is None else block_cap
+    assert autotune.smem_bytes(kind, block_n=bn, block_cap=bc, cap=cap, d=d) <= \
+        autotune.SMEM_BYTES
+
+
+@pytest.mark.parametrize("d", [300, 1500])
+def test_grad_routes_fit_shared_memory(d):
+    """For both gradient kinds at caps 192 to 4096 (one query point per
+    client, as the engines take it) the tuner's blocks fit a block's shared
+    memory, and so does every cap tile the tuner tries (the chunks halve
+    until two buffers fit)."""
+    for kind in ("grad", "grad_clients"):
+        for cap in (192, 256, 545, 1000, 1024, 1481, 2048, 2961, 4096):
+            bn, bc = autotune.select_blocks(kind, n=1, cap=cap, d=d)
+            assert autotune.smem_bytes(kind, block_n=bn, block_cap=bc, cap=cap, d=d) <= \
+                autotune.SMEM_BYTES
+            for tile in autotune.BLOCK_CAP:
+                if tile < cap:
+                    assert autotune.smem_bytes(kind, block_n=bn, block_cap=tile, cap=cap,
+                                               d=d) <= autotune.SMEM_BYTES
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["clients", "single"])
+def test_tiled_grad_takes_the_ragged_cap_unpadded(monkeypatch, single):
+    """``kernels.ops`` hands the tiled gradient the trajectory as it is (cap
+    20 with tiles of 12: no zero-padding to a tile multiple), and the plain
+    version it runs on the CPU masks the ragged last tile."""
+    cands, xs, _, _, alpha = _inputs(3, 6, 3, 20, seed=4)
+    seen = []
+    name = "grad_mean_single_tiled" if single else "grad_mean_tiled"
+    real = getattr(gp_grad, name)
+
+    def spy(c, x, a, **kw):
+        seen.append((tuple(x.shape), tuple(a.shape)))
+        return real(c, x, a, **kw)
+
+    monkeypatch.setattr(gp_grad, name, spy)
+    if single:
+        got = ops.grad_mean_batch(T(cands[1]), T(xs[1]), T(alpha[1]), lengthscale=LS,
+                                  block_cap=12)
+        want = rref.grad_mean_batch(cands[1], xs[1], alpha[1], LS)
+        assert seen == [((20, 3), (20,))]
+    else:
+        got = ops.grad_mean_clients(T(cands), T(xs), T(alpha), lengthscale=LS, block_cap=12)
+        want = rref.grad_mean_clients(cands, xs, alpha, LS)
+        assert seen == [((3, 20, 3), (3, 20))]
+    _close(got, want)
 
 
 # (n, cap, block_n, block_cap): the per-client engine's pinned tile, the
@@ -790,3 +899,62 @@ def test_cuda_scores_match_plain_and_repeat(nb, n, cap, d, tile):
                                                 LS, prior))
         assert torch.equal(s1, ops.uncertainty_scores(*(a[0] for a in args), **kw))
         assert _all_launches()["score_single_resident"] == before["score_single_resident"] + 2
+
+
+# (N, n, cap, d, cap tile): the sizes of the smoke's tiled-gradient accuracy
+# check (chip_smoke.TILED_GRAD_ACCURACY), and the single-client resident
+# route's largest cap at d=300 (2960: clusters of 16 blocks of 185 rows).
+CUDA_GRADS = [(1, 1, 1000, 300, 256), (1, 1, 4096, 300, 256), (5, 1, 1000, 300, 256),
+              (1, 1, 1024, 1500, 256), (2, 7, 45, 1029, 8), (5, 1, 192, 300, 64),
+              (1, 1, 16, 8, 8), (1, 1, 2960, 300, 256)]
+
+
+@pytest.mark.parametrize("nb,n,cap,d,tile", CUDA_GRADS)
+def test_cuda_grad_means_match_plain_and_repeat(nb, n, cap, d, tile):
+    """The gradient kernel's routes on the card, at query points that are
+    the last rows of each client's trajectory.  The cap-tiled route (B4
+    client-batched, B8b one client) against float64 (the tiled plain
+    version on float64 copies of the inputs): its max error is no more than
+    the f32 plain version's; the single-client entry on client b gives row
+    b of the client-batched entry bit for bit; a second launch gives the
+    same bits.  The resident routes (B3 client-batched, B8a one client)
+    against their plain versions (ATOL) and bitwise the same on a second
+    launch; B8a, whose clusters are the tiled route's, gives B8b's bits
+    (the chunking changes no sum's order).  Launch counts exact."""
+    dev = _cuda()
+    _, xs, _, _, alpha = _inputs(nb, n, d, cap, seed=cap + n + d)
+    q = np.ascontiguousarray(xs[:, -n:])
+    c = lambda a: T(a).to(dev)
+    before = _all_launches()
+    args = (c(q), c(xs), c(alpha))
+    got = ops.grad_mean_clients(*args, lengthscale=LS, block_cap=tile)
+    assert torch.equal(got, ops.grad_mean_clients(*args, lengthscale=LS, block_cap=tile))
+    ones = []
+    for b in range(nb):
+        one = ops.grad_mean_batch(*(a[b] for a in args), lengthscale=LS, block_cap=tile)
+        assert torch.equal(one, got[b])
+        ones.append(one)
+    assert torch.equal(ones[0], ops.grad_mean_batch(*(a[0] for a in args), lengthscale=LS,
+                                                    block_cap=tile))
+    f64 = lambda a: T(a).double()
+    truth = gp_grad.grad_mean_tiled_plain(f64(q), f64(xs), f64(alpha), LS, tile)
+    plain = gp_grad.grad_mean_tiled_plain(T(q), T(xs), T(alpha), LS, tile)
+    assert torch.isfinite(got).all() and got.shape == (nb, n, d)
+    assert (got.cpu().double() - truth).abs().max() <= (plain.double() - truth).abs().max()
+    after = _all_launches()
+    assert after["grad_tiled"] == before["grad_tiled"] + 2
+    assert after["grad_single_tiled"] == before["grad_single_tiled"] + nb + 1
+    for kind, entry in (("grad_clients", "grad_resident"), ("grad", "grad_single_resident")):
+        if autotune.select_blocks(kind, n=n, cap=cap, d=d)[1] < cap:
+            continue  # the tuner takes the tiled route at this shape
+        before = _all_launches()
+        if kind == "grad":
+            res = ops.grad_mean_batch(*(a[0] for a in args), lengthscale=LS)
+            _close(res.cpu(), ref.grad_mean_batch(T(q[0]), T(xs[0]), T(alpha[0]), LS))
+            assert torch.equal(res, ops.grad_mean_batch(*(a[0] for a in args), lengthscale=LS))
+            assert torch.equal(res, ones[0])
+        else:
+            res = ops.grad_mean_clients(*args, lengthscale=LS)
+            _close(res.cpu(), ref.grad_mean_clients(T(q), T(xs), T(alpha), LS))
+            assert torch.equal(res, ops.grad_mean_clients(*args, lengthscale=LS))
+        assert _all_launches()[entry] == before[entry] + 2
