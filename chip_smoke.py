@@ -16,15 +16,18 @@ Phases, each a hard check (any failure exits non-zero):
    engine's (one client, the same n, cap and d), the RFF gradient (B5),
    the RFF features (B6) and the SE Gram (B9) at the main path's shapes
    (see ``rff_and_gram_specs``; B9 at an append event of 5 rows and of 1
-   row); the cluster kernels of B1 and B3, the single-client scoring (B7a)
-   and the cap-tiled scoring (B2, B7b), every gradient route (B3, B4,
-   B8a, B8b), B5 and B9's append events launched twice for the same bits
-   (``REPEATED``), B1 and B3 beside the cuBLAS products inside them
-   (``cluster_yardsticks``); the cap-tiled scoring and the cap-tiled
-   gradient against float64 at large and ragged sizes, each no less
-   accurate than its plain version, with its device time against its bound
-   at cap 1000 and more (``check_tiled_accuracy``,
-   ``check_tiled_grad_accuracy``);
+   row, and at factor_init's init Gram); the cluster kernels of B1 and B3,
+   the single-client scoring (B7a) and the cap-tiled scoring (B2, B7b),
+   every gradient route (B3, B4, B8a, B8b), B5, B6 and B9 launched twice
+   for the same bits (``REPEATED``), B1 and B3 beside the cuBLAS products
+   inside them (``cluster_yardsticks``); the cap-tiled scoring and the
+   cap-tiled gradient against float64 at large and ragged sizes, each no
+   less accurate than its plain version, with its device time against its
+   bound at cap 1000 and more (``check_tiled_accuracy``,
+   ``check_tiled_grad_accuracy``); the projection's tile kernel (B6 and
+   the init Gram) against float64 at the main path's, large, ragged and
+   small sizes, no less accurate than its plain version, with its device
+   time against its bound (``check_projection_accuracy``);
 4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
    width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
    settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
@@ -70,7 +73,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
-#: the tensor cores (the kernels run f32 FMAs, not tensor-core products).
+#: the tensor cores, which is also the f64 tensor cores' rate (the
+#: projection's tile kernel; the other kernels run f32 and f64 FMAs).
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
 
@@ -80,10 +84,11 @@ ROUNDS, OTHER_ROUNDS = 5, 2
 #: Kernels phase 3 launches a second time to show the same bits (the
 #: cluster kernels, the cap-tiled scoring and every gradient route reduce
 #: across blocks in a fixed order, with no atomics; so do the RFF
-#: gradient's and the SE Gram's rows kernel).
-REPEATED = ("score_resident", "grad_resident", "rff_grad", "sqexp", "sqexp[1 row]",
-            "score_tiled", "score_single_resident", "score_single_tiled", "grad_tiled",
-            "grad_single_resident", "grad_single_tiled")
+#: gradient's kernel, the SE Gram's rows kernel and the projection's tile
+#: kernel).
+REPEATED = ("score_resident", "grad_resident", "rff_grad", "rff_features", "sqexp",
+            "sqexp[1 row]", "sqexp[init Gram]", "score_tiled", "score_single_resident",
+            "score_single_tiled", "grad_tiled", "grad_single_resident", "grad_single_tiled")
 #: Sizes of the cap-tiled scoring's accuracy check (clients, candidates,
 #: cap, d, cap tile): one client and five at cap 1000, one at 4096, d=1500,
 #: and ragged ones (cap and n not multiples of the tiles), the main path's
@@ -97,6 +102,14 @@ TILED_ACCURACY = ((1, 50, 1000, 300, 256), (1, 50, 4096, 300, 256), (5, 50, 1000
 TILED_GRAD_ACCURACY = ((1, 1, 1000, 300, 256), (1, 1, 4096, 300, 256), (5, 1, 1000, 300, 256),
                        (1, 1, 1024, 1500, 256), (2, 7, 45, 1029, 8), (5, 1, 192, 300, 64),
                        (1, 1, 16, 8, 8))
+#: Sizes of the projection tile kernel's accuracy check: B6 (rows, M, d)
+#: at the main path's 960 rows, at 4096, ragged in all three and at the
+#: small engines' width; the SE Gram (clients, rows, cols, d) at
+#: factor_init's (5, 192, 192), one client at 1000 and ragged at d=1029.
+PROJ_ACCURACY = (("rff_features", 1, 960, 512, 300), ("rff_features", 1, 4096, 512, 300),
+                 ("rff_features", 1, 961, 500, 301), ("rff_features", 1, 48, 32, 8),
+                 ("sqexp", 5, 192, 192, 300), ("sqexp", 1, 1000, 1000, 300),
+                 ("sqexp", 2, 45, 45, 1029))
 PER_CLIENT_ROUNDS, FD_ROUNDS = 3, 2
 TILE = 64  # the cap tile pinned for the other route
 
@@ -373,6 +386,80 @@ def check_tiled_grad_accuracy(dev) -> None:
                   f"({'bytes' if bound_b >= bound_f else 'operations'})", flush=True)
 
 
+def projection_ops() -> dict:
+    """{op: (its ``kernels.ops`` call, its plain version)} for the
+    ``PROJ_ACCURACY`` ops, at l=0.5 for the SE Gram."""
+    from repro_torch.kernels import ops, ref
+
+    return {"rff_features": (ops.rff_features, ref.rff_features),
+            "sqexp": (lambda x1, x2: ops.sqexp(x1, x2, 0.5),
+                      lambda x1, x2: ref.sqexp(x1, x2, 0.5))}
+
+
+def projection_inputs(dev, op, nb, rows, cols, d):
+    """Inputs of one ``PROJ_ACCURACY`` size: for B6 points in [0, 1]^d
+    (rows, d), the bank v ~ N(0, I/l^2) (M, d) at l=0.5 and b in [0, 2 pi)
+    (M,); for the SE Gram ``path_inputs``' ring of that shape (points a few
+    1e-2 apart near 0.5, where the expanded distance cancels) against
+    itself when rows == cols, else its first rows."""
+    if op == "sqexp":
+        xs = path_inputs(dev, nb, 1, max(rows, cols), d)["xs"]
+        return xs[:, :rows].contiguous(), xs[:, :cols].contiguous()
+    g = torch.Generator(device=dev).manual_seed(rows + cols + d)
+    x = torch.rand(rows, d, generator=g, device=dev)
+    v = torch.randn(cols, d, generator=g, device=dev) / 0.5
+    b = 2 * torch.pi * torch.rand(cols, generator=g, device=dev)
+    return x, v, b
+
+
+def projection_work(op, nb, rows, cols, d) -> tuple[int, int]:
+    """Bytes (each input read once, the output written once) and operations
+    of one call of B6 (rows x cols outputs, cols = M) or of the SE Gram (nb
+    problems of rows x cols)."""
+    if op == "sqexp":
+        return 4 * nb * ((rows + cols) * d + rows * cols), nb * (2 * rows * cols * d
+                                                                  + 2 * (rows + cols) * d)
+    return 4 * (rows * d + cols * d + cols + rows * cols), 2 * rows * cols * d
+
+
+def check_projection_accuracy(dev) -> None:
+    """Phase 3, the projection's tile kernel (B6 ``rff_features``, B9's
+    init Gram ``sqexp``) through ``kernels.ops`` at each size of
+    ``PROJ_ACCURACY``: against the plain version on float64 copies of the
+    same inputs (the truth), the kernel's max error must be no more than
+    the plain version's on the card (f32), and a second launch must give
+    the same bits.  Prints each side's max and mean error, the elements
+    where the kernel is further off, and the kernel's device time against
+    its bound."""
+    for op, nb, rows, cols, d in PROJ_ACCURACY:
+        args = projection_inputs(dev, op, nb, rows, cols, d)
+        kernel_fn, plain_fn = projection_ops()[op]
+        kernel = lambda: kernel_fn(*args)
+        got = kernel()
+        plain = plain_fn(*args)
+        truth = plain_fn(*(a.double() for a in args))
+        k_err, p_err = (got.double() - truth).abs(), (plain.double() - truth).abs()
+        same = torch.equal(got, kernel())
+        ok = (bool(torch.isfinite(got).all()) and got.shape == truth.shape and same
+              and k_err.max().item() <= p_err.max().item())
+        size = (f"N={nb} rows={rows} cols={cols} d={d}" if op == "sqexp"
+                else f"rows={rows} M={cols} d={d}")
+        nbytes, flops = projection_work(op, nb, rows, cols, d)
+        bound_b, bound_f = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+        print(f"[projection accuracy] {op} {size}: max|out-f64| kernel {k_err.max().item():.4e} "
+              f"(mean {k_err.mean().item():.4e}), plain {p_err.max().item():.4e} (mean "
+              f"{p_err.mean().item():.4e}), largest |out| {truth.abs().max().item():.6g}; kernel "
+              f"further off in {int((k_err > p_err).sum())} of {k_err.numel()} elements; second "
+              f"launch bitwise the same: {same}; {'ok' if ok else 'LESS ACCURATE OR NOT REPEATED'}",
+              flush=True)
+        if not ok:
+            fail(f"the projection's tile kernel ({op}, {size}) is less accurate than its plain "
+                 "version or gave other bits on a second launch")
+        print(f"[projection accuracy] {op} {size}: device time {device_ms(kernel):.6f} ms per call "
+              f"(profiler), bound {max(bound_b, bound_f):.6f} ms "
+              f"({'bytes' if bound_b >= bound_f else 'operations'})", flush=True)
+
+
 def cluster_yardsticks(p, score_args, grad_args) -> None:
     """The cuBLAS products inside B1 and B3 at the main path's shapes,
     timed by CUDA events as a yardstick for the cluster kernels (the port
@@ -417,42 +504,42 @@ def rff_and_gram_specs(dev, p):
     at the N iterates with per-row w (n=5, M=512, d=300), the features of
     the whole ring (5 x 192 rows) and the SE Gram of an append event (5 new
     rows against the (5, 192, 300) ring) and of the iterate's append event
-    (1 row) at l=0.5; the Gram is also held at factor_init's (5, 192, 192)
-    init Gram, which is not timed.  Also times the cuBLAS product inside
-    each (the yardstick for a later redesign; no single library call
-    computes these functions)."""
+    (1 row) at l=0.5, and factor_init's (5, 192, 192) init Gram of the
+    ring.  Also times the cuBLAS product inside each (the yardstick for a
+    later redesign; no single library call computes these functions)."""
     from repro_torch.kernels import ref, rff_features, rff_grad, sqexp
 
     x_it, v, b, ws, xs, rows, k_new, k_one = rff_and_gram_inputs(dev, p)
     ls = p["ls"]
     n, nr, k = N_CLIENTS, N_CLIENTS * CAP, 5
     grad_bytes = 4 * (2 * n * D + M * D + M + n * M)
-    feat_bytes = 4 * (nr * D + M * D + M + nr * M)
-    gram_bytes = lambda a, c: 4 * n * (a * D + c * D + a * c)
-    gram_flops = lambda a, c: n * (2 * a * c * D + 2 * (a + c) * D)
+    gram = lambda a, c: projection_work("sqexp", n, a, c, D)
     for name, fn in (
         ("rff_grad", lambda: torch.addmm(b, x_it, v.T)),
         ("rff_features", lambda: torch.addmm(b, rows, v.T)),
         ("sqexp", lambda: torch.bmm(k_new, xs.transpose(1, 2))),
+        ("sqexp[init Gram]", lambda: torch.bmm(xs, xs.transpose(1, 2))),
     ):
-        print(f"[kernel] {name}: its cuBLAS product alone ({'bmm' if name == 'sqexp' else 'addmm'}"
-              f" at the same shapes) {cuda_ms(fn):.6f} ms", flush=True)
+        what = "addmm" if name.startswith("rff") else "bmm"
+        print(f"[kernel] {name}: its cuBLAS product alone ({what} at the same shapes) "
+              f"{cuda_ms(fn):.6f} ms", flush=True)
     return [
         ("rff_grad", "rff_grad.cu", "src/repro/kernels/rff_grad.py:52",
          lambda: rff_grad.rff_grad_rows(x_it, v, b, ws),
          lambda a: ref.rff_grad_rows(*a), (x_it, v, b, ws), grad_bytes, 4 * n * M * D),
         ("rff_features", "rff_features.cu", "src/repro/kernels/rff_features.py:38",
          lambda: rff_features.rff_features(rows, v, b),
-         lambda a: ref.rff_features(*a), (rows, v, b), feat_bytes, 2 * nr * M * D),
+         lambda a: ref.rff_features(*a), (rows, v, b),
+         *projection_work("rff_features", 1, nr, M, D)),
         ("sqexp", "sqexp.cu", "src/repro/kernels/sqexp.py:33",
          lambda: sqexp.sqexp_clients(k_new, xs, lengthscale=ls),
-         lambda a: ref.sqexp(*a, ls), (k_new, xs), gram_bytes(k, CAP), gram_flops(k, CAP)),
+         lambda a: ref.sqexp(*a, ls), (k_new, xs), *gram(k, CAP)),
         ("sqexp[1 row]", "sqexp.cu", "src/repro/kernels/sqexp.py:33",
          lambda: sqexp.sqexp_clients(k_one, xs, lengthscale=ls),
-         lambda a: ref.sqexp(*a, ls), (k_one, xs), gram_bytes(1, CAP), gram_flops(1, CAP)),
-        ("sqexp[init Gram]", "sqexp.cu", "",
+         lambda a: ref.sqexp(*a, ls), (k_one, xs), *gram(1, CAP)),
+        ("sqexp[init Gram]", "sqexp.cu", "src/repro/kernels/sqexp.py:33",
          lambda: sqexp.sqexp_clients(xs, xs, lengthscale=ls),
-         lambda a: ref.sqexp(*a, ls), (xs, xs), 0, 0),
+         lambda a: ref.sqexp(*a, ls), (xs, xs), *gram(CAP, CAP)),
     ]
 
 
@@ -806,12 +893,14 @@ def main() -> int:
     rows = check_kernels(dev)
     check_tiled_accuracy(dev)
     check_tiled_grad_accuracy(dev)
+    check_projection_accuracy(dev)
 
     cfg = main_config()
     cobjs = obj.make_quadratic(0, N_CLIENTS, D, 5.0, 0.001, device=dev)
     run_path(cfg, cobjs, 1, dev)  # warm-up: library handles, allocator
     res, secs, main_counts = run_path(cfg, cobjs, ROUNDS, dev)
     one_row = sqexp.LAUNCHES_BY_ROWS.get(1, 0)  # the iterates' append events
+    init_gram = sqexp.LAUNCHES_BY_ROWS.get(CAP, 0)  # factor_init's
     print(f"[main] d={D} N={N_CLIENTS} M={M} cap={CAP} T={cfg.local_steps}: {ROUNDS} rounds in "
           f"{secs:.3f} s, {1e3 * secs / ROUNDS:.3f} ms/round; launches {main_counts} "
           f"({one_row} of the sqexp launches with 1 row)", flush=True)
@@ -823,6 +912,8 @@ def main() -> int:
         fail(f"main path launches {main_counts}, expected {want}")
     if one_row != steps:  # one per local step: the iterate's append event
         fail(f"main path: {one_row} SE Gram launches with 1 row, expected {steps}")
+    if init_gram != 1:  # factor_init's, once per run
+        fail(f"main path: {init_gram} SE Gram launches with {CAP} rows, expected 1")
     check_small_against_cpu(dev)
     check_engine_inputs(dev, "small engine inputs")
     check_engine_inputs(dev, "small engine inputs, cap tiles of 8", score_block_cap=8)
@@ -844,6 +935,7 @@ def main() -> int:
     check_fd_baselines(dev)
 
     main_counts["sqexp[1 row]"] = one_row
+    main_counts["sqexp[init Gram]"] = init_gram
     for row in rows:  # each kernel's launches, from the run of the route it serves
         name = row["name"]
         row["launches"] = (main_counts[name] or other_counts.get(name, 0)

@@ -8,16 +8,16 @@ active-query picks they lead to, and in device time, on one card.
 parent commit unpacked under ``build/``).  Its kernel library is built by
 its own ``kernels/loader.py`` and its block choices come from its own
 ``kernels/autotune.py`` (both loaded from their files, so the two trees'
-modules do not mix); its ``fz_rff_grad``, ``fz_sqexp``, scoring and
-gradient-mean entries are called through ctypes as its wrappers call them
-(padding, geometry, scratch or work buffers as its signatures take them).
-This tree's kernels run through ``kernels.ops``.  The same inputs go to
-both:
+modules do not mix); its ``fz_rff_grad``, ``fz_rff_features``,
+``fz_sqexp``, scoring and gradient-mean entries are called through ctypes
+as its wrappers call them (padding, geometry, scratch or work buffers as
+its signatures take them).  This tree's kernels run through
+``kernels.ops``.  The same inputs go to both:
 
 * the main path's shapes (``chip_smoke.rff_and_gram_inputs``,
   ``chip_smoke.path_inputs``): B5 with per-row w and with one w, B9's
-  append events of 5 rows and of 1 row, factor_init's init Gram, the
-  client-batched resident scoring (B1) and gradient mean (B3);
+  append events of 5 rows and of 1 row, the client-batched resident
+  scoring (B1) and gradient mean (B3);
 * every B5, B9, B1 and B3 call of one main-path round (d=300, N=5, M=512,
   cap=192), and of the small deferred and per-client engines of
   ``chip_smoke.check_engine_inputs`` (d=8, N=3, cap=16, 3 rounds; also
@@ -26,6 +26,12 @@ both:
 
 For each group it prints the calls, the calls whose outputs differ in any
 bit, the most differing elements of one call and the largest |difference|.
+The projection's tile kernel may differ by design: B6 and the SE Gram's
+tile route (factor_init's init Gram) at each size of
+``chip_smoke.PROJ_ACCURACY``, and every B6 call and every SE Gram call of
+more than 16 rows of the engines above, are compared element for element
+and each side held against float64 (the plain version on float64 copies
+of the inputs); this tree must be no further off than the other.
 The single-client scoring (B7a, and B7b on the per-client engine with cap
 tiles of 8) may differ by design: for each of its calls on the small
 per-client engines it compares the active-query picks (the top 2 by a
@@ -37,7 +43,8 @@ difference is printed.  Then the profiler's device time per call of B5,
 the two append events, B1, B7a, B7b and B2 with cap tiles of 64, B3, B8a,
 and B8b and B4 with cap tiles of 64, the other tree's and this tree's in
 turns (other, this, this, other), with the card's name and power limit.
-Exits 1 if any output of B5, B9, B1 or B3 differs.
+Exits 1 if any output of B5, B9's rows route, B1 or B3 differs, or if
+this tree's tile kernel is further from float64 than the other's.
 """
 
 from __future__ import annotations
@@ -57,10 +64,10 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 NAMES = ("rff_grad_rows", "sqexp", "uncertainty_scores_clients", "grad_mean_clients",
-         "uncertainty_scores", "grad_mean_batch")
+         "uncertainty_scores", "grad_mean_batch", "rff_features")
 #: The ops whose every output must keep the other tree's bits.
 BITWISE = NAMES[:4]
 #: Active queries the small engines pick per call (active_per_iter, active_round_end).
@@ -78,9 +85,9 @@ def other_tree(root: Path):
     """The other tree's kernel library and its entries, as its wrappers
     call them: (rff_grad_rows(x, v, b, ws), rff_grad(x, v, b, w),
     sqexp(x1, x2, lengthscale), scores(cands, xs, binv, pmat, lengthscale=,
-    prior=, block_n=, block_cap=) and grads(cands, xs, alpha, lengthscale=,
+    prior=, block_n=, block_cap=), grads(cands, xs, alpha, lengthscale=,
     block_n=, block_cap=) for one client's (n, d) or client-batched (N, n,
-    d) candidates)."""
+    d) candidates, and rff_features(x, v, b) for rows (..., n, d))."""
     kernels = root / "src" / "repro_torch" / "kernels"
     loader = _module(kernels / "loader.py", "other_tree_loader")
     tune = _module(kernels / "autotune.py", "other_tree_autotune")
@@ -178,8 +185,18 @@ def other_tree(root: Path):
         loader.check(err, "other tree's " + name)
         return out[0, :n] if single else out[:, :n]
 
+    def features(x, v, b):
+        lead, d = x.shape[:-1], x.shape[-1]
+        x, v, b = x.reshape(-1, d).contiguous(), v.contiguous(), b.contiguous()
+        n, m = x.shape[0], v.shape[0]
+        out = torch.empty((n, m), device=x.device)
+        err = lib.fz_rff_features(x.data_ptr(), v.data_ptr(), b.data_ptr(), out.data_ptr(), n, m,
+                                  d, math.sqrt(2.0 / m), torch.cuda.current_stream().cuda_stream)
+        loader.check(err, "other tree's rff_features")
+        return out.reshape(*lead, m)
+
     return (lambda x, v, b, ws: grad(x, v, b, ws, v.shape[0]),
-            lambda x, v, b, w: grad(x, v, b, w, 0), sqexp, scores, grads)
+            lambda x, v, b, w: grad(x, v, b, w, 0), sqexp, scores, grads, features)
 
 
 def differ(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
@@ -200,6 +217,32 @@ def compare(label: str, pairs) -> bool:
     print(f"[bits] {label}: {len(pairs)} calls, {bad} with differing bits (most {most} of "
           f"{size} elements), max|this - other| = {big:.3e}", flush=True)
     return bad == 0
+
+
+def against_f64(label: str, pairs, truths) -> bool:
+    """pairs: [(this tree's output, the other tree's)] with their float64
+    truths; prints the differing elements, the largest |difference| and each
+    side's max |out - f64|; True where this tree is no further off."""
+    n = sum(differ(a, b)[0] for a, b in pairs)
+    size = sum(a.numel() for a, _ in pairs)
+    big = max(differ(a, b)[1] for a, b in pairs)
+    this = max((a.double() - t).abs().max().item() for (a, _), t in zip(pairs, truths))
+    other = max((b.double() - t).abs().max().item() for (_, b), t in zip(pairs, truths))
+    ok = this <= other
+    print(f"[bits] {label}: {len(pairs)} calls, {n} of {size} elements differ, max|this - other| = "
+          f"{big:.3e}; max|out-f64| this {this:.4e}, other {other:.4e}; "
+          f"{'ok' if ok else 'THIS TREE FURTHER OFF'}", flush=True)
+    return ok
+
+
+def f64_call(name: str, args):
+    """The plain version of a recorded B6 or SE Gram call on float64 copies
+    of its inputs."""
+    if name == "rff_features":
+        x, v, b = (t.double() for t in args)
+        return ref.rff_features(x.reshape(-1, x.shape[-1]), v, b).reshape(*x.shape[:-1],
+                                                                           v.shape[0])
+    return ref.sqexp(args[0].double(), args[1].double(), args[2])
 
 
 def engine_calls(dev):
@@ -238,8 +281,6 @@ def top(scores: torch.Tensor) -> list[int]:
 def compare_picks(label: str, calls, other_scores) -> None:
     """The single-client scoring's picks, this tree's against the other's,
     on each recorded call; prints every call whose picks differ."""
-    from repro_torch.kernels import ref
-
     differ_calls, big = 0, 0.0
     for k, (args, kwargs, out) in enumerate(calls):
         theirs = other_scores(*args, **kwargs)
@@ -267,7 +308,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    o_rows, o_one, o_sqexp, o_scores, o_grads = other_tree(args.parent.resolve())
+    o_rows, o_one, o_sqexp, o_scores, o_grads, o_features = other_tree(args.parent.resolve())
     p = chip_smoke.path_inputs(dev)
     x_it, v, b, ws, xs, _, k_new, k_one = chip_smoke.rff_and_gram_inputs(dev, p)
     ls = p["ls"]
@@ -287,14 +328,24 @@ def main() -> int:
          lambda: o_sqexp(k_new, xs, ls)),
         ("B9, append event of 1 row (5, 1, 192)", lambda: ops.sqexp(k_one, xs, ls),
          lambda: o_sqexp(k_one, xs, ls)),
-        ("B9, init Gram (5, 192, 192)", lambda: ops.sqexp(xs, xs, ls),
-         lambda: o_sqexp(xs, xs, ls)),
         ("B1, scores (5, 50) at cap=192, d=300", lambda: ops.uncertainty_scores_clients(
             *sargs, **skw), lambda: o_scores(*sargs, **skw)),
         ("B3, gradient means (5, 1, 300) at cap=192", lambda: ops.grad_mean_clients(
             *gargs, **gkw), lambda: o_grads(*gargs, **gkw)),
     ):
         same &= compare(label, [(this(), other())])
+    others = {"rff_features": o_features, "sqexp": lambda *a: o_sqexp(*a, 0.5)}
+    proj_times = []
+    for op, nb, rows, cols, d in chip_smoke.PROJ_ACCURACY:
+        pargs = chip_smoke.projection_inputs(dev, op, nb, rows, cols, d)
+        (this_fn, plain_fn), other_fn = chip_smoke.projection_ops()[op], others[op]
+        label = (f"B9 tile route, ({nb}, {rows}, {cols}) at d={d}" if op == "sqexp"
+                 else f"B6, {rows} rows, M={cols}, d={d}")
+        truth = plain_fn(*(a.double() for a in pargs))
+        same &= against_f64(f"{label} (may differ)", [(this_fn(*pargs), other_fn(*pargs))],
+                            [truth])
+        proj_times.append((label, lambda f=this_fn, a=pargs: f(*a),
+                           lambda f=other_fn, a=pargs: f(*a)))
     compare("B7a, one client's scores (50,) at cap=192, d=300 (may differ)",
             [(ops.uncertainty_scores(*one, **skw), o_scores(*one, **skw))])
     for label, kw in (("B8a", {}), (f"B8b, cap tiles of {tile},", dict(block_cap=tile))):
@@ -306,6 +357,15 @@ def main() -> int:
     other_ops = {"rff_grad_rows": o_rows, "sqexp": o_sqexp, "uncertainty_scores_clients": o_scores,
                  "grad_mean_clients": o_grads, "grad_mean_batch": o_grads}
     for label, calls in engine_calls(dev).items():
+        # the tile kernel's calls: B6, and SE Grams of more than 16 rows
+        tiled = [(a, kw, out) for a, kw, out in calls["sqexp"] if a[0].shape[-2] > 16]
+        calls["sqexp"] = [c for c in calls["sqexp"] if c[0][0].shape[-2] <= 16]
+        for name, recs, other_fn in (("rff_features", calls["rff_features"], o_features),
+                                     ("sqexp, tile route", tiled, o_sqexp)):
+            if recs:
+                same &= against_f64(f"{label}: {name} (may differ)",
+                                    [(out, other_fn(*a)) for a, _, out in recs],
+                                    [f64_call(name, a) for a, _, _ in recs])
         for name in BITWISE:
             recs = calls[name]
             if not recs:
@@ -320,7 +380,8 @@ def main() -> int:
         if calls["grad_mean_batch"]:
             compare(f"{label}: grad_mean_batch (may differ)",
                     [(out, o_grads(*a, **kw)) for a, kw, out in calls["grad_mean_batch"]])
-    print(f"[bits] every output of B5, B9, B1 and B3 bit-identical: {same}", flush=True)
+    print(f"[bits] every output of B5, B9's rows route, B1 and B3 bit-identical, and the tile "
+          f"kernel no further from float64: {same}", flush=True)
 
     for label, this, other in (
         ("B5 (5, 300), per-row w, M=512", lambda: ops.rff_grad_rows(x_it, v, b, ws),
@@ -349,6 +410,7 @@ def main() -> int:
         (f"B4 gradient means (5, 1, 300), cap tiles of {tile}",
          lambda: ops.grad_mean_clients(*gargs, **gkw, block_cap=tile),
          lambda: o_grads(*gargs, **gkw, block_cap=tile)),
+        *proj_times,
     ):
         t = [chip_smoke.device_ms(f, reps=200) for f in (other, this, this, other)]
         e = [chip_smoke.cuda_ms(f, reps=200) for f in (other, this, this, other)]

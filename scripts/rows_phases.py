@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time of the RFF gradient (B5) and of the SE Gram's append
-events (B9) goes.
+"""Where the time of the RFF gradient (B5), the RFF features (B6) and the
+SE Gram (B9: its append events and factor_init's init Gram) goes.
 
     python3 scripts/rows_phases.py [--csrc DIR]   # on a machine with one CUDA card
 
 Copies the kernel sources of ``DIR`` (default: the package's
 ``src/repro_torch/kernels/csrc``) into ``build/rows_phases/<hash>/``, adds
 a ``%globaltimer`` stamp taken by thread 0 of every block at each step
-boundary of the kernels that B5 and B9's rows route launch, builds the
-copies of ``rff_grad.cu`` and ``sqexp.cu`` into their own library, launches
-B5 (n=5 iterates, per-row w, M=512, d=300) and B9's append events (5 rows
-and 1 row against the (5, 192, 300) ring) at the main path's shapes
-(``chip_smoke.rff_and_gram_inputs``) and prints, per kernel: the blocks,
-the span of the launch, when the blocks started, and each step's mean and
-max duration over the blocks.  Each known kernel (the current ones and the
-two-kernel B5 and rows kernel they replaced, so ``--csrc`` may name an
-older tree's sources) is stamped where the sources hold it; a step
-boundary that is no longer where the stamps go raises.  It also prints the
+boundary of the kernels that B5, B6 and B9 launch, builds the copies of
+``rff_grad.cu``, ``rff_features.cu`` and ``sqexp.cu`` into their own
+library, launches B5 (n=5 iterates, per-row w, M=512, d=300), B9's append
+events (5 rows and 1 row against the (5, 192, 300) ring), B6 on the ring's
+960 rows (M=512) and factor_init's (5, 192, 192) init Gram at the main
+path's shapes (``chip_smoke.rff_and_gram_inputs``) and prints, per kernel:
+the blocks, the span of the launch, when the blocks started, and each
+step's mean and max duration over the blocks.  The projection's tile
+kernel (B6, the init Gram) repeats its steps once per d chunk, so there
+thread 0 adds up each step's ``clock64`` cycles over the chunks and the
+block's ``%globaltimer`` span is split in their proportion ("laps").
+Each known kernel (the current ones and the two-kernel B5, rows kernel and
+f32 tile kernel they replaced, so ``--csrc`` may name an older tree's
+sources) is stamped where the sources hold it; a step boundary that is no
+longer where the stamps go raises.  It also prints the
 device time (``torch.profiler``) and CUDA-event time of one empty kernel
 launch: the floor any kernel this small meets.  The stamps cost a few
 instructions per step; the kernels' own library is not touched.
@@ -50,6 +55,22 @@ MACRO = ('#ifndef FZ_STAMP\n'
          'const unsigned b_ = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; '
          'if (b_ == 0 && (k) == 0) buf[0] = (unsigned long long)gridDim.x * gridDim.y * gridDim.z; '
          f'buf[({SLOTS} + b_ * {SLOTS} + (k)) & 0xffff] = t_; }} }} while (0)\n'
+         '#endif\n'
+         '#ifndef FZ_LAPS_BEGIN\n'
+         '#define FZ_LAPS_BEGIN unsigned long long fz_g0_ = 0, fz_c0_ = 0, fz_cl_ = 0, '
+         'fz_acc_[8] = {0}; if (threadIdx.x == 0) { asm volatile('
+         '"mov.u64 %0, %%globaltimer;" : "=l"(fz_g0_)); fz_c0_ = clock64(); fz_cl_ = fz_c0_; }\n'
+         '#define FZ_LAP(k) do { if (threadIdx.x == 0) { const unsigned long long c_ = clock64(); '
+         'fz_acc_[k] += c_ - fz_cl_; fz_cl_ = c_; } } while (0)\n'
+         '#define FZ_LAPS_END(buf, n) do { if (threadIdx.x == 0) { unsigned long long g1_; '
+         'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1_)); '
+         'const double per_ = (double)(g1_ - fz_g0_) / (double)(clock64() - fz_c0_); '
+         'const unsigned b_ = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; '
+         'if (b_ == 0) buf[0] = (unsigned long long)gridDim.x * gridDim.y * gridDim.z; '
+         f'buf[({SLOTS} + b_ * {SLOTS}) & 0xffff] = fz_g0_; unsigned long long run_ = 0; '
+         'for (int k_ = 0; k_ < (n); ++k_) { run_ += fz_acc_[k_]; '
+         f'buf[({SLOTS} + b_ * {SLOTS} + k_ + 1) & 0xffff] = '
+         'fz_g0_ + (unsigned long long)(per_ * (double)run_); } } } while (0)\n'
          '#endif\n')
 BUFFER = "static __device__ unsigned long long g_st_{buf}[1 << 16];\n"
 READ = ('\nextern "C" int fz_stamps_{buf}(void* dst, int n) {{ return (int)cudaMemcpyFromSymbol('
@@ -62,9 +83,30 @@ EMPTY = ('#include <cuda_runtime.h>\n__global__ void fz_empty_kernel() {}\n'
 
 # file -> [(kernel signature anchor, a line only that version of it holds,
 #           buffer, where its definition goes,
-#           [(anchor, stamp index, stamp before the anchor?)], step names)]
+#           [(anchor, stamp index or a statement, stamp before the anchor?)], step names)]
 PLAN = {
     "proj.cuh": [
+        # the f32 tile kernel with compensated sums (B6, the init Gram), in laps
+        ("proj_kernel(const float* __restrict__ a, const float* __restrict__ bm,",
+         "  F2 acc[RM][RN], na[RM], nb[RN];", "tile", "#include <cuda_runtime.h>\n", [
+             ("  out += blockIdx.z * out_stride;\n", "FZ_LAPS_BEGIN", False),
+             ("    const int kn = min(KC, d - k0);\n", "FZ_LAP(0)", True),
+             ("    __syncthreads();  // the next chunk overwrites sa / sb\n", "FZ_LAP(1)", True),
+             ("    __syncthreads();  // the next chunk overwrites sa / sb\n", "FZ_LAP(2)", False),
+             ("epi(acc[r][c], row, col, na[r], nb[c]);\n    }\n  }\n",
+              "FZ_LAP(3); FZ_LAPS_END({buf}, 4)", False),
+         ], ["staging", "Dot2 loop", "barrier", "epilogue"]),
+        # the f64 tensor-core tile kernel (B6, the init Gram), in laps
+        ("proj_tile_kernel(const float* __restrict__ a, const float* __restrict__ bm,",
+         "  double part[RW], acc[MI][2][4];", "tile", "#include <cuda_runtime.h>\n", [
+             ("  const int nch = (d + kTileK - 1) / kTileK;\n", "FZ_LAPS_BEGIN", False),
+             ("    if (s + 1 < nch) issue(s + 1);\n", "FZ_LAP(0)", True),
+             ("    if (s + 1 < nch) issue(s + 1);\n", "FZ_LAP(1)", False),
+             ("          if (kNorms) part[i] = fma(x, x, part[i]);\n        }\n      }\n    }\n",
+              "FZ_LAP(2)", False),
+             ("if (c + 1 < nc) o[1] = res[mi][ni][2 * h + 1];\n        }\n      }\n",
+              "FZ_LAP(3); FZ_LAPS_END({buf}, 4)", False),
+         ], ["wait, barrier", "issue copies", "convert, multiply", "norms, epilogue"]),
         # the earlier rows kernel: B5's sine stage and B9's append events
         ("proj_rows_kernel(const float* __restrict__ a,", "    sa[e] = e < rows * d ? a[e] : 0.f;",
          "rows", "#include <cuda_runtime.h>\n", [
@@ -119,6 +161,9 @@ PLAN = {
 }
 
 
+#: The sources whose kernels are stamped, each with its own copy of the
+#: headers' buffers.
+SOURCES = ("rff_grad.cu", "rff_features.cu", "sqexp.cu")
 STEPS: dict[str, list[str]] = {}  # a buffer's step names, as the stamped sources hold them
 
 
@@ -133,7 +178,8 @@ def stamped(name: str, text: str) -> tuple[str, list[str]]:
         for anchor, k, before in stamps:
             if anchor not in body:
                 raise RuntimeError(f"{name}: step boundary {anchor!r} of {buf} not found")
-            mark = f"  FZ_STAMP(g_st_{buf}, {k});\n"
+            mark = (f"  FZ_STAMP(g_st_{buf}, {k});\n" if isinstance(k, int)
+                    else f"  {k.format(buf=f'g_st_{buf}')};\n")
             body = body.replace(anchor, mark + anchor if before else anchor + mark, 1)
         text = text[:k0] + body
         text = text.replace(home, home + MACRO + BUFFER.format(buf=buf), 1)
@@ -143,10 +189,10 @@ def stamped(name: str, text: str) -> tuple[str, list[str]]:
 
 
 def build(csrc: Path):
-    """Stamped copies of csrc's headers, rff_grad.cu and sqexp.cu, plus the
-    empty kernel, as one library; returns (library, buffers by source, the
-    B5 entry's form)."""
-    files = sorted(csrc.glob("*.cuh")) + [csrc / "rff_grad.cu", csrc / "sqexp.cu"]
+    """Stamped copies of csrc's headers and of SOURCES, plus the empty
+    kernel, as one library; returns (library, buffers by source, the B5
+    entry's form)."""
+    files = sorted(csrc.glob("*.cuh")) + [csrc / name for name in SOURCES]
     digest = hashlib.sha256(b"".join(f.read_bytes() for f in files)
                             + Path(__file__).read_bytes()).hexdigest()[:12]
     out = OUT / digest
@@ -158,7 +204,7 @@ def build(csrc: Path):
             header_bufs += bufs
             (out / f.name).write_text(text)
     bufs, procs, objs = {}, [], []
-    for name in ("rff_grad.cu", "sqexp.cu", "empty.cu"):
+    for name in (*SOURCES, "empty.cu"):
         if name == "empty.cu":
             text, own = EMPTY, []
         else:
@@ -216,7 +262,7 @@ def main() -> int:
     lib, bufs, scratch = build(args.csrc.resolve())
     dev = torch.device("cuda")
     p = chip_smoke.path_inputs(dev)
-    x_it, v, b, ws, xs, _, k_new, k_one = chip_smoke.rff_and_gram_inputs(dev, p)
+    x_it, v, b, ws, xs, rows_all, k_new, k_one = chip_smoke.rff_and_gram_inputs(dev, p)
     n, d, m = x_it.shape[0], chip_smoke.D, chip_smoke.M
     cap, nb = chip_smoke.CAP, chip_smoke.N_CLIENTS
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -231,12 +277,17 @@ def main() -> int:
         rff = lambda: lib.fz_rff_grad(P(x_it.data_ptr()), P(v.data_ptr()), P(b.data_ptr()),
                                       P(ws.data_ptr()), P(g.data_ptr()), n, m, d, m,
                                       ctypes.c_float(math.sqrt(2 / m)), stream())
-    kout = torch.empty((nb, 5, cap), device=dev)
+    kout = torch.empty((nb, cap, cap), device=dev)
+    phi = torch.empty((nb * cap, m), device=dev)
 
     def gram(rows):
         return lambda: lib.fz_sqexp(P(rows.data_ptr()), P(xs.data_ptr()), P(kout.data_ptr()), nb,
                                     rows.shape[1], cap, d, ctypes.c_float(0.5 / p["ls"] ** 2),
                                     stream())
+
+    feats = lambda: lib.fz_rff_features(P(rows_all.data_ptr()), P(v.data_ptr()), P(b.data_ptr()),
+                                        P(phi.data_ptr()), nb * cap, m, d,
+                                        ctypes.c_float(math.sqrt(2 / m)), stream())
 
     for label, fn, src in (
         (f"B5 rff_grad (n={n}, M={m}, d={d}, per-row w)", rff, "rff_grad.cu"),
@@ -244,6 +295,8 @@ def main() -> int:
          "sqexp.cu"),
         (f"B9 sqexp append event, 1 row ({nb}, 1, {d}) x ({nb}, {cap}, {d})", gram(k_one),
          "sqexp.cu"),
+        (f"B6 rff_features ({nb * cap}, {d}) x ({m}, {d})", feats, "rff_features.cu"),
+        (f"B9 sqexp init Gram ({nb}, {cap}, {d}) x ({nb}, {cap}, {d})", gram(xs), "sqexp.cu"),
     ):
         tag = src[:-3]
         for _ in range(5):  # warm; the last launch's stamps are read

@@ -47,7 +47,10 @@ allocates.
 ``rff_grad_layout`` gives the same for the RFF gradient's kernel (B5):
 which features each block of a row's cluster projects in which chunk, and
 which output columns it sums; ``rows_route`` which kernel of
-``csrc/proj.cuh`` an SE Gram (B9) of a few rows takes.
+``csrc/proj.cuh`` an SE Gram (B9) or RFF features (B6) take, with
+``proj_tile`` the tile kernel's tile, ``proj_threads`` and ``proj_smem``
+its threads and shared memory and ``proj_tile_layout`` what each of its
+blocks computes.
 ``validate_blocks`` checks a pinned pair (``AlgoConfig.*_block_*``)
 against the same budget and the block sizes the kernels are built for.
 """
@@ -289,6 +292,11 @@ RFF_GRAD_GROUPS = 32
 RFF_GRAD_FPW = 2
 #: Columns of a block of the rows kernel (csrc/proj.cuh kRowsTile).
 ROWS_TILE = 8
+#: The projection's tile kernel (csrc/proj.cuh proj_tile_kernel): its d
+#: chunk, f64 row stride and the card's SMs (kTileK, kTileLd, kTileSms).
+PROJ_TILE_K = 32
+PROJ_TILE_LD = PROJ_TILE_K + 4
+PROJ_SMS = 132
 
 
 def rff_grad_smem(d: int, slots: int, chunked: bool) -> int:
@@ -344,12 +352,69 @@ def rff_grad_layout(m: int, d: int) -> list[dict]:
     return blocks
 
 
-def rows_route(rows: int, d: int) -> tuple[str, int]:
-    """The kernel of csrc/proj.cuh ``launch_proj`` for ``rows`` rows at width
-    d, and its rows template: ("rows", BN) where the rows (BN = rows up to
-    8, else 16) and a tile of ROWS_TILE columns fit shared memory, else
-    ("tile", 64)."""
+def rows_route(rows: int, d: int, cols: int, batch: int) -> tuple[str, int]:
+    """The kernel of csrc/proj.cuh ``launch_proj`` for ``batch`` problems of
+    ``rows`` x ``cols`` outputs at width d, and its template: ("rows", BN)
+    where the rows (BN = rows up to 8, else 16) and a tile of ROWS_TILE
+    columns fit shared memory, else ("tile", ``proj_tile``)."""
     bn = rows if rows <= 8 else 16
     if rows <= 16 and 4 * (-(-bn * d // 4) * 4 + ROWS_TILE * d) <= SMEM_BYTES:
         return "rows", bn
-    return "tile", 64
+    return "tile", proj_tile(batch, rows, cols)
+
+
+def proj_tile(batch: int, rows: int, cols: int) -> int:
+    """The tile kernel's T (csrc/proj.cuh ``launch_proj``): 64 where the
+    problems' 64 x 64 tiles are at least half as many as the card's SMs,
+    else 32 (factor_init's (5, 192, 192) Gram: 45 tiles of 64, 180 of 32)."""
+    tiles64 = batch * -(-rows // 64) * -(-cols // 64)
+    return 64 if tiles64 >= PROJ_SMS // 2 else 32
+
+
+def proj_threads(tile: int) -> int:
+    """Threads of one block of the tile kernel (csrc/proj.cuh ``TileShape``):
+    T / 8 warps, 2 x T / 16, each owning (T / 2) x 16 of the T x T tile."""
+    return 32 * tile // 8
+
+
+def proj_smem(tile: int) -> int:
+    """Shared memory of one block of the tile kernel (csrc/proj.cuh
+    ``TileShape``): two f32 stages of 2T rows of PROJ_TILE_K, two f64 tiles
+    of 2T rows of PROJ_TILE_LD and the 2T norms in f64; whatever d is."""
+    return 2 * 4 * 2 * tile * PROJ_TILE_K + 2 * 8 * 2 * tile * PROJ_TILE_LD + 8 * 2 * tile
+
+
+def proj_tile_layout(batch: int, rows: int, cols: int, d: int, tile: int) -> list[dict]:
+    """What each block (z, y, x) of the tile kernel computes, by the
+    kernel's own index arithmetic: ``outputs``, the (problem, row, col) its
+    threads store (warp w of the T / 8 owns rows (w // (T / 16)) T / 2 on
+    and columns 16 (w % (T / 16)) on of the T x T tile, lane 4 g + t of a
+    fragment rows g and g + 8 and columns 2t and 2t + 1), ``convert``, the
+    staged rows each warp converts (0 to T - 1 of a, T to 2T - 1 of bm),
+    and ``chunks``, the d ranges it multiplies in order, each with its
+    k-steps of 4 (slots past d are zero)."""
+    warps, wns, half = tile // 8, tile // 16, tile // 2
+    chunks = []
+    for k0 in range(0, d, PROJ_TILE_K):
+        k1 = min(d, k0 + PROJ_TILE_K)
+        chunks.append((k0, k1, -(-(k1 - k0) // 4)))
+    convert = {w: [w + warps * i for i in range(2 * tile // warps)] for w in range(warps)}
+    blocks = []
+    for z in range(batch):
+        for by in range(-(-rows // tile)):
+            for bx in range(-(-cols // tile)):
+                row0, col0 = by * tile, bx * tile
+                nr, nc = min(tile, rows - row0), min(tile, cols - col0)
+                outs = []
+                for thread in range(proj_threads(tile)):
+                    (wm, wn), (g, t) = divmod(thread // 32, wns), divmod(thread % 32, 4)
+                    for mi in range(tile // 32):
+                        for ni in range(2):
+                            for v in range(4):
+                                r = wm * half + 16 * mi + g + 8 * (v >> 1)
+                                c = wn * 16 + 8 * ni + 2 * t + (v & 1)
+                                if r < nr and c < nc:
+                                    outs.append((z, row0 + r, col0 + c))
+                blocks.append({"block": (z, by, bx), "outputs": outs, "convert": convert,
+                               "chunks": chunks})
+    return blocks

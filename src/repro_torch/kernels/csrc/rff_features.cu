@@ -7,19 +7,20 @@
 // which runs one MXU product per (bn, bm) output tile with d resident.
 //
 // What bounds it on the card: operations.  On the eq. 6 fit of the main
-// path n = N cap = 960 rows, M = 512, d = 300: 2 n M d = 295 MFLOP, 4.4 us at
-// 67 TFLOP/s f32 (no tensor cores: TF32 would break the 1e-4 parity rule),
-// against 3.7 MB of traffic, 1.1 us at 3.35 TB/s.  The design is the plain
-// shared-memory tiled product of proj.cuh (64 x 64 output tiles, 4 x 4
-// outputs a thread, d staged in chunks of 64), with the phase add and the
-// cosine fused into the store, so X V^T never goes to device memory.  The
-// projection comes as a compensated pair hi + lo (proj.cuh); the phase is
-// added exactly and cos(hi + lo) taken as cos(hi) - sin(hi) lo, so the only
-// roundings left are sincosf's and the scale's: the plain version's f32
-// rounding of a projection of 20-60 (a few 1e-7 of phase) is gone.  The
-// compensated sum costs about four times the plain FMA's instructions.
-// sincosf (not __sincosf): the intrinsic skips range reduction, and the
-// projections reach tens.
+// path n = N cap = 960 rows, M = 512, d = 300: 2 n M d = 295 MFLOP, 4.40 us
+// at 67 TFLOP/s, against 3.7 MB of traffic, 1.1 us at 3.35 TB/s.  The
+// design is proj.cuh's tile kernel: 64 x 64 output tiles (120 blocks here),
+// d staged by cp.async in chunks of 32, converted to f64 once as staged,
+// and multiplied on the f64 tensor cores (mma.sync m16n8k4, 67 TFLOP/s,
+// the rate of the bound), with the phase add and the cosine fused into the
+// store, so X V^T never goes to device memory.  TF32 would break the 1e-4
+// parity rule; f64 products of f32 inputs are exact, and the f64 sum is
+// handed on as the pair hi + lo (proj.cuh).  The phase is added exactly
+// and cos(hi + lo) taken as cos(hi) - sin(hi) lo, so the only roundings
+// left are sincosf's and the scale's: the plain version's f32 rounding of
+// a projection of 20-60 (a few 1e-7 of phase) is gone.  sincosf (not
+// __sincosf): the intrinsic skips range reduction, and the projections
+// reach tens.  Up to 16 rows take proj.cuh's rows kernel instead.
 #include "proj.cuh"
 
 namespace fz {

@@ -9,22 +9,26 @@
 // differences): the reference's padded Gram rounds exactly this way, and
 // with it which append events fail the factor health check.
 //
-// What bounds it on the card: bytes.  At every append event of the main
-// path (N = 5 clients, k = 5 new rows against cap = 192, d = 300) it reads
-// 1.2 MB of trajectory, 0.36 us at 3.35 TB/s, for 2.9 MFLOP; at the
-// iterate's event (k = 1) 1.15 MB, 0.34 us.  The body is the product of
-// proj.cuh with the row norms summed in the same d loop and the distance,
-// clamp and expf fused into the store, so neither the cross products nor
-// the distances go to device memory.  An append event (k <= 16 new rows)
-// takes its rows kernel: a block owns 8 ring rows of one client, copies
-// them and the k new rows into shared memory by cp.async, all issued at
-// once, sums the new rows' norms while the ring rows land, then one warp
-// per ring row (the lanes over d) sums k + 1 compensated pairs, and k lanes
-// apply the epilogue at once.  factor_init's cap x cap Gram takes its
-// 64 x 64 tiles.
+// What bounds it on the card.  At every append event of the main path
+// (N = 5 clients, k = 5 new rows against cap = 192, d = 300): bytes, 1.2 MB
+// of trajectory, 0.36 us at 3.35 TB/s, for 2.9 MFLOP; at the iterate's
+// event (k = 1) 1.15 MB, 0.34 us.  At factor_init's (5, 192, 192) init
+// Gram: operations, 112 MFLOP, 1.67 us at 67 TFLOP/s, against 3.0 MB.  The
+// body is the product of proj.cuh with the row norms summed beside it and
+// the distance, clamp and expf fused into the store, so neither the cross
+// products nor the distances go to device memory.  An append event (k <=
+// 16 new rows) takes its rows kernel: a block owns 8 ring rows of one
+// client, copies them and the k new rows into shared memory by cp.async,
+// all issued at once, sums the new rows' norms while the ring rows land,
+// then one warp per ring row (the lanes over d) sums k + 1 compensated
+// pairs, and k lanes apply the epilogue at once.  factor_init's cap x cap
+// Gram takes the tile kernel, on the f64 tensor cores: 32 x 32 tiles there
+// (180 blocks for the card's 132 SMs, where 64 x 64 makes 45), the norms
+// summed in f64 from the f64 tiles as they are converted.
 //
-// Accuracy: the three terms of the expanded distance arrive as compensated
-// pairs (proj.cuh) and are combined by TwoSum, so the distance is rounded
+// Accuracy: the three terms of the expanded distance arrive as pairs
+// (compensated f32 from the rows kernel, split f64 sums from the tile
+// kernel; proj.cuh) and are combined by TwoSum, so the distance is rounded
 // once, after the cancellation, where the plain f32 version rounds each
 // term (about 1e-7 of |x|^2 each) before it.  Nearby points are the
 // engine's case: the Gram rows of an append event compare new queries with

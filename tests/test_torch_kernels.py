@@ -693,16 +693,103 @@ def test_rff_grad_refuses_what_shared_memory_cannot_hold():
     assert autotune.rff_grad_slots(32, 8400) == 0
 
 
-@pytest.mark.parametrize("rows,d,route", [(5, 300, ("rows", 5)), (1, 300, ("rows", 1)),
-                                          (8, 20, ("rows", 8)), (9, 20, ("rows", 16)),
-                                          (16, 2400, ("rows", 16)), (16, 2500, ("tile", 64)),
-                                          (17, 3, ("tile", 64)), (192, 300, ("tile", 64))])
-def test_sqexp_rows_route(rows, d, route):
-    """The SE Gram's route (``autotune.rows_route``, as csrc/proj.cuh
-    ``launch_proj`` picks it): an append event's 1 or 5 rows take the rows
-    kernel with BN equal to the row count, so no chain is summed for a
-    missing row; factor_init's cap x cap Gram takes the 64 x 64 tiles."""
-    assert autotune.rows_route(rows, d) == route
+@pytest.mark.parametrize("rows,d,cols,batch,route", [
+    (5, 300, 192, 5, ("rows", 5)), (1, 300, 192, 5, ("rows", 1)), (8, 20, 33, 3, ("rows", 8)),
+    (9, 20, 33, 3, ("rows", 16)), (16, 2400, 192, 5, ("rows", 16)),
+    (16, 2500, 192, 5, ("tile", 32)), (17, 3, 17, 1, ("tile", 32)),
+    (192, 300, 192, 5, ("tile", 32)), (960, 300, 512, 1, ("tile", 64)),
+    (4096, 300, 512, 1, ("tile", 64)), (1000, 300, 1000, 1, ("tile", 64)),
+    (45, 1029, 45, 2, ("tile", 32)), (48, 8, 32, 1, ("tile", 32)),
+    (17, 3, 4224, 1, ("tile", 64)), (17, 3, 4160, 1, ("tile", 32))])
+def test_sqexp_rows_route(rows, d, cols, batch, route):
+    """The route of csrc/proj.cuh ``launch_proj`` (``autotune.rows_route``):
+    an append event's 1 or 5 rows take the rows kernel with BN equal to the
+    row count, so no chain is summed for a missing row, up to 16 rows while
+    they and a column tile fit shared memory; more rows take the tile
+    kernel, with 64 x 64 tiles where that makes at least 66 blocks (half
+    the card's SMs: B6's 960 x 512, 120 blocks), else 32 x 32 (factor_init's
+    (5, 192, 192) Gram, 45 tiles of 64, 180 of 32)."""
+    assert autotune.rows_route(rows, d, cols, batch) == route
+
+
+# (batch, rows, cols, d): B6 on the main path, the init Gram, and ragged
+# rows, cols and d on each tile (d past one chunk, below one k-step of 4,
+# at the widest d the smoke's accuracy check takes).
+PROJ_LAYOUTS = [(1, 960, 512, 300), (5, 192, 192, 300), (1, 961, 500, 301), (2, 45, 45, 1029),
+                (1, 48, 32, 8), (3, 17, 33, 3), (1, 130, 70, 1500)]
+
+
+@pytest.mark.parametrize("batch,rows,cols,d", PROJ_LAYOUTS)
+@pytest.mark.parametrize("tile", [32, 64])
+def test_proj_tile_layout_covers_every_output_once(batch, rows, cols, d, tile):
+    """The tile kernel's blocks (``autotune.proj_tile_layout``, by the
+    kernel's own index arithmetic) store every output of every problem
+    exactly once, at either tile; its warps convert every staged row once
+    (rows of a, then of bm); its d chunks cover d once, in order, each
+    with the k-steps of 4 that cover it and no more."""
+    blocks = autotune.proj_tile_layout(batch, rows, cols, d, tile)
+    outs = [o for b in blocks for o in b["outputs"]]
+    assert len(outs) == batch * rows * cols
+    assert set(outs) == {(z, i, j) for z in range(batch) for i in range(rows)
+                         for j in range(cols)}
+    for b in blocks:
+        staged = sorted(r for rs in b["convert"].values() for r in rs)
+        assert staged == list(range(2 * tile))
+        ks = [k for k0, k1, _ in b["chunks"] for k in range(k0, k1)]
+        assert ks == list(range(d))
+        assert all(4 * n - 4 < k1 - k0 <= 4 * n for k0, k1, n in b["chunks"])
+        assert all(k1 - k0 <= autotune.PROJ_TILE_K for k0, k1, _ in b["chunks"])
+    assert len(blocks) == batch * -(-rows // tile) * -(-cols // tile)
+
+
+@pytest.mark.parametrize("d", [8, 300, 1029, 1500])
+def test_proj_tile_fits_shared_memory(d):
+    """The tile kernel's shared memory (two f32 stages, two f64 tiles and
+    the norms) does not grow with d, and fits a block's 227 KB at either
+    tile; the 64 x 64 tile still lets two blocks share an SM.  Its blocks
+    are T / 8 warps."""
+    for rows, cols, batch in ((960, 512, 1), (5 * 192, 192, 1), (192, 192, 5)):
+        tile = autotune.rows_route(rows, d, cols, batch)[1]
+        assert autotune.proj_smem(tile) <= autotune.SMEM_BYTES
+    assert 2 * autotune.proj_smem(64) <= autotune.SMEM_BYTES
+    assert autotune.proj_smem(64) == 107520 and autotune.proj_smem(32) == 53760
+    assert autotune.proj_threads(64) == 256 and autotune.proj_threads(32) == 128
+
+
+def _two_sum32(a, b):
+    s = (a + b).astype(np.float32)
+    z = (s - a).astype(np.float32)
+    return s, ((a - (s - z)) + (b - z)).astype(np.float32)
+
+
+def _rff_features_tile_model(x, v, b):
+    """The tile kernel's arithmetic for B6 on the CPU: the projection summed
+    in float64 (every f32 product exact), split into the pair hi = rn(acc),
+    lo = rn(acc - hi), the phase added by TwoSum (``add_f``) and
+    ``CosEpilogue``'s scale * (cos(hi) - sin(hi) lo) in f32."""
+    acc = x.astype(np.float64) @ v.astype(np.float64).T
+    hi = acc.astype(np.float32)
+    lo = (acc - hi).astype(np.float32)
+    s, e = _two_sum32(hi, b.astype(np.float32)[None, :])
+    hi, lo = _two_sum32(s, (lo + e).astype(np.float32))
+    c = np.cos(hi).astype(np.float64) - np.sin(hi).astype(np.float64) * lo  # fmaf, one rounding
+    scale = np.float32(np.sqrt(2.0 / v.shape[0]))
+    return (scale * c.astype(np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rff_features_tile_arithmetic_against_float64(seed):
+    """A float64 model of the tile kernel's B6 arithmetic at the main path's
+    960 x 512 x 300 is within 2 f32 ulps of the output scale sqrt(2/M) of
+    float64, and at least as close as the plain f32 version (whose f32
+    rounding of projections of tens is a few 1e-7 of phase)."""
+    x, v, b, _ = _rff_inputs(960, 300, 512, seed=seed)
+    truth = np.sqrt(2.0 / 512) * np.cos(x.astype(np.float64) @ v.astype(np.float64).T + b)
+    got = _rff_features_tile_model(x, v, b)
+    err = np.abs(got - truth).max()
+    assert err <= 2 * np.spacing(np.float32(np.sqrt(2.0 / 512)))
+    plain = ref.rff_features(T(x), T(v), T(b)).numpy()
+    assert err <= np.abs(plain - truth).max()
 
 
 def test_loader_builds_every_source_and_binds_every_entry():
@@ -850,6 +937,58 @@ def test_cuda_sqexp_rows_matches_plain_and_repeats(d):
             for i in range(3):
                 _close_gram(k[i].cpu(), (ref.sqexp(T(x1[i]), T(x2[i]), RFF_LS),),
                             _gram_truth(x1[i], x2[i]))
+
+
+# (rows, M, d): B6 on the card at the main path's 960 rows, at 4096, ragged
+# in all three, at the small engines' width, and at 17 rows (the fewest the
+# tile kernel takes).
+CUDA_RFF_FEATURES = [(960, 512, 300), (4096, 512, 300), (961, 500, 301), (48, 32, 8), (17, 3, 5)]
+
+
+@pytest.mark.parametrize("n,m,d", CUDA_RFF_FEATURES)
+def test_cuda_rff_features_matches_plain_and_repeats(n, m, d):
+    """B6 on the card (the projection's tile kernel) against float64 (its
+    plain version on float64 copies of the inputs): no further off than the
+    plain version in f32, within the RFF tolerance of it, bitwise the same
+    on a second launch (fixed-order f64 sums), one launch a call."""
+    dev = _cuda()
+    x, v, b, _ = _rff_inputs(n, d, m, seed=n + m + d)
+    c = lambda a: T(a).to(dev)
+    before = _all_launches()["rff_features"]
+    got = ops.rff_features(c(x), c(v), c(b))
+    assert torch.equal(got, ops.rff_features(c(x), c(v), c(b)))
+    assert _all_launches()["rff_features"] == before + 2
+    truth = ref.rff_features(T(x).double(), T(v).double(), T(b).double())
+    plain = ref.rff_features(T(x), T(v), T(b))
+    assert torch.isfinite(got).all() and got.shape == (n, m)
+    assert (got.cpu().double() - truth).abs().max() <= (plain.double() - truth).abs().max()
+    _close(got.cpu(), plain, RFF_ATOL)
+
+
+# (N, a, c, d): the SE Gram's tile route on the card at factor_init's
+# (5, 192, 192), one client at 1000, ragged at d=1029 and at small d, and
+# more rows than columns.
+CUDA_SQEXP_TILES = [(5, 192, 192, 300), (1, 1000, 1000, 300), (2, 45, 45, 1029), (3, 17, 33, 3),
+                    (2, 70, 20, 8)]
+
+
+@pytest.mark.parametrize("nb,a,c,d", CUDA_SQEXP_TILES)
+def test_cuda_sqexp_tile_matches_plain_and_repeats(nb, a, c, d):
+    """B9's tile route on the card (a > 16 rows) against float64 within the
+    plain version's error (``_close_gram``) and no further off than it,
+    bitwise the same on a second launch, one launch a call."""
+    dev = _cuda()
+    x1, x2 = _gram_inputs(nb, a, c, d, seed=a + c + d)
+    before = _all_launches()["sqexp"]
+    k = ops.sqexp(T(x1).to(dev), T(x2).to(dev), RFF_LS)
+    assert torch.equal(k, ops.sqexp(T(x1).to(dev), T(x2).to(dev), RFF_LS))
+    assert _all_launches()["sqexp"] == before + 2
+    plain = ref.sqexp(T(x1), T(x2), RFF_LS).double()
+    for i in range(nb):
+        truth = _gram_truth(x1[i], x2[i])
+        _close_gram(k[i].cpu(), (plain[i].numpy(),), truth)
+        assert np.abs(k[i].cpu().double().numpy() - truth).max() <= np.abs(
+            plain[i].numpy() - truth).max()
 
 
 # (N, n, cap, d, cap tile): the sizes of the smoke's tiled-accuracy check
