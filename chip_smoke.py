@@ -28,7 +28,8 @@ Phases, each a hard check (any failure exits non-zero):
    the init Gram) against float64 at the main path's, large, ragged and
    small sizes, no less accurate than its plain version, with its device
    time against its bound (``check_projection_accuracy``);
-4. the main path: ``simulate`` of deferred FZooS at the paper's synthetic
+4. the main path: ``simulate(..., chunk=0)`` (the per-round loop, as every
+   phase but 4b runs it) of deferred FZooS at the paper's synthetic
    width (Appx. E.1: d=300, N=5; benchmarks/fig1_synthetic.py full
    settings: M=512, cap=192, T=10, 50 candidates, 5+5 active queries), 5
    rounds on the card, with the kernel launch counts of that run (B5, B6
@@ -39,6 +40,18 @@ Phases, each a hard check (any failure exits non-zero):
    B9 on that small engine's own inputs, each no less accurate than its
    plain version against float64 (``check_engine_inputs``), B2 there
    with cap tiles of 8 and B4 with gradient cap tiles of 8;
+4b. the main path in captured chunks (``simulate(..., chunk=CHUNK)``,
+   ``core/graphs.py``): 10 rounds in chunks of 5, one capture and two
+   replays, with the capture's seconds, ms/round over the replays, the
+   result and the launches counted at the warm-up round and the capture;
+   the same seed and rounds in the loop (``chunk=0``), bit for bit where
+   no client is flagged (``hold_to_loop``); one replayed chunk under
+   ``torch.profiler``, each ``fz::`` kernel's launches equal to one
+   chunk's and the card's busy share; the whole ``simulate`` call, the
+   default (``chunk=None``, captured chunks of 16) against the loop at 10,
+   35 and 50 rounds (``time_whole_runs``); the small card-vs-CPU check in
+   chunks of 2, captured on the card (the other phases run the loop,
+   but for phase 8's second run of each FD baseline);
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -52,7 +65,8 @@ Phases, each a hard check (any failure exits non-zero):
    there with cap tiles of 8 and B8b with gradient cap tiles of 8; one of
    its rounds profiled;
 8. the FD baselines (fedzo, fedprox, scaffold1, scaffold2) at d=300, N=5,
-   q=20, 2 rounds each, with no launch but factor_init's SE Gram;
+   q=20, 2 rounds each, with no launch but factor_init's SE Gram; each
+   then in its default captured chunk, bit for bit the loop;
 9. one JSON line describing every kernel, and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -593,7 +607,7 @@ def run_path(cfg, cobjs, rounds, dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = alg.simulate(cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value, rounds,
-                       device=dev)
+                       chunk=0, device=dev)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0, read_counts()
 
@@ -654,7 +668,7 @@ def small_run(where, dtype=torch.float32, **engine):
     q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=where)
     draws = SameDraws(alg.ClientDraws(2, range(3), "cpu"), where, dtype)
     return alg.simulate(small_config(**engine), 2, q, obj.quadratic_query,
-                        obj.quadratic_global_value, 3, draws=draws, device=where)
+                        obj.quadratic_global_value, 3, draws=draws, chunk=0, device=where)
 
 
 def fallback_events(res, cfg) -> list:
@@ -797,7 +811,7 @@ def profile_round(cfg, cobjs, dev, label="profile") -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         alg.simulate(cfg, 3, cobjs, obj.quadratic_query, obj.quadratic_global_value, 1,
-                     device=dev)
+                     chunk=0, device=dev)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
@@ -812,6 +826,252 @@ def profile_round(cfg, cobjs, dev, label="profile") -> None:
                   f"{e.self_device_time_total / 1e3:.3f} ms device", flush=True)
     print(f"[{label}] one round: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {launches} device kernels", flush=True)
+
+
+#: The captured phase: the main path in chunks of CHUNK rounds, one capture
+#: and CAPTURED_ROUNDS / CHUNK replays; the small card-vs-CPU check in
+#: chunks of SMALL_CHUNK (3 rounds: one full chunk and a shorter one).
+CAPTURED_ROUNDS, CHUNK, SMALL_CHUNK = 10, 5, 2
+#: The port's kernels by the name the profiler gives them (``fz::<name><...>``)
+#: and the counter of the wrapper that launches them on the main path.
+FZ_KERNELS = {"score_cluster_kernel": "score_resident", "grad_cluster_kernel": "grad_resident",
+              "rff_grad_kernel": "rff_grad", "proj_tile_kernel": "rff_features",
+              "proj_rows_kernel": "sqexp"}
+
+
+def deferred_counts(cfg, rounds) -> dict:
+    """Launches of ``rounds`` rounds of the deferred engine, factor_init's
+    SE Gram not included: ``fzoos_counts`` less that Gram, the scoring (B1)
+    once per local step and at the round end, the gradient mean (B3) once
+    per local step."""
+    t = cfg.local_steps
+    counts = fzoos_counts(cfg, rounds)
+    counts["sqexp"] -= 1
+    return dict(counts, score_resident=(t + 1) * rounds, grad_resident=t * rounds)
+
+
+@contextlib.contextmanager
+def timed_chunks(profile_replays=False):
+    """Within the block, every capture and every replay of
+    ``graphs.CapturedChunks`` is timed on the host between two
+    synchronizations, the capture apart from its first replay; with
+    ``profile_replays`` each replay runs under ``torch.profiler`` (its
+    trace kept).  Yields {"capture": [s], "replay": [s], "profiles": [prof]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import graphs
+
+    real_graph, real_run = graphs.CapturedChunks.graph, graphs.CapturedChunks.run
+    log = {"capture": [], "replay": [], "profiles": []}
+
+    def graph(self, length):
+        if length in self._graphs:
+            return real_graph(self, length)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_graph(self, length)
+        torch.cuda.synchronize()
+        log["capture"].append(time.perf_counter() - t0)
+        return out
+
+    def run(self, length, offset):
+        self.graph(length)
+        torch.cuda.synchronize()
+        prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                if profile_replays else contextlib.nullcontext())
+        with prof:
+            t0 = time.perf_counter()
+            ys = real_run(self, length, offset)
+            torch.cuda.synchronize()
+            log["replay"].append(time.perf_counter() - t0)
+        if profile_replays:
+            log["profiles"].append(prof)
+        return ys
+
+    try:
+        graphs.CapturedChunks.graph, graphs.CapturedChunks.run = graph, run
+        yield log
+    finally:
+        graphs.CapturedChunks.graph, graphs.CapturedChunks.run = real_graph, real_run
+
+
+def gen_states(draws) -> list:
+    """The states of a ``ClientDraws``'s generators (clients', then the bank's)."""
+    return [g.get_state() for g in (*draws.gens, draws.bank_gen)]
+
+
+def hold_to_loop(loop, res, label, loop_draws=None, res_draws=None) -> None:
+    """A chunked run against the loop (``chunk=0``) on the same seed and
+    rounds.  Where neither run flagged a client the chunks are the loop's
+    operations on the loop's numbers, so the two must be equal bit for bit
+    (and, where the draw sources are given, every generator left in the
+    same state: the replays drew what the loop drew).  With flagged
+    clients the repairs fall at other rounds, and the reference's
+    scan-vs-loop bounds hold (tests/test_rounds.py ``_assert_bounded``: x
+    after round 1 within 5e-2, every x within 0.1, F within 5e-2, queries
+    identical)."""
+    df = (loop.f_values - res.f_values).abs().max().item()
+    dx = (loop.xs - res.xs).abs().max().item()
+    dx1 = (loop.xs[1] - res.xs[1]).abs().max().item()
+    same = all(torch.equal(a, b) for a, b in zip(loop, res))
+    flagged = max(loop.repair_rate.abs().max().item(), res.repair_rate.abs().max().item()) > 0
+    gens_same = (loop_draws is None or all(
+        torch.equal(a, b) for a, b in zip(gen_states(loop_draws), gen_states(res_draws))))
+    print(f"[{label}] against the loop (chunk=0), same seed and rounds: max|dF|={df:.3e} "
+          f"max|dx|={dx:.3e} (round 1: {dx1:.3e}); bitwise equal: {same}; clients flagged: "
+          f"{flagged}" + ("" if loop_draws is None else f"; generators in the same state: "
+                          f"{gens_same}"), flush=True)
+    if not gens_same:
+        fail(f"{label}: the chunked run's generators are not where the loop's are")
+    if not flagged and not same:
+        fail(f"{label}: no client flagged, yet the chunked run is not the loop bit for bit")
+    if not (df <= 5e-2 and dx <= 0.1 and dx1 <= 5e-2) or not torch.equal(loop.queries,
+                                                                          res.queries):
+        fail(f"{label}: the chunked run disagrees with the loop beyond the reference's "
+             "scan-vs-loop bounds")
+
+
+def check_captured(cfg, cobjs, dev) -> None:
+    """Phase 4b: the main path in captured chunks.  ``simulate(...,
+    rounds=CAPTURED_ROUNDS, chunk=CHUNK)``: one capture and two replays,
+    the capture's seconds and ms/round over the replays; the launches the
+    wrappers counted (the warm-up round and the capture); the result
+    (``check_result``); then the loop (``chunk=0``) on the same seed and
+    rounds (``hold_to_loop``); then one
+    replayed chunk under ``torch.profiler``: each ``fz::`` kernel's
+    launches against one chunk's (``deferred_counts``) and the card's busy
+    share of the replay."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs
+    from repro_torch.core import objectives as obj
+
+    sim = lambda rounds, chunk, draws=None: alg.simulate(
+        cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value, rounds, chunk=chunk,
+        draws=draws, device=dev)
+    main_draws = lambda: alg.ClientDraws(1, range(N_CLIENTS), dev)  # simulate's own, seed 1
+    draws = main_draws()
+    reset_counts()
+    graphs.COUNTS.update(captures=0, replays=0)
+    with timed_chunks() as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim(CAPTURED_ROUNDS, CHUNK, draws)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts, runs = read_counts(), dict(graphs.COUNTS)
+    ms_round = 1e3 * sum(log["replay"]) / CAPTURED_ROUNDS
+    print(f"[captured] d={D} N={N_CLIENTS} M={M} cap={CAP} T={cfg.local_steps}: "
+          f"{CAPTURED_ROUNDS} rounds in chunks of {CHUNK} in {secs:.3f} s; {runs['captures']} "
+          f"capture(s) in {sum(log['capture']):.3f} s; replays "
+          f"{[round(1e3 * s, 3) for s in log['replay']]} ms, {ms_round:.3f} ms/round over the "
+          f"replays; launches counted at the warm-up round and the capture {counts}", flush=True)
+    check_result(res, cfg, CAPTURED_ROUNDS, "captured")
+    if runs != {"captures": 1, "replays": CAPTURED_ROUNDS // CHUNK}:
+        fail(f"captured: {runs}, expected 1 capture and {CAPTURED_ROUNDS // CHUNK} replays")
+    warm_and_capture = deferred_counts(cfg, 1 + CHUNK)
+    want = expect(**dict(warm_and_capture, sqexp=warm_and_capture["sqexp"] + 1))
+    if counts != want:
+        fail(f"captured: launches {counts}, expected {want} (factor_init, the warm-up round "
+             "and the capture)")
+
+    loop_draws = main_draws()
+    hold_to_loop(sim(CAPTURED_ROUNDS, 0, loop_draws), res, "captured", loop_draws, draws)
+
+    with timed_chunks(profile_replays=True) as plog:
+        sim(CHUNK, CHUNK)
+    prof, wall_ms = plog["profiles"][0], 1e3 * plog["replay"][0]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(events.table(sort_by="self_device_time_total", row_limit=20), flush=True)
+    seen = {}
+    for e in kernels:
+        name = e.key.split("(")[0].removeprefix("void ")
+        if name.startswith("fz::"):
+            base = FZ_KERNELS.get(name.removeprefix("fz::").split("<")[0], name)
+            seen[base] = seen.get(base, 0) + e.count
+            print(f"[captured profile] {name}: {e.count} launches, "
+                  f"{e.self_device_time_total / 1e3:.3f} ms device", flush=True)
+    print(f"[captured profile] one replayed chunk of {CHUNK} rounds: wall {wall_ms:.3f} ms "
+          f"(profiled), device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{sum(e.count for e in kernels)} device kernels", flush=True)
+    chunk_want = {k: v for k, v in deferred_counts(cfg, CHUNK).items() if v}
+    if seen != chunk_want:
+        fail(f"captured profile: fz:: launches {seen} in one replay, expected {chunk_want}")
+
+
+#: Round counts of the whole-run timing: the captured phase's, the full
+#: run of benchmarks/fig1_synthetic.py (the main path's settings) and the
+#: paper's 50.
+WHOLE_RUN_ROUNDS = (CAPTURED_ROUNDS, 35, 50)
+
+
+def time_whole_runs(cfg, cobjs, dev) -> None:
+    """Phase 4b: the whole ``simulate`` call on the main path, the
+    default (``chunk=None``: chunks of ``DEFAULT_CHUNK``, captured; its
+    warm-up round, captures, replays and boundary reads included) against
+    the loop (``chunk=0``), in the order loop, default, default, loop at
+    each of ``WHOLE_RUN_ROUNDS``: seconds of each call on the host clock
+    between two synchronizations, the default's captures and replays; each
+    default run held to its loop (``hold_to_loop``)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs, rounds as rounds_mod
+    from repro_torch.core import objectives as obj
+
+    for n_rounds in WHOLE_RUN_ROUNDS:
+        secs, res = {0: [], None: []}, {}
+        for chunk in (0, None, None, 0):
+            graphs.COUNTS.update(captures=0, replays=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[chunk] = alg.simulate(cfg, 1, cobjs, obj.quadratic_query,
+                                      obj.quadratic_global_value, n_rounds, chunk=chunk,
+                                      device=dev)
+            torch.cuda.synchronize()
+            secs[chunk].append(time.perf_counter() - t0)
+            if chunk is None:
+                runs = dict(graphs.COUNTS)
+        k = min(rounds_mod.DEFAULT_CHUNK, n_rounds)
+        lengths = {k, n_rounds % k} - {0}
+        want = {"captures": len(lengths), "replays": -(-n_rounds // k)}
+        per = lambda ts: [round(1e3 * t / n_rounds, 3) for t in ts]
+        print(f"[whole run] {n_rounds} rounds: loop (chunk=0) {[round(t, 3) for t in secs[0]]} s "
+              f"({per(secs[0])} ms/round); default (chunk=None, chunks of {k}, "
+              f"{runs['captures']} capture(s), {runs['replays']} replays) "
+              f"{[round(t, 3) for t in secs[None]]} s ({per(secs[None])} ms/round); "
+              f"default / loop {sum(secs[None]) / sum(secs[0]):.3f}", flush=True)
+        if runs != want:
+            fail(f"whole run of {n_rounds} rounds: {runs}, expected {want}")
+        hold_to_loop(res[0], res[None], f"whole run {n_rounds}")
+
+
+def check_small_captured(dev) -> None:
+    """Phase 4b: the small card-vs-CPU check in chunks of SMALL_CHUNK: on the
+    card captured, on its own ``ClientDraws(2, ...)``; on the CPU the eager
+    chunks, replaying a second card ``ClientDraws(2, ...)`` through
+    ``SameDraws``.  The bounds of ``check_small_against_cpu``."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs
+    from repro_torch.core import objectives as obj
+
+    def run(where, draws):
+        q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=where)
+        return alg.simulate(small_config(), 2, q, obj.quadratic_query,
+                            obj.quadratic_global_value, 3, draws=draws, chunk=SMALL_CHUNK,
+                            device=where)
+
+    graphs.COUNTS.update(captures=0, replays=0)
+    gpu = run(dev, alg.ClientDraws(2, range(3), dev))
+    runs = dict(graphs.COUNTS)
+    cpu = run("cpu", SameDraws(alg.ClientDraws(2, range(3), dev), "cpu"))
+    df = (cpu.f_values - gpu.f_values.cpu()).abs().max().item()
+    dx = (cpu.xs - gpu.xs.cpu()).abs().max().item()
+    print(f"[small captured] chunks of {SMALL_CHUNK}, {runs}: card (captured) vs CPU (eager) on "
+          f"the same draws: max|dF|={df:.3e} max|dx|={dx:.3e}", flush=True)
+    if runs != {"captures": 2, "replays": 2}:
+        fail(f"small captured: {runs}, expected 2 captures (chunks of 2 and 1) and 2 replays")
+    if not (df <= 1e-3 and dx <= 1e-2) or not torch.equal(cpu.queries, gpu.queries.cpu()):
+        fail("the captured engine on the card disagrees with the eager engine on the CPU")
 
 
 def check_per_client(cobjs, dev) -> dict:
@@ -854,7 +1114,12 @@ def check_per_client(cobjs, dev) -> dict:
 
 
 def check_fd_baselines(dev) -> None:
-    """Phase 8: the FD baselines at the main path's width, q=20."""
+    """Phase 8: the FD baselines at the main path's width, q=20: the loop
+    (``chunk=0``) with its launch counts, then the default (one captured
+    chunk) held to it (``hold_to_loop``: no FD engine flags a client, so
+    bit for bit)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs
     from repro_torch.core import objectives as obj
 
     cobjs = obj.make_quadratic(0, N_CLIENTS, D, 5.0, 0.001, device=dev)
@@ -869,6 +1134,18 @@ def check_fd_baselines(dev) -> None:
         fd_want = expect(sqexp=1)
         if counts != fd_want:
             fail(f"{name} launches {counts}, expected {fd_want}")
+        # the default (chunk=None): one captured chunk of FD_ROUNDS rounds
+        graphs.COUNTS.update(captures=0, replays=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        default = alg.simulate(cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value,
+                               FD_ROUNDS, device=dev)
+        torch.cuda.synchronize()
+        print(f"[{name} default] one captured chunk of {FD_ROUNDS} rounds: the whole call "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        if graphs.COUNTS != {"captures": 1, "replays": 1}:
+            fail(f"{name} default: {graphs.COUNTS}, expected 1 capture and 1 replay")
+        hold_to_loop(res, default, f"{name} default")
 
 
 def main() -> int:
@@ -915,6 +1192,9 @@ def main() -> int:
     if init_gram != 1:  # factor_init's, once per run
         fail(f"main path: {init_gram} SE Gram launches with {CAP} rows, expected 1")
     check_small_against_cpu(dev)
+    check_captured(cfg, cobjs, dev)
+    time_whole_runs(cfg, cobjs, dev)
+    check_small_captured(dev)
     check_engine_inputs(dev, "small engine inputs")
     check_engine_inputs(dev, "small engine inputs, cap tiles of 8", score_block_cap=8)
     check_engine_inputs(dev, "small engine inputs, gradient cap tiles of 8", grad_block_cap=8)

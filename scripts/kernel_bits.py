@@ -256,7 +256,7 @@ def engine_calls(dev):
     cobjs = obj.make_quadratic(0, chip_smoke.N_CLIENTS, chip_smoke.D, 5.0, 0.001, device=dev)
     with chip_smoke.recording(NAMES) as main:
         alg.simulate(cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value, 1,
-                     device=dev)
+                     chunk=0, device=dev)
     return {
         "main path, one round": main,
         "small deferred engine": chip_smoke.check_engine_inputs(dev, "small engine inputs"),

@@ -1,5 +1,5 @@
 """The federated round engines (port of ``repro.core.algorithms``, the
-single-process ``simulate(..., chunk=0)`` without faults or cohorts).
+single-process ``simulate`` without faults or cohorts).
 
 Each round: T collective-free local steps for the whole client batch, one
 mean of the iterates, then the round-end work and the second mean.  All
@@ -14,7 +14,8 @@ five algorithms of the reference run:
   - deferred (``use_factor_cache``, ``defer_repair``; the default):
     branch-free factor updates, one launch of the client-batched scoring
     and gradient-mean kernels per step for the whole batch, the Cholesky
-    RFF fit; flagged factors are repaired between rounds;
+    RFF fit; flagged factors are repaired between chunks of rounds
+    (``core/rounds.py``), or between rounds in the loop;
   - per-client (``defer_repair=False``): the inline factor update with its
     clamped-eigh fallback, and per client one launch of the single-client
     scoring and gradient-mean kernels (N launches per step); the
@@ -58,7 +59,6 @@ import torch
 from repro_torch.core import fd as fdlib
 from repro_torch.core import gp_surrogate as gp
 from repro_torch.core import rff as rfflib
-from repro_torch.core import rounds as rounds_mod
 from repro_torch.device import resolve_device
 from repro_torch.optim.optimizers import make_optimizer
 
@@ -463,19 +463,32 @@ def simulate(
     x0: Optional[torch.Tensor] = None,
     diag_global_grad: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     draws=None,
+    chunk: Optional[int] = None,
     eval_every: int = 1,
     device="cuda",
 ) -> SimResult:
-    """Run ``rounds`` communication rounds, one Python loop iteration each.
+    """Run ``rounds`` communication rounds.
+
+    ``chunk`` selects how the rounds run, as in the reference: ``None``
+    (default) runs chunks of ``rounds.DEFAULT_CHUNK`` rounds
+    (``core/rounds.py``; on the card the deferred engine's and the FD
+    baselines' chunks are captured CUDA graphs), ``k > 0`` chunks of k, and
+    ``0`` the per-round Python loop, the equivalence oracle.  The deferred
+    engine's flagged clients are repaired after every chunk, or after every
+    round of the loop.
 
     The draw source defaults to ``ClientDraws(seed, range(N), device)``; the
     RFF bank (fzoos) comes from it, and the clients start fresh at ``x0``
     (0.5 everywhere by default).  ``diag_global_grad`` maps the stacked
     iterates (N, d) to grad F (N, d) for the cos/disparity diagnostics.
-    After every round of the deferred engine the clients flagged
-    ``needs_repair`` are repaired.
+    ``eval_every=k`` keeps F only every k-th round and the last (NaN
+    elsewhere).
     """
+    from repro_torch.core import rounds as rounds_mod  # deferred: rounds imports this module
+
     dev = resolve_device(device)
+    if chunk is not None and chunk < 0:
+        raise ValueError(f"chunk must be None, 0 (loop oracle) or positive, got {chunk}")
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
     if x0 is None:
@@ -486,6 +499,12 @@ def simulate(
     rff = rfflib.make_rff(draws, cfg.n_features, cfg.dim, cfg.lengthscale) \
         if cfg.is_fzoos else None
     states = init_states(cfg, x0)
+    if chunk != 0:
+        _, res = rounds_mod.run_rounds(
+            cfg, rff, query_fn, cobjs, states, x0, global_value_fn, rounds,
+            rounds_mod.DEFAULT_CHUNK if chunk is None else chunk, draws=draws,
+            diag_global_grad=diag_global_grad, eval_every=eval_every)
+        return res
 
     xs, fvals = [x0], [global_value_fn(cobjs, x0)]
     hist = {k: [] for k in ("queries", "cos", "disp", "refactor", "repair", "drop", "quar")}

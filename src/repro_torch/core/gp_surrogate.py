@@ -18,7 +18,8 @@ As under the reference's client vmap, both factor candidates (border
 extension and full refresh) are computed and selected per client with
 ``torch.where``.  Cholesky, eigh and the triangular solves go to
 ``torch.linalg``; ``cholesky_ex``'s ``info`` is the branch-free non-PD
-signal that the reference reads from NaN pivots.
+signal that the reference reads from NaN pivots; Cholesky solves are two
+triangular solves (``chol_solve``).
 
 The single-client functions (``gp_alpha_cached``, ``grad_mean_cached``,
 ``grad_uncertainty_batch_cached``, ``select_active_queries_cached``) take
@@ -415,13 +416,22 @@ def factor_repair_gated(factor: GramFactor, jitter: float) -> GramFactor:
     return factor_repair_masked(factor, jitter)
 
 
+def chol_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^-1 b for lower L, b (..., cap, m), by two triangular solves:
+    ``torch.cholesky_solve``'s mathematics without its batched CUDA path
+    (MAGMA's ``spotrs_batched``, which allocates device memory inside the
+    call, so a CUDA graph capture refuses it)."""
+    z = torch.linalg.solve_triangular(chol, b, upper=False)
+    return torch.linalg.solve_triangular(chol.transpose(-1, -2), z, upper=True)
+
+
 def factor_solve(factor: GramFactor, b: torch.Tensor) -> torch.Tensor:
     """(K + jitter)^-1 b, b (..., cap) or (..., cap, m), for a stacked or a
     single-client factor: through the Cholesky factor when ``exact`` and
     the clamped eigh factors otherwise."""
     vec = b.dim() == factor.gram.dim() - 1
     bb = b[..., None] if vec else b
-    from_chol = torch.cholesky_solve(bb, factor.chol, upper=False)
+    from_chol = chol_solve(factor.chol, bb)
     v, w = factor.eigvecs, factor.eigvals
     from_eigh = v @ ((v.transpose(-1, -2) @ bb) / w[..., None])
     out = torch.where(factor.exact[..., None, None], from_chol, from_eigh)
@@ -431,7 +441,7 @@ def factor_solve(factor: GramFactor, b: torch.Tensor) -> torch.Tensor:
 def factor_inverse(factor: GramFactor) -> torch.Tensor:
     """Explicit (K + jitter)^-1, (..., cap, cap)."""
     eye = _eye_like(factor.gram)
-    from_chol = torch.cholesky_solve(eye, factor.chol, upper=False)
+    from_chol = chol_solve(factor.chol, eye)
     v, w = factor.eigvecs, factor.eigvals
     from_eigh = (v / w[..., None, :]) @ v.transpose(-1, -2)
     return torch.where(factor.exact[..., None, None], from_chol, from_eigh)

@@ -81,7 +81,7 @@ def fit_w_chol(params: RFFParams, traj: gp.Trajectory, hyper: gp.GPHyper,
     ok = gp._factor_health(chol, mask, jitter, info)
     ys_m = traj.ys * mask
     safe = torch.where(ok[:, None, None], chol, gp._eye_like(gram))
-    alpha = torch.cholesky_solve(ys_m[..., None], safe, upper=False)[..., 0]
+    alpha = gp.chol_solve(safe, ys_m[..., None])[..., 0]
     alpha_fb = gp.factor_solve(factor, ys_m)
     alpha = torch.where(ok[:, None], alpha, alpha_fb)
     return (phi.transpose(-1, -2) @ alpha[..., None])[..., 0]

@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+#include <unordered_map>
 
 namespace fz {
 
@@ -210,24 +212,46 @@ __device__ void rows_dot(const T* sc, const float* sx, int ldx, int d, int rows,
   }
 }
 
+// Opts `kernel` in to `smem` bytes of dynamic shared memory and, with
+// `non_portable`, to clusters of more than kMaxCluster blocks, the first
+// time a launch needs more than the kernel holds.  What each kernel holds
+// is remembered, so later launches make no attribute call (and a CUDA graph
+// captured after a first launch records none).  Returns the cudaError_t of
+// a refused opt-in.
+inline int grant(const void* kernel, size_t smem, bool non_portable) {
+  struct Held {
+    size_t smem = kDefaultSmem;
+    bool non_portable = false;
+  };
+  static std::mutex mu;
+  static std::unordered_map<const void*, Held> held;
+  std::lock_guard<std::mutex> lock(mu);
+  Held& h = held[kernel];
+  if (non_portable && !h.non_portable) {
+    if (cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
+      return (int)e;
+    h.non_portable = true;
+  }
+  if (smem > h.smem) {
+    if (cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+      return (int)e;
+    h.smem = smem;
+  }
+  return 0;
+}
+
 // Launch `kernel` on clusters of cs blocks along x, with `smem` bytes of
-// dynamic shared memory (opted in above the default); clusters of more than
-// kMaxCluster blocks are allowed as non-portable sizes.  Returns the
-// cudaError_t of the launch, including a refused cluster size or smem.
+// dynamic shared memory (opted in above the default, by `grant`); clusters
+// of more than kMaxCluster blocks are allowed as non-portable sizes.
+// Returns the cudaError_t of the launch, including a refused cluster size
+// or smem.
 template <typename... Params, typename... Args>
 int launch_cluster(void (*kernel)(Params...), dim3 grid, int cs, size_t smem,
                    cudaStream_t stream, Args... args) {
   if (cs < 1 || cs > kMaxClusterNonPortable || grid.x % cs) return (int)cudaErrorInvalidValue;
-  if (cs > kMaxCluster) {
-    if (cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
-      return (int)e;
-  }
-  if (smem > kDefaultSmem) {
-    if (cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
-      return (int)e;
-  }
+  if (int e = grant((const void*)kernel, smem, cs > kMaxCluster)) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads, 1, 1);

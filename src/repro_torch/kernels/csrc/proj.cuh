@@ -305,12 +305,7 @@ template <int T, bool kNorms, class Epi>
 int launch_proj_tile(const float* a, const float* bm, float* out, int batch, int rows, int cols,
                      int d, Epi epi, cudaStream_t stream) {
   constexpr size_t smem = TileShape<T>::kSmem;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(proj_tile_kernel<T, kNorms, Epi>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (int e = grant((const void*)proj_tile_kernel<T, kNorms, Epi>, smem, false)) return e;
   dim3 grid((cols + T - 1) / T, (rows + T - 1) / T, batch);
   proj_tile_kernel<T, kNorms, Epi><<<grid, TileShape<T>::kThreads, smem, stream>>>(
       a, bm, out, rows, cols, d, epi);
@@ -509,12 +504,7 @@ template <int BN, bool kNorms, class Epi>
 int launch_proj_rows(const float* a, const float* bm, float* out, int batch, int rows, int cols,
                      int d, Epi epi, cudaStream_t stream) {
   const size_t smem = sizeof(float) * rows_smem_floats<BN>(d);
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(proj_rows_kernel<BN, kNorms, Epi>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (int e = grant((const void*)proj_rows_kernel<BN, kNorms, Epi>, smem, false)) return e;
   dim3 grid((cols + kRowsTile - 1) / kRowsTile, batch);
   proj_rows_kernel<BN, kNorms, Epi><<<grid, RowsShape<BN>::kThreads, smem, stream>>>(
       a, bm, out, rows, cols, d, epi);

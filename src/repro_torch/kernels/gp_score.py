@@ -6,7 +6,8 @@ pads and routes): candidates (N, n, d) with n a multiple of ``block_n``,
 trajectory xs (N, cap, d), the masked Gram inverse B and P = B o XX^T
 (N, cap, cap); the tiled route takes any cap, ``block_cap`` being the rows
 of its panels, and an f64 work buffer the wrapper allocates
-(``autotune.score_tiled_work``).  They return the scores (N, n).  The
+(``autotune.score_tiled_work``; under a graph capture, from the graph's
+memory pool).  They return the scores (N, n).  The
 ``*_single_*`` wrappers take one client's inputs, the same shapes without
 N, and return (n,): the resident one launches the cluster kernel with one
 client and its own geometry (``autotune.cluster_geometry(cap,

@@ -148,4 +148,6 @@ def check_inputs(name: str, shapes: dict[str, tuple[torch.Tensor, tuple[int, ...
 
 
 def stream() -> int:
+    """The current CUDA stream: under a graph capture the capture stream,
+    so the launch is recorded into the graph."""
     return torch.cuda.current_stream().cuda_stream

@@ -149,7 +149,7 @@ def test_simulate_matches_reference(setup):
     rec = _recorded_simulate_draws(cfg, key, rounds)
     diag = lambda xs: torch.stack([obj.quadratic_global_grad(q, x) for x in xs])
     got = alg.simulate(cfg, 0, q, obj.quadratic_query, obj.quadratic_global_value, rounds,
-                       draws=rec, diag_global_grad=diag, device="cpu")
+                       draws=rec, diag_global_grad=diag, chunk=0, device="cpu")
     assert rec.exhausted()
     np.testing.assert_array_equal(got.queries.numpy(), N_(want.queries))
     assert got.queries[-1].item() == rounds * cfg.queries_per_round() == 33
@@ -220,7 +220,7 @@ def test_simulate_with_its_own_draws_descends(setup):
     """The port alone, on its generators: finite, descending, exact count."""
     _, cfg, _, q = setup
     res = alg.simulate(cfg, 7, q, obj.quadratic_query, obj.quadratic_global_value, 2,
-                       device="cpu", eval_every=2)
+                       chunk=0, device="cpu", eval_every=2)
     assert np.isnan(res.f_values[1].item()) and np.isfinite(res.f_values[2].item())
     assert res.f_values[2] < res.f_values[0]
     assert res.queries.tolist() == [11.0, 22.0]
@@ -253,7 +253,7 @@ def test_engine_matches_reference(setup, kw, f_tol, x_tol):
                          rounds, chunk=0)
     rec = _recorded_simulate_draws(cfg, key, rounds)
     got = alg.simulate(cfg, 0, q, obj.quadratic_query, obj.quadratic_global_value, rounds,
-                       draws=rec, device="cpu")
+                       draws=rec, chunk=0, device="cpu")
     assert rec.exhausted()
     np.testing.assert_array_equal(got.queries.numpy(), N_(want.queries))
     assert got.queries[-1].item() == rounds * cfg.queries_per_round()
@@ -276,7 +276,7 @@ def test_non_deferred_engines_never_flag_a_repair(setup, kw):
     import dataclasses
     c = dataclasses.replace(cfg, traj_capacity=8, **kw)  # the ring wraps in round 1
     res = alg.simulate(c, 5, q, obj.quadratic_query, obj.quadratic_global_value, 2,
-                       device="cpu")
+                       chunk=0, device="cpu")
     assert res.repair_rate.tolist() == [0.0, 0.0]
     assert np.isfinite(res.f_values.numpy()).all()
     assert res.queries.tolist() == [11.0, 22.0]
@@ -305,7 +305,7 @@ def test_engines_run_rff_and_gram_through_ops(setup, monkeypatch, kw):
         monkeypatch.setattr(ops, name, spy)
     cfg, rounds = alg.AlgoConfig(**kw), 2
     res = alg.simulate(cfg, 4, q, obj.quadratic_query, obj.quadratic_global_value, rounds,
-                       device="cpu")
+                       chunk=0, device="cpu")
     assert np.isfinite(res.f_values.numpy()).all()
     t = cfg.local_steps
     if not cfg.is_fzoos:

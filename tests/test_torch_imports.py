@@ -61,6 +61,6 @@ def test_simulate_without_device_needs_cuda():
     cfg = alg.AlgoConfig(name="fzoos", dim=2, n_clients=2, traj_capacity=4, n_features=4)
     q = obj.make_quadratic(0, 2, 2, 1.0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
-        alg.simulate(cfg, 0, q, obj.quadratic_query, obj.quadratic_global_value, 1)
+        alg.simulate(cfg, 0, q, obj.quadratic_query, obj.quadratic_global_value, 1, chunk=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         obj.make_quadratic(0, 2, 2, 1.0)
