@@ -52,6 +52,19 @@ Phases, each a hard check (any failure exits non-zero):
    35 and 50 rounds (``time_whole_runs``); the small card-vs-CPU check in
    chunks of 2, captured on the card (the other phases run the loop,
    but for phase 8's second run of each FD baseline);
+4c. checkpoint and resume (``core/rounds.py``, ``checkpoint/io.py``):
+   phase 4b's 10 rounds in captured chunks of 5 with ``checkpoint_dir``,
+   blocking writes, then the background writer: each run bit for bit phase
+   4b's; step 10 removed, the resumed run makes one capture and one replay
+   and is bit for bit phase 4b's run (every history row, the generators'
+   states) and the same run through ``run_rounds`` without checkpoints
+   (the final state, read back from step 10); the step's bytes, the
+   snapshot's and the write's ms, the whole checkpointed call against
+   phase 4b's; then the command line, ``python -m
+   repro_torch.launch.fedzoo --rounds 10 --chunk 5 --ckpt-dir D`` at its
+   defaults (d=300, N=5, M=1000, cap=192), run again with step 10
+   removed: the same step 10, arrays and checksums, and the same printed
+   F(x_R);
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -76,11 +89,15 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -998,6 +1015,7 @@ def check_captured(cfg, cobjs, dev) -> None:
     chunk_want = {k: v for k, v in deferred_counts(cfg, CHUNK).items() if v}
     if seen != chunk_want:
         fail(f"captured profile: fz:: launches {seen} in one replay, expected {chunk_want}")
+    return res, draws, secs
 
 
 #: Round counts of the whole-run timing: the captured phase's, the full
@@ -1072,6 +1090,206 @@ def check_small_captured(dev) -> None:
         fail(f"small captured: {runs}, expected 2 captures (chunks of 2 and 1) and 2 replays")
     if not (df <= 1e-3 and dx <= 1e-2) or not torch.equal(cpu.queries, gpu.queries.cpu()):
         fail("the captured engine on the card disagrees with the eager engine on the CPU")
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """Within the block, every ``prepare_round_state`` (the host snapshot,
+    after a synchronization) and every ``write_round_state`` (the files, on
+    the writer thread where the write is async) is timed on the host
+    clock.  Yields {"snapshot": [s], "write": [s], "bytes": [n]}, ``bytes``
+    the snapshot's arrays."""
+    from repro_torch.checkpoint import io as ckpt_io
+
+    real_prepare, real_write = ckpt_io.prepare_round_state, ckpt_io.write_round_state
+    log = {"snapshot": [], "write": [], "bytes": []}
+
+    def prepare(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = real_prepare(*args, **kwargs)
+        log["snapshot"].append(time.perf_counter() - t0)
+        log["bytes"].append(sum(a.nbytes for a in payload["arrays"].values()))
+        return payload
+
+    def write(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_write(*args, **kwargs)
+        log["write"].append(time.perf_counter() - t0)
+        return out
+
+    try:
+        ckpt_io.prepare_round_state, ckpt_io.write_round_state = prepare, write
+        yield log
+    finally:
+        ckpt_io.prepare_round_state, ckpt_io.write_round_state = real_prepare, real_write
+
+
+def step_files(root, step) -> tuple[dict, dict]:
+    """(arrays, meta) of one checkpoint step, read with numpy and json."""
+    path = Path(root) / f"step_{step:08d}"
+    with np.load(path / "arrays.npz", allow_pickle=False) as data:
+        arrays = {k: data[k].copy() for k in data.files}
+    return arrays, json.loads((path / "meta.json").read_text())
+
+
+def same_arrays(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        (a[k].dtype, a[k].shape, a[k].tobytes()) == (b[k].dtype, b[k].shape, b[k].tobytes())
+        for k in a)
+
+
+def bitwise(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_checkpoint(cfg, cobjs, dev, straight, straight_draws, straight_secs) -> None:
+    """Phase 4c: checkpoint and resume on the main path in captured chunks,
+    then through the command line (see the module docstring)."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs
+    from repro_torch.core import objectives as obj
+    from repro_torch.core import rff as rfflib
+    from repro_torch.core import rounds as rounds_mod
+
+    main_draws = lambda: alg.ClientDraws(1, range(N_CLIENTS), dev)  # phase 4b's, seed 1
+    straight_gens = straight_draws.state()
+
+    x0 = torch.full((D,), 0.5, dtype=torch.float32, device=dev)
+
+    def plain():
+        """Phase 4b's run once more, through run_rounds as simulate calls it,
+        for its final state (simulate returns the history only) and its
+        time; returns (final state, seconds)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draws = main_draws()
+        rff = rfflib.make_rff(draws, cfg.n_features, cfg.dim, cfg.lengthscale)
+        final, hist = rounds_mod.run_rounds(
+            cfg, rff, obj.quadratic_query, cobjs, alg.init_states(cfg, x0), x0,
+            obj.quadratic_global_value, CAPTURED_ROUNDS, CHUNK, draws=draws)
+        torch.cuda.synchronize()
+        if not bitwise(hist, straight):
+            fail("checkpoint: run_rounds is not phase 4b's simulate bit for bit")
+        return final, time.perf_counter() - t0
+
+    final, plain_secs = plain()
+    whole, boundary = {"without": [plain_secs]}, {"snapshot": [], "write": []}
+
+    def sim(root, draws, async_write):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = alg.simulate(cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value,
+                           CAPTURED_ROUNDS, chunk=CHUNK, draws=draws, checkpoint_dir=root,
+                           async_checkpoint=async_write, device=dev)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    for mode, async_write in (("blocking", False), ("async", True)):
+        with tempfile.TemporaryDirectory() as root:
+            draws = main_draws()
+            with timed_checkpoints() as clog:
+                res, secs = sim(root, draws, async_write)
+            steps = ckpt_io.list_steps(root)
+            arrays, meta = step_files(root, CAPTURED_ROUNDS)
+            npz_bytes = (Path(root) / f"step_{CAPTURED_ROUNDS:08d}" / "arrays.npz").stat().st_size
+            print(f"[checkpoint {mode}] {CAPTURED_ROUNDS} rounds in captured chunks of {CHUNK} "
+                  f"with checkpoint_dir: steps {steps}; a step {clog['bytes'][-1]} bytes of "
+                  f"arrays ({npz_bytes} bytes of npz); snapshot "
+                  f"{[round(1e3 * t, 3) for t in clog['snapshot']]} ms, write "
+                  f"{[round(1e3 * t, 3) for t in clog['write']]} ms; the whole call "
+                  f"{secs:.3f} s against {plain_secs:.3f} s without checkpoints here "
+                  f"({secs / plain_secs:.3f}x) and phase 4b's {straight_secs:.3f} s",
+                  flush=True)
+            if steps != [CHUNK, CAPTURED_ROUNDS]:
+                fail(f"checkpoint {mode}: steps {steps}, expected {[CHUNK, CAPTURED_ROUNDS]}")
+            if not bitwise(res, straight) or not bitwise(draws.state(), straight_gens):
+                fail(f"checkpoint {mode}: the checkpointed run is not phase 4b's bit for bit")
+            whole[mode] = secs
+            for k in boundary:
+                boundary[k] += clog[k]
+
+            shutil.rmtree(Path(root) / f"step_{CAPTURED_ROUNDS:08d}")
+            graphs.COUNTS.update(captures=0, replays=0)
+            draws = main_draws()
+            with timed_checkpoints() as rlog:
+                resumed, rsecs = sim(root, draws, async_write)
+            for k in boundary:
+                boundary[k] += rlog[k]
+            runs = dict(graphs.COUNTS)
+            again, again_meta = step_files(root, CAPTURED_ROUNDS)
+            s_like = graphs.clone(final)
+            h_like = rounds_mod.history_init(CAPTURED_ROUNDS, x0, torch.zeros((), device=dev))
+            r_states, _, _, _ = ckpt_io.restore_round_state(root, s_like, h_like,
+                                                            draws_like=draws.state())
+            same = {"history": bitwise(resumed, straight),
+                    "generators": bitwise(draws.state(), straight_gens),
+                    "final state": bitwise(graphs.tensors(r_states), graphs.tensors(final)),
+                    "step 10": same_arrays(arrays, again)
+                    and meta["checksums"] == again_meta["checksums"]}
+            print(f"[checkpoint {mode}] step {CAPTURED_ROUNDS} removed, resumed from step "
+                  f"{CHUNK}: {runs}, {rsecs:.3f} s (snapshot "
+                  f"{[round(1e3 * t, 3) for t in rlog['snapshot']]} ms, write "
+                  f"{[round(1e3 * t, 3) for t in rlog['write']]} ms); bit for bit phase 4b's "
+                  f"uncheckpointed run: {same}", flush=True)
+            if runs != {"captures": 1, "replays": 1}:
+                fail(f"checkpoint {mode}: the resume made {runs}, expected 1 capture and 1 "
+                     "replay")
+            if not all(same.values()):
+                fail(f"checkpoint {mode}: the resumed run is not the run without a stop bit "
+                     f"for bit: {same}")
+    whole["without"].append(plain()[1])
+    ms = lambda ts: round(1e3 * sorted(ts)[len(ts) // 2], 3)
+    print(f"[checkpoint cost] {card_name()}: the whole call of {CAPTURED_ROUNDS} rounds in "
+          f"captured chunks of {CHUNK}, in turns: without checkpoints "
+          f"{whole['without'][0]:.3f} s, blocking writes {whole['blocking']:.3f} s, "
+          f"background writes {whole['async']:.3f} s, without {whole['without'][1]:.3f} s; "
+          f"the {len(boundary['write'])} written boundaries of this phase's runs: snapshot "
+          f"median {ms(boundary['snapshot'])} ms, write median {ms(boundary['write'])} ms",
+          flush=True)
+    check_cli_resume()
+
+
+def card_name() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def check_cli_resume() -> None:
+    """Phase 4c: ``python -m repro_torch.launch.fedzoo`` with ``--ckpt-dir``
+    in a child process, at the command line's defaults but 10 rounds in
+    chunks of 5; then again with its step 10 removed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as root:
+        cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo", "--objective", "quadratic",
+               "--rounds", str(CAPTURED_ROUNDS), "--chunk", str(CHUNK), "--ckpt-dir", root]
+        outs, files = [], []
+        for run in ("first", "resumed"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                                  timeout=600)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"the command line ({run}) exited {proc.returncode}:\n"
+                     f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            lines = proc.stdout.splitlines()
+            result = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
+            print(f"[checkpoint cli] {run}: {' '.join(cmd[1:4])} ... in {secs:.1f} s: "
+                  f"{lines[:2]}; {result}", flush=True)
+            outs.append(result.split("   (")[0])
+            files.append(step_files(root, CAPTURED_ROUNDS))
+            if run == "first":
+                shutil.rmtree(Path(root) / f"step_{CAPTURED_ROUNDS:08d}")
+        (a, ma), (b, mb) = files
+        same = {"arrays": same_arrays(a, b), "checksums": ma["checksums"] == mb["checksums"],
+                "F(x_R)": outs[0] == outs[1] != ""}
+        print(f"[checkpoint cli] the resumed run's step {CAPTURED_ROUNDS} against the first "
+              f"run's: {same}", flush=True)
+        if not all(same.values()):
+            fail(f"checkpoint cli: the resumed command line is not the first run: {same}")
 
 
 def check_per_client(cobjs, dev) -> dict:
@@ -1157,9 +1375,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(f"[card] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     print(card, flush=True)
 
@@ -1192,9 +1408,10 @@ def main() -> int:
     if init_gram != 1:  # factor_init's, once per run
         fail(f"main path: {init_gram} SE Gram launches with {CAP} rows, expected 1")
     check_small_against_cpu(dev)
-    check_captured(cfg, cobjs, dev)
+    straight, straight_draws, straight_secs = check_captured(cfg, cobjs, dev)
     time_whole_runs(cfg, cobjs, dev)
     check_small_captured(dev)
+    check_checkpoint(cfg, cobjs, dev, straight, straight_draws, straight_secs)
     check_engine_inputs(dev, "small engine inputs")
     check_engine_inputs(dev, "small engine inputs, cap tiles of 8", score_block_cap=8)
     check_engine_inputs(dev, "small engine inputs, gradient cap tiles of 8", grad_block_cap=8)

@@ -2,8 +2,9 @@
 the reference it is held against).
 
 The subpackages mirror the reference's layout: ``core`` (objectives, GP
-surrogate, RFF, the round engine), ``optim`` and ``kernels`` (plain torch
-oracles plus hand-written CUDA kernels for Hopper).  Entry points run on
+surrogate, RFF, the round engine), ``optim``, ``kernels`` (plain torch
+oracles plus hand-written CUDA kernels for Hopper), ``checkpoint`` (the
+round engine's checkpoints) and ``launch`` (the command line).  Entry points run on
 ``device="cuda"`` unless the caller asks for ``"cpu"``.
 
 TF32 is switched off for the whole package: the padded trajectory Gram
@@ -16,4 +17,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["convert", "core", "device", "kernels", "optim"]
+__all__ = ["checkpoint", "convert", "core", "device", "kernels", "launch", "optim"]

@@ -230,6 +230,23 @@ class ClientDraws:
         return torch.stack([torch.randn(q, d, generator=g, device=self.device)
                             for g in self.gens])
 
+    def state(self) -> list[torch.Tensor]:
+        """Every generator's ``get_state()`` (uint8 CPU tensors): the bank
+        generator's, then each client's.  A round-state checkpoint keeps it
+        (``checkpoint/io.py``, group ``draws``)."""
+        return [self.bank_gen.get_state(), *(g.get_state() for g in self.gens)]
+
+    def load_state(self, states) -> None:
+        """Inverse of ``state()``: set every generator's state.  On the card
+        a replay reads the state of each generator registered with its
+        graph, so the loaded state reaches captured chunks too."""
+        bank, *clients = states
+        if len(clients) != len(self.gens):
+            raise ValueError(f"draw state holds {len(clients)} client generators, this "
+                             f"source has {len(self.gens)}")
+        for gen, st in zip((self.bank_gen, *self.gens), (bank, *clients)):
+            gen.set_state(st.to("cpu", torch.uint8))
+
 
 def _hyper_of(cfg: AlgoConfig) -> gp.GPHyper:
     return gp.GPHyper(float(cfg.lengthscale), float(cfg.noise))
@@ -465,6 +482,9 @@ def simulate(
     draws=None,
     chunk: Optional[int] = None,
     eval_every: int = 1,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    async_checkpoint: bool = True,
     device="cuda",
 ) -> SimResult:
     """Run ``rounds`` communication rounds.
@@ -482,7 +502,10 @@ def simulate(
     (0.5 everywhere by default).  ``diag_global_grad`` maps the stacked
     iterates (N, d) to grad F (N, d) for the cos/disparity diagnostics.
     ``eval_every=k`` keeps F only every k-th round and the last (NaN
-    elsewhere).
+    elsewhere).  ``checkpoint_dir`` (chunked runs only) checkpoints the
+    run every ``checkpoint_every`` chunks and at its end, and resumes it
+    from the newest good step; ``async_checkpoint`` writes the files on a
+    background thread (``core/rounds.py``).
     """
     from repro_torch.core import rounds as rounds_mod  # deferred: rounds imports this module
 
@@ -491,6 +514,8 @@ def simulate(
         raise ValueError(f"chunk must be None, 0 (loop oracle) or positive, got {chunk}")
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    if chunk == 0 and checkpoint_dir:
+        raise ValueError("checkpoint_dir requires the scan driver (chunk != 0)")
     if x0 is None:
         x0 = torch.full((cfg.dim,), 0.5, dtype=torch.float32, device=dev)
     x0 = x0.to(dev)
@@ -503,7 +528,9 @@ def simulate(
         _, res = rounds_mod.run_rounds(
             cfg, rff, query_fn, cobjs, states, x0, global_value_fn, rounds,
             rounds_mod.DEFAULT_CHUNK if chunk is None else chunk, draws=draws,
-            diag_global_grad=diag_global_grad, eval_every=eval_every)
+            diag_global_grad=diag_global_grad, eval_every=eval_every,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            async_checkpoint=async_checkpoint)
         return res
 
     xs, fvals = [x0], [global_value_fn(cobjs, x0)]

@@ -19,16 +19,23 @@ reads the (N,) flags once per chunk, where the reference decides under
 ``lax.cond`` on the device (``boundary_repair_on_device``); the eigh of a
 repair checks its errors on the host, so it cannot run inside a graph.
 
+``checkpoint_dir`` checkpoints the run at chunk boundaries, after the
+repair (``checkpoint/io.py``): the stacked state, the history and the draw
+source's generator states, so a resumed run is bit for bit the run that
+was not stopped, on the CPU and in captured chunks alike.
+
 ``simulate(..., chunk=0)`` keeps the per-round loop, the equivalence
 oracle, which repairs after every round.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from functools import partial
+from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import algorithms as alg
 from repro_torch.core import gp_surrogate as gp
 from repro_torch.core import graphs
@@ -117,9 +124,46 @@ def chunk_fn(cfg, rff, query_fn, cobjs, draws, global_value_fn: GlobalValueFn,
     return chunk
 
 
+def _restore_newest_good(checkpoint_dir: str, run_meta: dict, rounds: int, x0: torch.Tensor,
+                         states_like, draws_like):
+    """Restore from the newest complete, uncorrupted checkpoint step.
+
+    A step whose meta is unreadable or whose arrays fail the integrity
+    checks (``CorruptCheckpointError``) is skipped with a printed line and
+    the next older one is tried.  A step of another run identity raises.
+    Returns ``(states, hist, draws_state, start)``; ``hist`` is None when
+    nothing under ``checkpoint_dir`` restores.
+    """
+    for step in sorted(ckpt_io.list_steps(checkpoint_dir), reverse=True):
+        try:
+            saved = ckpt_io.load_meta(checkpoint_dir, step).get("extra") or {}
+        except (OSError, ValueError) as e:
+            print(f"[repro_torch.rounds] checkpoint step {step}: unreadable meta ({e}); "
+                  "trying an older step")
+            continue
+        for field in ("rounds", "cfg", "eval_every", "faults"):
+            if saved.get(field) not in (None, run_meta[field]):
+                raise ValueError(
+                    f"checkpoint_dir {checkpoint_dir!r} holds a run with "
+                    f"{field}={saved[field]!r}, cannot resume it with "
+                    f"{field}={run_meta[field]!r}; point at a fresh directory")
+        hist_like = history_init(rounds, x0, torch.zeros((), dtype=torch.float32))
+        try:
+            states, hist, draws, start = ckpt_io.restore_round_state(
+                checkpoint_dir, states_like, hist_like, step=step, draws_like=draws_like)
+        except (ckpt_io.CorruptCheckpointError, OSError) as e:
+            print(f"[repro_torch.rounds] checkpoint step {step}: corrupt ({e}); "
+                  "trying an older step")
+            continue
+        return states, hist, draws, min(start, rounds)
+    return states_like, None, None, 0
+
+
 def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
                global_value_fn: GlobalValueFn, rounds: int, chunk: int, *, draws,
-               diag_global_grad=None, eval_every: int = 1):
+               diag_global_grad=None, eval_every: int = 1,
+               checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
+               resume: bool = True, async_checkpoint: bool = True):
     """Run ``rounds`` communication rounds in chunks of ``chunk`` rounds;
     returns (final stacked ClientState, SimResult history).
 
@@ -128,6 +172,20 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
     capturable engine (``graphs.captures``) replays one captured graph per
     chunk length; every other engine, and every engine on the CPU, runs the
     same chunk eagerly.  A capture that fails raises.
+
+    ``checkpoint_dir`` checkpoints {states, history, draws} every
+    ``checkpoint_every`` chunks and at the last round; when a checkpoint
+    exists and ``resume`` is True the run restarts from the newest good
+    step, its history and generator states included (the initial
+    ``global_value_fn`` evaluation is then skipped, and ``x0`` is only the
+    template of the history).  The draw source must have ``state()`` and
+    ``load_state()``.  Chunks after a resume start at the restored round,
+    so a resume with the same ``chunk`` and ``checkpoint_every`` meets the
+    same boundaries and is bit for bit the run that was not stopped; a
+    resume with another ``chunk`` moves the boundary repairs.  The write
+    goes to a background thread (``async_checkpoint``) after a
+    synchronous host snapshot; the last boundary's write is drained before
+    the run returns, and a write's error fails the run.
     """
     if rounds < 0:
         raise ValueError(f"rounds must be >= 0, got {rounds}")
@@ -136,26 +194,64 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
                          "Python-loop oracle in simulate)")
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    if checkpoint_dir and not (callable(getattr(draws, "state", None))
+                               and callable(getattr(draws, "load_state", None))):
+        raise TypeError(f"checkpoint_dir needs a draw source with state() and load_state(); "
+                        f"{type(draws).__name__} has not both, so its generators could not "
+                        "be resumed")
     chunk = min(chunk, max(rounds, 1))
     dev = x0.device
-    hist = history_init(rounds, x0, global_value_fn(cobjs, x0))
+    # The run's identity, recorded at every write and checked at resume;
+    # ``chunk`` is recorded but not checked (the boundaries' cadence only).
+    # Faults are those of the reference's faults-free engine until A10.
+    run_meta = {"rounds": rounds, "chunk": chunk, "cfg": repr(cfg),
+                "eval_every": eval_every, "faults": repr(None)}
+    start, hist = 0, None
+    if checkpoint_dir and resume and ckpt_io.latest_step(checkpoint_dir) is not None:
+        r_states, r_hist, r_draws, start = _restore_newest_good(
+            checkpoint_dir, run_meta, rounds, x0, states, draws.state())
+        if r_hist is not None:
+            states, hist = r_states, r_hist
+            draws.load_state(r_draws)
+    if hist is None:
+        hist = history_init(rounds, x0, global_value_fn(cobjs, x0))
+    sx = hist.xs[start]
     make = lambda k, d: chunk_fn(cfg, rff, query_fn, cobjs, d, global_value_fn,
                                  diag_global_grad, k, eval_every, rounds)
     captured = None
-    if rounds and graphs.captures(cfg, draws, dev):
-        captured = graphs.CapturedChunks(make, draws, states, x0)
-    sx, done = x0, 0
-    while done < rounds:
-        k = min(chunk, rounds - done)
-        if captured is not None:
-            ys = captured.run(k, done)
-            states, sx = captured.states, captured.sx
-        else:
-            offset = torch.full((), done, dtype=torch.int64, device=dev)
-            states, sx, ys = make(k, draws)(states, sx, offset)
-        hist_write(hist, ys, done)
-        done += k
-        states, n_repaired = repair_flagged_clients(states, cfg)
-        if captured is not None and n_repaired:
-            captured.load(states)
+    if rounds > start and graphs.captures(cfg, draws, dev):
+        captured = graphs.CapturedChunks(make, draws, states, sx)
+    writer = ckpt_io.AsyncCheckpointWriter() if checkpoint_dir and async_checkpoint else None
+    done, chunks_done = start, 0
+    try:
+        while done < rounds:
+            k = min(chunk, rounds - done)
+            if captured is not None:
+                ys = captured.run(k, done)
+                states, sx = captured.states, captured.sx
+            else:
+                offset = torch.full((), done, dtype=torch.int64, device=dev)
+                states, sx, ys = make(k, draws)(states, sx, offset)
+            hist_write(hist, ys, done)
+            done += k
+            chunks_done += 1
+            states, n_repaired = repair_flagged_clients(states, cfg)
+            if captured is not None and n_repaired:
+                captured.load(states)
+            if checkpoint_dir and (chunks_done % max(checkpoint_every, 1) == 0
+                                   or done == rounds):
+                # the snapshot completes before the next chunk overwrites
+                # the state; only the file I/O goes to the writer thread
+                payload = ckpt_io.prepare_round_state(states, hist, draws.state())
+                write = partial(ckpt_io.write_round_state, checkpoint_dir, done, payload,
+                                run_meta)
+                if writer is None:
+                    write()
+                else:
+                    writer.submit(write)
+                    if done >= rounds:  # no later submit would surface its error
+                        writer.wait()
+    finally:
+        if writer is not None:
+            writer.wait()
     return states, hist

@@ -1,0 +1,156 @@
+"""Shared ``AlgoConfig`` plumbing of the launcher (port of
+``repro.launch.common``).
+
+* ``add_algo_flags(parser)`` installs the algorithm flag set;
+* ``config_from_args(args, dim=..., n_clients=...)`` builds the config
+  from the parsed flags;
+* ``make_config(name, dim=..., n_clients=..., **overrides)`` is the same
+  builder for programmatic callers;
+* ``add_engine_flags`` installs the round driver's flags (``--chunk``,
+  ``--ckpt-dir``, ``--ckpt-every``, ``--sync-ckpt``, ``--eval-every``) and
+  the pool and fault flags.
+
+Every flag keeps the reference's name, type and default.  The port has no
+fault injection (ROADMAP A10) and no client pool (A12) yet, so
+``faults_from_args`` and ``pool_from_args`` exit, naming the item, when a
+flag asks for either: a run never goes on with such a flag ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.core import algorithms as alg
+
+#: argparse flag -> AlgoConfig field for the plain value flags.
+_FLAG_FIELDS = {
+    "algo": "name",
+    "eta": "eta",
+    "local_steps": "local_steps",
+    "q": "q",
+    "features": "n_features",
+    "traj_cap": "traj_capacity",
+    "lengthscale": "lengthscale",
+    "gp_noise": "noise",
+    "gamma_mode": "gamma_mode",
+    "gamma_const": "gamma_const",
+}
+
+
+def add_algo_flags(ap: argparse.ArgumentParser) -> None:
+    """Install the shared per-algorithm flag set (the AlgoConfig surface)."""
+    ap.add_argument("--algo", default="fzoos", choices=list(alg.ALGORITHMS))
+    ap.add_argument("--local-steps", type=int, default=10, help="T")
+    ap.add_argument("--eta", type=float, default=0.01)
+    ap.add_argument("--q", type=int, default=20, help="FD directions per step")
+    ap.add_argument("--features", type=int, default=1000, help="RFF features M")
+    ap.add_argument("--traj-cap", type=int, default=192)
+    ap.add_argument("--lengthscale", type=float, default=0.5,
+                    help="GP/RFF kernel lengthscale (AlgoConfig.lengthscale)")
+    ap.add_argument("--gp-noise", "--noise", dest="gp_noise", type=float, default=1e-5,
+                    help="GP observation-noise variance (AlgoConfig.noise)")
+    ap.add_argument("--gamma-mode", default="inv_t", choices=["inv_t", "const"],
+                    help="correction-length schedule (Cor. C.1 practical choice)")
+    ap.add_argument("--gamma-const", type=float, default=1.0,
+                    help="gamma value when --gamma-mode const")
+    ap.add_argument("--no-factor-cache", action="store_true",
+                    help="seed eigh-from-scratch surrogate path (equivalence oracle)")
+    ap.add_argument("--no-defer-repair", action="store_true",
+                    help="inline clamped-eigh fallback per append event "
+                         "(the per-client engine, the deferred-repair oracle)")
+
+
+def add_engine_flags(ap: argparse.ArgumentParser) -> None:
+    """Round-driver knobs, then the pool and fault flags."""
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="rounds per chunk (core/rounds.py; on the card one captured "
+                         "CUDA graph); 0 = the per-round loop")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="chunk-boundary checkpoint/resume dir (chunked runs); a second "
+                         "run with the same dir resumes from its newest good step")
+    ap.add_argument("--ckpt-every", type=int, default=1,
+                    help="checkpoint every k-th chunk boundary (plus the end)")
+    ap.add_argument("--sync-ckpt", action="store_true",
+                    help="write checkpoints synchronously at the boundary "
+                         "(default: background write overlapped with the "
+                         "next chunk's compute)")
+    ap.add_argument("--eval-every", type=int, default=1,
+                    help="evaluate global F only every k-th round (+ final); "
+                         "skipped history rows hold NaN")
+    add_pool_flags(ap)
+    add_fault_flags(ap)
+
+
+def add_pool_flags(ap: argparse.ArgumentParser) -> None:
+    """Partial-participation knobs (the reference's client pool)."""
+    ap.add_argument("--pool-size", type=int, default=None,
+                    help="total client population N held in the host-resident "
+                         "pool (overrides --clients; requires --cohort)")
+    ap.add_argument("--cohort", type=int, default=None,
+                    help="clients gathered per chunk (K <= N); "
+                         "enables the partial-participation engine")
+    ap.add_argument("--cohort-seed", type=int, default=0,
+                    help="seed of the deterministic cohort sampler")
+
+
+def pool_from_args(args: argparse.Namespace) -> tuple[int | None, int | None]:
+    """(n_clients override, cohort) from the pool flags: (None, None), or an
+    exit when a flag asks for the pool, which is not ported yet."""
+    if args.pool_size is not None or args.cohort is not None:
+        raise SystemExit("--pool-size/--cohort: partial participation (the client pool) "
+                         "is not ported yet (ROADMAP Queue A, A12)")
+    return None, None
+
+
+def add_fault_flags(ap: argparse.ArgumentParser) -> None:
+    """Deterministic fault-injection knobs (the reference's FaultConfig)."""
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault schedule")
+    ap.add_argument("--drop-rate", type=float, default=0.0,
+                    help="per-(round, client) dropout probability")
+    ap.add_argument("--straggle-rate", type=float, default=0.0,
+                    help="per-(round, client) straggler (stale update) prob.")
+    ap.add_argument("--nan-rate", type=float, default=0.0,
+                    help="per-(round, client) NaN-payload probability")
+    ap.add_argument("--inf-rate", type=float, default=0.0,
+                    help="per-(round, client) Inf-payload probability")
+    ap.add_argument("--fault-from", type=int, default=0,
+                    help="first absolute round faults are active (default 0)")
+    ap.add_argument("--fault-until", type=int, default=None,
+                    help="faults stop at this round (half-open; default: never)")
+    ap.add_argument("--no-fault-tolerance", action="store_true",
+                    help="inject WITHOUT the masking/quarantine response "
+                         "(demonstrates the poisoning failure mode; the "
+                         "engine recovers via chunk rollback)")
+    ap.add_argument("--fault-tolerance", action="store_true",
+                    help="enable the fault-tolerant engine even with all "
+                         "fault rates 0 (measures pure masking overhead)")
+    ap.add_argument("--max-rollbacks", type=int, default=3,
+                    help="chunk-rollback budget before the run fails loudly")
+
+
+def faults_from_args(args: argparse.Namespace):
+    """None (the faults-free engine) unless a fault rate is above 0 or
+    ``--fault-tolerance`` asks for the fault-tolerant engine, which is not
+    ported yet: then an exit."""
+    rates = (args.drop_rate, args.straggle_rate, args.nan_rate, args.inf_rate)
+    if any(r > 0 for r in rates) or args.fault_tolerance:
+        raise SystemExit("fault injection and the fault-tolerant engine are not ported "
+                         "yet (ROADMAP Queue A, A10)")
+    return None
+
+
+def config_from_args(args: argparse.Namespace, *, dim: int, n_clients: int) -> alg.AlgoConfig:
+    """Build AlgoConfig from flags installed by ``add_algo_flags``."""
+    kw = {field: getattr(args, flag) for flag, field in _FLAG_FIELDS.items()}
+    if getattr(args, "no_factor_cache", False):
+        kw["use_factor_cache"] = False
+    if getattr(args, "no_defer_repair", False):
+        kw["defer_repair"] = False
+    return make_config(kw.pop("name"), dim=dim, n_clients=n_clients, **kw)
+
+
+def make_config(name: str, *, dim: int, n_clients: int, **overrides) -> alg.AlgoConfig:
+    """Programmatic twin of ``config_from_args``; an unknown override key
+    raises (AlgoConfig is frozen)."""
+    return alg.AlgoConfig(name=name, dim=dim, n_clients=n_clients, **overrides)

@@ -1,0 +1,133 @@
+"""The port's experiment launcher (port of ``repro.launch.fedzoo``): run
+FZooS or a baseline on a synthetic objective, on the card by default.
+
+    # paper Fig. 1 setting (synthetic quadratics, d=300, N=5)
+    python -m repro_torch.launch.fedzoo --objective quadratic \\
+        --algo fzoos --dim 300 --clients 5 --het 5.0 --rounds 50
+
+    # checkpoint every chunk boundary; the same command again resumes
+    python -m repro_torch.launch.fedzoo --rounds 10 --chunk 5 --ckpt-dir ckpt
+
+    # on the CPU (every kernel wrapper runs its plain torch version)
+    python -m repro_torch.launch.fedzoo --device cpu --dim 8 --clients 3
+
+Run from the repository root with ``PYTHONPATH=src``.  ``--device``
+(default ``cuda``, which raises when no card is present) is the one flag
+the reference does not have.  ``--seed`` gives two streams through
+``algorithms.stream_seed``: the words ``(seed, 0)`` seed the objective's
+numpy draws and ``(seed, 1)`` the run's ``ClientDraws``, as the reference
+splits one key into the objective's and the run's.
+
+The objectives ``attack`` and ``metric`` (ROADMAP Queue A, A9) and ``lm``
+(A13), and ``--distributed`` (A11), keep their places in the command line
+and exit, naming their item, until they are ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.core import algorithms as alg
+from repro_torch.core import objectives as obj
+from repro_torch.device import resolve_device
+from repro_torch.launch import common
+
+#: The architecture ids of the reference's registry (``repro.configs``),
+#: the choices of ``--arch``.
+ARCH_IDS = (
+    "llama4_maverick_400b_a17b",
+    "llama4_scout_17b_16e",
+    "mamba2_370m",
+    "jamba_1_5_large_398b",
+    "gemma_7b",
+    "whisper_base",
+    "yi_34b",
+    "minitron_8b",
+    "qwen2_vl_7b",
+    "qwen1_5_0_5b",
+)
+
+#: Objectives of the command line that are not ported yet, and their item.
+_UNPORTED = {"attack": "A9", "metric": "A9", "lm": "A13"}
+
+
+def build_objective(args, seed: int, device):
+    """(client objectives, query_fn, global_value_fn, dim) of ``--objective``."""
+    if args.objective in _UNPORTED:
+        raise SystemExit(f"--objective {args.objective} is not ported yet "
+                         f"(ROADMAP Queue A, {_UNPORTED[args.objective]})")
+    if args.objective == "quadratic":
+        cobjs = obj.make_quadratic(seed, args.clients, args.dim, args.het, args.noise_std,
+                                   device=device)
+        return cobjs, obj.quadratic_query, obj.quadratic_global_value, args.dim
+    if args.objective == "sinquad":
+        cobjs = obj.make_sinquad(seed, args.clients, args.dim, args.het, args.noise_std,
+                                 device=device)
+        return cobjs, obj.sinquad_query, obj.sinquad_global_value, args.dim
+    raise ValueError(args.objective)
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.fedzoo")
+    ap.add_argument("--objective", default="quadratic",
+                    choices=["quadratic", "sinquad", "attack", "metric", "lm"])
+    ap.add_argument("--arch", default="qwen1_5_0_5b",
+                    choices=[a.replace("_", "-") for a in ARCH_IDS] + list(ARCH_IDS))
+    ap.add_argument("--dim", type=int, default=300)
+    ap.add_argument("--clients", type=int, default=5)
+    ap.add_argument("--het", type=float, default=5.0, help="C for synthetic objectives")
+    ap.add_argument("--p-shared", type=float, default=0.5, help="P for attack/metric")
+    ap.add_argument("--noise-std", type=float, default=0.001)
+    ap.add_argument("--rounds", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--distributed", action="store_true",
+                    help="shard clients over the local devices (not ported yet: A11)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the run (default cuda; cpu runs the kernels' "
+                         "plain torch versions)")
+    common.add_algo_flags(ap)
+    common.add_engine_flags(ap)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    common.pool_from_args(args)  # exits on a pool flag until A12
+    common.faults_from_args(args)  # exits on a fault flag until A10
+    if args.distributed:
+        raise SystemExit("--distributed: the distributed engine is not ported yet "
+                         "(ROADMAP Queue A, A11)")
+    device = resolve_device(args.device)
+
+    cobjs, query, global_value, dim = build_objective(args, alg.stream_seed(args.seed, 0),
+                                                      device)
+    print(f"objective={args.objective} dim={dim} clients={args.clients} algo={args.algo}")
+    cfg = common.config_from_args(args, dim=dim, n_clients=args.clients)
+    print(f"queries/round/client = {cfg.queries_per_round()}  "
+          f"uplink floats/round/client = {cfg.comm_floats_per_round()}")
+
+    t0 = time.time()
+    res = alg.simulate(cfg, alg.stream_seed(args.seed, 1), cobjs, query, global_value,
+                       args.rounds, chunk=args.chunk, eval_every=args.eval_every,
+                       checkpoint_dir=args.ckpt_dir or None, checkpoint_every=args.ckpt_every,
+                       async_checkpoint=not args.sync_ckpt, device=device)
+    f = res.f_values.cpu().numpy()
+    queries = res.queries.cpu().numpy()
+    dt = time.time() - t0
+
+    best = float(np.nanmin(f))  # eval-every leaves NaN rows for skipped rounds
+    print(f"F(x_0) = {float(f[0]):+.5f}   F(x_R) = {float(f[-1]):+.5f}   "
+          f"best = {best:+.5f}   ({dt:.1f}s, "
+          f"{args.rounds / max(dt, 1e-9):.1f} rounds/s)")
+    stride = max(args.rounds // 10, 1)
+    shown = sorted(set(range(0, args.rounds + 1, stride)) | {args.rounds})
+    for r in shown:
+        q = int(queries[r - 1]) if r > 0 else 0
+        print(f"  round {r:4d}  F = {float(f[r]):+.5f}  queries/client = {q}")
+
+
+if __name__ == "__main__":
+    main()

@@ -44,32 +44,48 @@ N_ = lambda a: np.asarray(a)
 
 
 class RecordedDraws:
-    """The port's draw source, replaying arrays recorded from the reference."""
+    """The port's draw source, replaying arrays recorded from the reference.
+    ``state()`` is how many arrays of each kind it has handed out, and
+    ``load_state`` skips ahead to such a state (a resumed run's draws)."""
 
     def __init__(self, bank=None):
         self.banks = [] if bank is None else [bank]
         self.deltas_, self.noise_, self.directions_ = [], [], []
+        self.used = [0, 0, 0, 0]  # arrays taken from banks, deltas_, noise_, directions_
+
+    def _take(self, i):
+        self.used[i] += 1
+        return (self.banks, self.deltas_, self.noise_, self.directions_)[i].pop(0)
 
     def bank(self, m, d):
-        return self.banks.pop(0)
+        return self._take(0)
 
     def deltas(self, n, d, radius):
-        out = self.deltas_.pop(0)
+        out = self._take(1)
         assert out.shape == (N, n, d)
         return out
 
     def noise(self, k):
-        out = self.noise_.pop(0)
+        out = self._take(2)
         assert out.shape == (N, k)
         return out
 
     def directions(self, q, d):
-        out = self.directions_.pop(0)
+        out = self._take(3)
         assert out.shape == (N, q, d)
         return out
 
     def exhausted(self):
         return not (self.banks or self.deltas_ or self.noise_ or self.directions_)
+
+    def state(self):
+        return [torch.tensor(self.used, dtype=torch.int64)]
+
+    def load_state(self, states):
+        for i, want in enumerate(states[0].tolist()):
+            assert want >= self.used[i], "a recorded source only skips ahead"
+            for _ in range(want - self.used[i]):
+                self._take(i)
 
 
 _split = lambda keys, n: jax.vmap(lambda k: jax.random.split(k, n))(keys)

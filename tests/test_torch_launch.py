@@ -1,0 +1,190 @@
+"""The port's command line (``repro_torch.launch``) against the reference's
+(``repro.launch``).
+
+The flag surface is the reference's: ``add_algo_flags`` and
+``add_engine_flags`` install the same options with the same destinations,
+types, defaults and choices, and the launcher's parser adds only
+``--device``.  The reference's launcher tests (tests/test_launchers.py)
+run again on ``repro_torch.launch.fedzoo.main`` with ``--device cpu``;
+a second call with the same ``--ckpt-dir`` resumes and prints the same
+final row; every objective or flag whose module is not ported yet exits
+naming its ROADMAP item.
+"""
+
+import argparse
+import os
+import shutil
+
+import pytest
+import torch
+
+from repro.launch import common as rcommon
+from repro.launch import fedzoo as rfedzoo
+from repro_torch.checkpoint import io
+from repro_torch.launch import common, fedzoo
+
+
+def _actions(ap: argparse.ArgumentParser) -> dict:
+    """Option strings -> what parsing them does, for every option but -h."""
+    return {tuple(a.option_strings): (a.dest, a.default, a.choices, a.type, a.nargs, a.const,
+                                      type(a).__name__)
+            for a in ap._actions if a.dest != "help"}
+
+
+def _shared_parser(mod) -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    mod.add_algo_flags(ap)
+    mod.add_engine_flags(ap)
+    return ap
+
+
+def _reference_launcher_parser(monkeypatch) -> argparse.ArgumentParser:
+    """The parser ``repro.launch.fedzoo.main`` builds, caught at its parse."""
+    caught = {}
+
+    class Caught(Exception):
+        pass
+
+    def catch(self, *args, **kwargs):
+        caught["ap"] = self
+        raise Caught
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", catch)
+        with pytest.raises(Caught):
+            rfedzoo.main()
+    return caught["ap"]
+
+
+def test_flag_surface_matches_the_reference(monkeypatch):
+    """The shared flags are the reference's, option for option; the
+    launcher's parser is the reference launcher's plus ``--device``."""
+    assert _actions(_shared_parser(common)) == _actions(_shared_parser(rcommon))
+    assert common._FLAG_FIELDS == rcommon._FLAG_FIELDS
+    ref, port = _actions(_reference_launcher_parser(monkeypatch)), _actions(fedzoo.parser())
+    assert set(port) - set(ref) == {("--device",)}
+    assert {k: v for k, v in port.items() if k != ("--device",)} == ref
+    assert port[("--device",)][1] == "cuda"
+    defaults = fedzoo.parser().parse_args([])
+    assert (defaults.lengthscale, defaults.gp_noise, defaults.features, defaults.traj_cap,
+            defaults.dim, defaults.clients) == (0.5, 1e-5, 1000, 192, 300, 5)
+
+
+def test_config_from_args_round_trip():
+    """Every flag lands on its AlgoConfig field (tests/test_launchers.py:54)."""
+    ap = _shared_parser(common)
+    args = ap.parse_args([
+        "--algo", "fzoos", "--local-steps", "3", "--eta", "0.02", "--q", "4",
+        "--features", "32", "--traj-cap", "24", "--lengthscale", "0.7",
+        "--gp-noise", "1e-4", "--gamma-mode", "const", "--gamma-const", "0.5",
+        "--no-defer-repair", "--eval-every", "4",
+    ])
+    cfg = common.config_from_args(args, dim=6, n_clients=3)
+    assert cfg.name == "fzoos" and cfg.dim == 6 and cfg.n_clients == 3
+    assert cfg.local_steps == 3 and cfg.eta == 0.02 and cfg.q == 4
+    assert cfg.n_features == 32 and cfg.traj_capacity == 24
+    assert cfg.lengthscale == 0.7 and cfg.noise == 1e-4
+    assert cfg.gamma_mode == "const" and cfg.gamma_const == 0.5
+    assert cfg.defer_repair is False and cfg.use_factor_cache is True
+    assert args.eval_every == 4
+    assert common.config_from_args(ap.parse_args(["--noise", "3e-5"]), dim=4,
+                                   n_clients=2).noise == 3e-5
+    cfg2 = common.config_from_args(ap.parse_args(["--no-factor-cache"]), dim=4, n_clients=2)
+    assert cfg2.use_factor_cache is False and not cfg2.deferred
+    assert common.config_from_args(ap.parse_args([]), dim=4, n_clients=2).deferred
+    with pytest.raises(TypeError):
+        common.make_config("fzoos", dim=4, n_clients=2, not_a_field=1)
+
+
+def _main(capsys, argv) -> str:
+    fedzoo.main(["--device", "cpu", *argv])
+    return capsys.readouterr().out
+
+
+SMALL = ["--dim", "6", "--clients", "4", "--rounds", "7",
+         "--local-steps", "2", "--features", "16", "--traj-cap", "16", "--lengthscale", "0.5",
+         "--gp-noise", "1e-5", "--gamma-mode", "inv_t"]
+
+
+@pytest.mark.parametrize("objective, algo, extra", [
+    ("quadratic", "fzoos", ["--chunk", "5"]),
+    ("quadratic", "fedzo", ["--chunk", "0"]),
+    ("sinquad", "fzoos", ["--no-defer-repair"]),
+], ids=["fzoos", "fedzo_loop", "sinquad_per_client"])
+def test_cli_smoke(capsys, objective, algo, extra):
+    """End to end on the quadratic (and the sinquad), the reference's lines;
+    the table always shows the final round (tests/test_launchers.py:40)."""
+    out = _main(capsys, SMALL + ["--objective", objective, "--algo", algo, *extra])
+    assert out.startswith(f"objective={objective} dim=6 clients=4 algo={algo}\n")
+    assert "queries/round/client = " in out and "F(x_0) = +" in out and "F(x_R) = " in out
+    assert "round    7" in out and "round    0  F = " in out
+
+
+def test_cli_eval_every(capsys):
+    """``--eval-every`` leaves NaN rows but always the final round."""
+    out = _main(capsys, ["--dim", "4", "--clients", "2", "--rounds", "5", "--local-steps", "1",
+                         "--features", "8", "--traj-cap", "8", "--eval-every", "5",
+                         "--chunk", "5"])
+    assert "round    5" in out and "nan" in out
+
+
+def test_cli_final_round_not_on_stride(capsys):
+    """rounds=25: stride 2, and the final round 25 is shown."""
+    out = _main(capsys, ["--dim", "4", "--clients", "2", "--rounds", "25", "--local-steps",
+                         "1", "--algo", "fedzo", "--q", "2", "--chunk", "25"])
+    assert "round   24" in out and "round   25" in out
+
+
+FD_CKPT = ["--dim", "4", "--clients", "2", "--rounds", "4", "--local-steps", "1", "--algo",
+           "fedzo", "--q", "2", "--chunk", "2"]
+
+
+def test_cli_ckpt_flags_and_resume(capsys, tmp_path):
+    """``--ckpt-dir``/``--ckpt-every``/``--sync-ckpt`` leave a complete last
+    step (tests/test_launchers.py:113); with the last step removed, the
+    same command resumes from the step before it (at ``--ckpt-every 2``
+    there is none, and it starts again) and prints the same result rows."""
+    ckpt = str(tmp_path / "cli_ckpt")
+    argv = FD_CKPT + ["--ckpt-dir", ckpt, "--ckpt-every", "2", "--sync-ckpt"]
+    first = _main(capsys, argv)
+    assert io.list_steps(ckpt) == [4]
+    rows = lambda out: [line for line in out.splitlines() if line.startswith("  round")]
+    fx = lambda out: next(line for line in out.splitlines()
+                          if line.startswith("F(x_0)")).split("   (")[0]
+    for every in ("1", "2"):
+        shutil.rmtree(ckpt)
+        _main(capsys, FD_CKPT + ["--ckpt-dir", ckpt, "--ckpt-every", every])
+        steps = io.list_steps(ckpt)
+        shutil.rmtree(os.path.join(ckpt, f"step_{steps[-1]:08d}"))
+        again = _main(capsys, FD_CKPT + ["--ckpt-dir", ckpt, "--ckpt-every", every])
+        assert steps == ([2, 4] if every == "1" else [4]) and io.latest_step(ckpt) == 4
+        assert rows(again) == rows(first) and fx(again) == fx(first)
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--objective", "attack"], "A9"),
+    (["--objective", "metric"], "A9"),
+    (["--objective", "lm"], "A13"),
+    (["--distributed"], "A11"),
+    (["--cohort", "2"], "A12"),
+    (["--pool-size", "8", "--cohort", "2"], "A12"),
+    (["--drop-rate", "0.1"], "A10"),
+    (["--nan-rate", "0.2", "--fault-until", "3"], "A10"),
+    (["--fault-tolerance"], "A10"),
+], ids=["attack", "metric", "lm", "distributed", "cohort", "pool", "drop", "nan", "tolerance"])
+def test_unported_flags_exit_naming_their_item(capsys, argv, item):
+    """An objective or flag whose module is not ported exits with a message
+    that names its ROADMAP item, before any run."""
+    with pytest.raises(SystemExit, match=item):
+        fedzoo.main(["--device", "cpu", "--dim", "4", "--clients", "2", "--rounds", "1",
+                     *argv])
+    assert "F(x_0)" not in capsys.readouterr().out
+
+
+def test_cli_defaults_to_the_card():
+    """Without ``--device`` the launcher asks for CUDA, and raises where
+    there is none (no silent fallback to the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fedzoo.main(["--dim", "4", "--clients", "2", "--rounds", "1"])
