@@ -59,8 +59,9 @@ Phases, each a hard check (any failure exits non-zero):
    and is bit for bit phase 4b's run (every history row, the generators'
    states) and the same run through ``run_rounds`` without checkpoints
    (the final state, read back from step 10); the step's bytes, the
-   snapshot's and the write's ms, the whole checkpointed call against
-   phase 4b's; then the command line, ``python -m
+   snapshot's and the write's ms, and the whole ``simulate`` call without
+   checkpoints, with blocking writes and with the background writer, in
+   ``COST_TURNS`` turns; then the command line, ``python -m
    repro_torch.launch.fedzoo --rounds 10 --chunk 5 --ckpt-dir D`` at its
    defaults (d=300, N=5, M=1000, cap=192), run again with step 10
    removed: the same step 10, arrays and checksums, and the same printed
@@ -849,6 +850,7 @@ def profile_round(cfg, cobjs, dev, label="profile") -> None:
 #: and CAPTURED_ROUNDS / CHUNK replays; the small card-vs-CPU check in
 #: chunks of SMALL_CHUNK (3 rounds: one full chunk and a shorter one).
 CAPTURED_ROUNDS, CHUNK, SMALL_CHUNK = 10, 5, 2
+COST_TURNS = 3  # phase 4c: whole calls a mode, in turns
 #: The port's kernels by the name the profiler gives them (``fz::<name><...>``)
 #: and the counter of the wrapper that launches them on the main path.
 FZ_KERNELS = {"score_cluster_kernel": "score_resident", "grad_cluster_kernel": "grad_resident",
@@ -1175,7 +1177,7 @@ def check_checkpoint(cfg, cobjs, dev, straight, straight_draws, straight_secs) -
         return final, time.perf_counter() - t0
 
     final, plain_secs = plain()
-    whole, boundary = {"without": [plain_secs]}, {"snapshot": [], "write": []}
+    boundary = {"snapshot": [], "write": []}
 
     def sim(root, draws, async_write):
         torch.cuda.synchronize()
@@ -1206,7 +1208,6 @@ def check_checkpoint(cfg, cobjs, dev, straight, straight_draws, straight_secs) -
                 fail(f"checkpoint {mode}: steps {steps}, expected {[CHUNK, CAPTURED_ROUNDS]}")
             if not bitwise(res, straight) or not bitwise(draws.state(), straight_gens):
                 fail(f"checkpoint {mode}: the checkpointed run is not phase 4b's bit for bit")
-            whole[mode] = secs
             for k in boundary:
                 boundary[k] += clog[k]
 
@@ -1239,14 +1240,34 @@ def check_checkpoint(cfg, cobjs, dev, straight, straight_draws, straight_secs) -
             if not all(same.values()):
                 fail(f"checkpoint {mode}: the resumed run is not the run without a stop bit "
                      f"for bit: {same}")
-    whole["without"].append(plain()[1])
-    ms = lambda ts: round(1e3 * sorted(ts)[len(ts) // 2], 3)
-    print(f"[checkpoint cost] {card_name()}: the whole call of {CAPTURED_ROUNDS} rounds in "
-          f"captured chunks of {CHUNK}, in turns: without checkpoints "
-          f"{whole['without'][0]:.3f} s, blocking writes {whole['blocking']:.3f} s, "
-          f"background writes {whole['async']:.3f} s, without {whole['without'][1]:.3f} s; "
-          f"the {len(boundary['write'])} written boundaries of this phase's runs: snapshot "
-          f"median {ms(boundary['snapshot'])} ms, write median {ms(boundary['write'])} ms",
+    # The whole call in turns, each mode through simulate, after the runs
+    # above have warmed every path: one call a mode is within the spread
+    # of such calls, so the cost is read from COST_TURNS calls a mode.
+    turns = {"without": [], "blocking": [], "async": []}
+    for _ in range(COST_TURNS):
+        for mode in turns:
+            with tempfile.TemporaryDirectory() as root, timed_checkpoints() as tlog:
+                res, secs = sim(None if mode == "without" else root, main_draws(),
+                                mode == "async")
+            if not bitwise(res, straight):
+                fail(f"checkpoint cost: the {mode} run is not phase 4b's bit for bit")
+            turns[mode].append(secs)
+            for k in boundary:
+                boundary[k] += tlog[k]
+    med = lambda ts: sorted(ts)[len(ts) // 2]
+    ms = lambda ts: round(1e3 * med(ts), 3)
+    n_bounds = CAPTURED_ROUNDS // CHUNK
+    per_call = n_bounds * (med(boundary["snapshot"]) + med(boundary["write"]))
+    print(f"[checkpoint cost] {card_name()}: the whole simulate call of {CAPTURED_ROUNDS} "
+          f"rounds in captured chunks of {CHUNK}, {COST_TURNS} turns of (without, blocking, "
+          f"background): without checkpoints {[round(t, 3) for t in turns['without']]} s, "
+          f"blocking writes {[round(t, 3) for t in turns['blocking']]} s, background writes "
+          f"{[round(t, 3) for t in turns['async']]} s; medians {ms(turns['without'])} / "
+          f"{ms(turns['blocking'])} / {ms(turns['async'])} ms, blocking - without "
+          f"{round(1e3 * (med(turns['blocking']) - med(turns['without'])), 3)} ms against "
+          f"{n_bounds} boundaries x (snapshot + write) = {round(1e3 * per_call, 3)} ms; the "
+          f"{len(boundary['write'])} written boundaries of this phase: snapshot median "
+          f"{ms(boundary['snapshot'])} ms, write median {ms(boundary['write'])} ms",
           flush=True)
     check_cli_resume()
 

@@ -12,7 +12,6 @@ from repro_torch.checkpoint.io import (  # noqa: F401
     restore_round_state,
     restore_train_state,
     save,
-    save_round_state,
     save_train_state,
     write_round_state,
 )

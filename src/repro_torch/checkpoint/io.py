@@ -38,8 +38,8 @@ has a third, ``draws``: the draw source's generator states, where the
 reference keeps one key per client inside the state.
 
 The reference's sharded layout (a mesh, one file per process) and its
-client-pool layout are not ported: a mesh or such a step raises
-``NotImplementedError``.
+client-pool layout are not ported: restoring a step written in either
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -329,23 +329,20 @@ def _round_tree(states, history, draws) -> dict:
     return tree
 
 
-def prepare_round_state(states, history, draws=None, mesh=None) -> dict:
+def prepare_round_state(states, history, draws=None) -> dict:
     """Host snapshot of a round-state checkpoint: every device read happens
     here, and the copies are complete when it returns (the caller may
     overwrite the state next).  The payload is numpy and JSON only, for
     ``write_round_state``.  ``draws`` is the draw source's ``state()``."""
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED)
     arrays, meta = _flatten_to_host(_round_tree(states, history, draws))
-    return {"layout": "single", "arrays": arrays, "meta": meta}
+    return {"arrays": arrays, "meta": meta}
 
 
 def write_round_state(root: str, round_idx: int, payload: dict,
                       extra_meta: dict | None = None) -> str:
-    """Persist a ``prepare_round_state`` payload: file I/O on host arrays,
-    no device access, so it may run on the writer thread."""
-    if payload["layout"] != "single":
-        raise NotImplementedError(_SHARDED)
+    """Persist a ``prepare_round_state`` payload, keyed by the number of
+    completed rounds: file I/O on host arrays, no device access, so it may
+    run on the writer thread."""
     meta = _with_checksums(payload["meta"], payload["arrays"])
     meta["step"] = round_idx
     if extra_meta:
@@ -353,21 +350,11 @@ def write_round_state(root: str, round_idx: int, payload: dict,
     return _write_single(_step_path(root, round_idx), payload["arrays"], meta)
 
 
-def save_round_state(root: str, round_idx: int, states, history,
-                     extra_meta: dict | None = None, mesh=None, draws=None) -> str:
-    """Chunk-boundary checkpoint of ``run_rounds``: the stacked
-    ``ClientState``, the preallocated history and the draw source's state,
-    keyed by the number of completed rounds."""
-    payload = prepare_round_state(states, history, draws, mesh=mesh)
-    return write_round_state(root, round_idx, payload, extra_meta=extra_meta)
-
-
 def restore_round_state(root: str, states_like, hist_like, step: int | None = None,
-                        mesh=None, draws_like=None):
-    """Inverse of ``save_round_state``; returns (states, history, draws,
-    round_idx), ``draws`` None when ``draws_like`` is."""
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED)
+                        draws_like=None):
+    """Inverse of ``prepare_round_state`` + ``write_round_state``; returns
+    (states, history, draws, round_idx), ``draws`` None when ``draws_like``
+    is.  A step in the reference's sharded or pool layout raises."""
     if step is None:
         step = latest_step(root)
         if step is None:

@@ -163,7 +163,7 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
                global_value_fn: GlobalValueFn, rounds: int, chunk: int, *, draws,
                diag_global_grad=None, eval_every: int = 1,
                checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
-               resume: bool = True, async_checkpoint: bool = True):
+               async_checkpoint: bool = True):
     """Run ``rounds`` communication rounds in chunks of ``chunk`` rounds;
     returns (final stacked ClientState, SimResult history).
 
@@ -175,7 +175,7 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
 
     ``checkpoint_dir`` checkpoints {states, history, draws} every
     ``checkpoint_every`` chunks and at the last round; when a checkpoint
-    exists and ``resume`` is True the run restarts from the newest good
+    exists the run restarts from the newest good
     step, its history and generator states included (the initial
     ``global_value_fn`` evaluation is then skipped, and ``x0`` is only the
     template of the history).  The draw source must have ``state()`` and
@@ -207,7 +207,7 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
     run_meta = {"rounds": rounds, "chunk": chunk, "cfg": repr(cfg),
                 "eval_every": eval_every, "faults": repr(None)}
     start, hist = 0, None
-    if checkpoint_dir and resume and ckpt_io.latest_step(checkpoint_dir) is not None:
+    if checkpoint_dir and ckpt_io.latest_step(checkpoint_dir) is not None:
         r_states, r_hist, r_draws, start = _restore_newest_good(
             checkpoint_dir, run_meta, rounds, x0, states, draws.state())
         if r_hist is not None:
