@@ -66,6 +66,21 @@ Phases, each a hard check (any failure exits non-zero):
    defaults (d=300, N=5, M=1000, cap=192), run again with step 10
    removed: the same step 10, arrays and checksums, and the same printed
    F(x_R);
+4d. the paper's real-world objectives (``core/model_objectives.py``) at
+   the command line's defaults (M=1000, cap=192, T=10, l=0.5, 100
+   candidates, 5+5 active queries): the federated black-box attack (N=10,
+   P=0.5, 16 x 16 images: d=256) on seeds 0, 1 and 2 and the
+   non-differentiable metric (N=7, P=0.5: d=119) on seed 0, 5 rounds each
+   in the loop: F finite, exact queries, the deferred engine's launches,
+   the objective's build seconds (the victims' training) and ms/round,
+   and min F over rounds 1-5 below F(x_0) (the attack) or not above it
+   (the metric), ``attack_success`` of the best iterate printed; each on
+   seed 0 in captured chunks (10 rounds in chunks of 5) bit for bit its
+   loop, and one replayed chunk profiled; ``python -m repro_torch.launch.fedzoo --objective attack
+   --clients 10`` and ``--objective metric --clients 7`` at the defaults
+   (50 rounds, captured chunks of 16); the small attack engine (d=16, N=3,
+   built once on the CPU) on the card against the CPU, and B1, B3, B5, B6
+   and B9 on the small attack and metric engines' inputs against float64;
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -89,6 +104,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -666,27 +682,61 @@ class SameDraws:
         return self.base.noise(k).to(self.device, self.dtype)
 
 
-def small_config(**engine):
-    """The small engine of the card-vs-CPU and engine-input checks: d=8,
-    N=3, cap=16, M=32, T=3, 12 candidates, 2+2 active queries."""
+def small_config(dim=8, **engine):
+    """The small engine of the card-vs-CPU and engine-input checks: d=8
+    (the objective's d for the model-backed ones), N=3, cap=16, M=32, T=3,
+    12 candidates, 2+2 active queries."""
     from repro_torch.core import algorithms as alg
 
-    return alg.AlgoConfig(name="fzoos", dim=8, n_clients=3, local_steps=3, eta=0.01,
+    return alg.AlgoConfig(name="fzoos", dim=dim, n_clients=3, local_steps=3, eta=0.01,
                           n_features=32, traj_capacity=16, active_candidates=12,
                           active_per_iter=2, active_round_end=2, lengthscale=0.5, noise=1e-5,
                           **engine)
 
 
-def small_run(where, dtype=torch.float32, **engine):
-    """``small_config`` 3 rounds on ``where`` on the draws of
-    ``ClientDraws(2, ...)`` (made on the CPU, replayed in ``dtype``)."""
-    from repro_torch.core import algorithms as alg
+@functools.lru_cache(maxsize=None)
+def small_model_objective(name):
+    """The small engines' model-backed objective, built once on the CPU
+    (the card's training would give other victims): the attack on 4 x 4
+    images (d=16), the metric (d=119, 128 evaluation rows a client); N=3,
+    P=0.6 and 64 training images a victim, seed 7.  Returns (objective on
+    the CPU, d)."""
+    from repro_torch.core import model_objectives as mobj
+
+    if name == "attack":
+        cobjs, img = mobj.make_attack_objective(7, 3, p_shared=0.6, side=4, train_per_client=64,
+                                                device="cpu")
+        return cobjs, img.shape[-1]
+    return mobj.make_metric_objective(7, 3, p_shared=0.6, n_eval=128, device="cpu")
+
+
+def small_objective(where, objective="quadratic"):
+    """(objective on ``where``, query, global value, d) of the small
+    engines: the quadratic (d=8), or the attack or the metric of
+    ``small_model_objective`` moved to ``where``."""
+    from repro_torch.core import model_objectives as mobj
     from repro_torch.core import objectives as obj
 
-    q = obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=where)
+    if objective == "quadratic":
+        return (obj.make_quadratic(0, 3, 8, 5.0, 0.001, device=where), obj.quadratic_query,
+                obj.quadratic_global_value, 8)
+    cobjs, d = small_model_objective(objective)
+    moved = mobj.to(cobjs, where)
+    if objective == "attack":
+        return moved, mobj.attack_query, mobj.attack_global_value, d
+    return moved, mobj.metric_query, mobj.metric_global_value, d
+
+
+def small_run(where, dtype=torch.float32, objective="quadratic", **engine):
+    """``small_config`` 3 rounds on ``where`` on the draws of
+    ``ClientDraws(2, ...)`` (made on the CPU, replayed in ``dtype``), on
+    ``small_objective``'s objective (the quadratic by default)."""
+    from repro_torch.core import algorithms as alg
+
+    cobjs, query, value, d = small_objective(where, objective)
     draws = SameDraws(alg.ClientDraws(2, range(3), "cpu"), where, dtype)
-    return alg.simulate(small_config(**engine), 2, q, obj.quadratic_query,
-                        obj.quadratic_global_value, 3, draws=draws, chunk=0, device=where)
+    return alg.simulate(small_config(d, **engine), 2, cobjs, query, value, 3, draws=draws,
+                        chunk=0, device=where)
 
 
 def fallback_events(res, cfg) -> list:
@@ -700,13 +750,14 @@ def fallback_events(res, cfg) -> list:
     return [b - a for a, b in zip(totals, totals[1:])]
 
 
-def check_small_against_cpu(dev, label="small", **engine):
+def check_small_against_cpu(dev, label="small", objective="quadratic", **engine):
     """An engine on the card (kernels) and on the CPU (plain versions) on
     the same small input and draws: F within 1e-3, x within 1e-2 per round,
     the bound tests/test_torch_algorithms.py holds the port to against the
-    JAX reference."""
-    cfg = small_config(**engine)
-    cpu, gpu = small_run("cpu", **engine), small_run(dev, **engine)
+    JAX reference.  ``objective`` as ``small_run``'s."""
+    cfg = small_config(small_objective("cpu", objective)[3], **engine)
+    cpu = small_run("cpu", objective=objective, **engine)
+    gpu = small_run(dev, objective=objective, **engine)
     df = (cpu.f_values - gpu.f_values.cpu()).abs().max().item()
     dx = (cpu.xs - gpu.xs.cpu()).abs().max().item()
     print(f"[{label}] card vs CPU on the same draws: max|dF|={df:.3e} max|dx|={dx:.3e}",
@@ -747,7 +798,7 @@ def recording(names):
             setattr(ops, name, real[name])
 
 
-def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
+def check_engine_inputs(dev, label="engine inputs", objective="quadratic", **engine) -> dict:
     """B5, B6, B9 and the scoring and gradient-mean ops (B1/B3 on the
     deferred engine, B7a/B8a on the per-client one; B2/B7b with
     ``score_block_cap`` pinned below cap, B4/B8b with ``grad_block_cap``)
@@ -758,7 +809,8 @@ def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
     are held against a float64 evaluation of the same call.  A kernel less
     accurate than its plain version over the run (max error over the
     calls) fails; so is printed the eq. 8 correction, the difference of
-    each step's two B5 calls.  Returns the recorded calls of each op."""
+    each step's two B5 calls.  ``objective`` as ``small_run``'s.  Returns
+    the recorded calls of each op."""
     from repro_torch.kernels import gp_grad, gp_score, ref
 
     plain = {
@@ -787,7 +839,7 @@ def check_engine_inputs(dev, label="engine inputs", **engine) -> dict:
             else ref.grad_mean_batch(*a, lengthscale),
     }
     with recording(plain) as calls:
-        small_run(dev, **engine)
+        small_run(dev, objective=objective, **engine)
     f64 = lambda args: [a.double() if torch.is_tensor(a) else a for a in args]
     for name, recs in calls.items():
         if not recs:
@@ -1313,6 +1365,189 @@ def check_cli_resume() -> None:
             fail(f"checkpoint cli: the resumed command line is not the first run: {same}")
 
 
+#: Phase 4d, the paper's real-world objectives at the reference launcher's
+#: width (its defaults, ``launcher_config``: M=1000, cap=192, T=10,
+#: eta=0.01, l=0.5, noise 1e-5, 100 candidates, 5+5 active queries): the
+#: attack (N=10, P=0.5, 16 x 16 images: d=256) on each seed of
+#: ATTACK_SEEDS and the metric (N=7, P=0.5: d=119) on seed 0,
+#: OBJECTIVE_ROUNDS rounds each in the loop; both on seed 0 also in
+#: captured chunks (CAPTURED_ROUNDS in chunks of CHUNK).  A seed s builds
+#: the objective from ``stream_seed(s, 0)`` and runs from ``stream_seed(s,
+#: 1)``, as the command line does.
+ATTACK_SEEDS, OBJECTIVE_ROUNDS = (0, 1, 2), 5
+OBJECTIVE_CLIENTS = {"attack": 10, "metric": 7}
+
+
+def launcher_config(dim, n_clients):
+    """``AlgoConfig`` at the command line's defaults."""
+    from repro_torch.launch import common, fedzoo
+
+    return common.config_from_args(fedzoo.parser().parse_args([]), dim=dim, n_clients=n_clients)
+
+
+def build_model_objective(name, seed, dev):
+    """(objective, query, global value, d, build seconds) of ``attack`` or
+    ``metric`` on the card, as the command line builds it at P=0.5; the
+    seconds (the victims' training) on the host clock between two
+    synchronizations."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import model_objectives as mobj
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = OBJECTIVE_CLIENTS[name]
+    if name == "attack":
+        cobjs, img = mobj.make_attack_objective(alg.stream_seed(seed, 0), n, p_shared=0.5,
+                                                device=dev)
+        fns, d = (mobj.attack_query, mobj.attack_global_value), img.shape[-1]
+    else:
+        cobjs, d = mobj.make_metric_objective(alg.stream_seed(seed, 0), n, p_shared=0.5,
+                                              device=dev)
+        fns = (mobj.metric_query, mobj.metric_global_value)
+    torch.cuda.synchronize()
+    return (cobjs, *fns, d, time.perf_counter() - t0)
+
+
+def check_objectives(dev) -> None:
+    """Phase 4d: the attack and the metric through ``simulate`` at the
+    launcher's width (see ATTACK_SEEDS), each run's F finite, its queries
+    exact, its launches those of the deferred engine, and min F over rounds
+    1-5 below F(x_0) (the attack; the criterion of tests/test_system.py
+    without its 1e-3 margin) or not above it (the metric); each on seed 0
+    in captured chunks against the loop; the command line on both; the small
+    attack engine on the card against the CPU, and B1, B3, B5, B6 and B9
+    on the small attack and metric engines' inputs against float64."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import model_objectives as mobj
+
+    card = card_name()
+    for name, seed in [("attack", s) for s in ATTACK_SEEDS] + [("metric", 0)]:
+        cobjs, query, value, d, build_secs = build_model_objective(name, seed, dev)
+        n = OBJECTIVE_CLIENTS[name]
+        cfg = launcher_config(d, n)
+        label = f"{name} seed {seed}"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = alg.simulate(cfg, alg.stream_seed(seed, 1), cobjs, query, value, OBJECTIVE_ROUNDS,
+                           chunk=0, device=dev)
+        torch.cuda.synchronize()
+        secs, counts = time.perf_counter() - t0, read_counts()
+        print(f"[{label}] {card}: d={d} N={n} M={cfg.n_features} cap={cfg.traj_capacity} "
+              f"T={cfg.local_steps} l={cfg.lengthscale}: objective built in {build_secs:.3f} s; "
+              f"{OBJECTIVE_ROUNDS} rounds (loop) in {secs:.3f} s, "
+              f"{1e3 * secs / OBJECTIVE_ROUNDS:.3f} ms/round; launches {counts}", flush=True)
+        check_result(res, cfg, OBJECTIVE_ROUNDS, label, must_fall=False)
+        loop_counts = deferred_counts(cfg, OBJECTIVE_ROUNDS)
+        want = expect(**dict(loop_counts, sqexp=loop_counts["sqexp"] + 1))
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+        f = res.f_values.cpu()
+        best = int(torch.argmin(f[1:])) + 1
+        improved = f[best] < f[0] if name == "attack" else f[best] <= f[0]
+        extra = (f"; attack_success of the best iterate "
+                 f"{float(mobj.attack_success(cobjs, res.xs[best])):.0f}"
+                 if name == "attack" else "")
+        print(f"[{label}] F(x_0) {f[0].item():.6f}, min F over rounds 1-{OBJECTIVE_ROUNDS} "
+              f"{f[best].item():.6f} at round {best}{extra}; "
+              f"{'ok' if improved else 'NOT IMPROVED'}", flush=True)
+        if not improved:
+            fail(f"{label}: min F over rounds 1-{OBJECTIVE_ROUNDS} is not "
+                 f"{'below' if name == 'attack' else 'at or below'} F(x_0)")
+        if seed == 0:
+            check_objective_captured(name, cfg, cobjs, query, value, seed, dev)
+    for name in OBJECTIVE_CLIENTS:
+        check_objective_cli(name)
+    check_small_against_cpu(dev, "small attack", objective="attack")
+    check_engine_inputs(dev, "small attack engine inputs", objective="attack")
+    check_engine_inputs(dev, "small metric engine inputs", objective="metric")
+
+
+def check_objective_captured(name, cfg, cobjs, query, value, seed, dev) -> None:
+    """Phase 4d: an objective in captured chunks (CAPTURED_ROUNDS in chunks
+    of CHUNK: one capture, two replays; the launches counted at the warm-up
+    round and the capture) against the loop's CAPTURED_ROUNDS rounds on the
+    same seed (``hold_to_loop``); then one replayed chunk profiled: its busy
+    share and the kernels with the most device time."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs
+
+    run_seed = alg.stream_seed(seed, 1)
+    draws = alg.ClientDraws(run_seed, range(cfg.n_clients), dev)
+    sim = lambda chunk, d: alg.simulate(cfg, run_seed, cobjs, query, value, CAPTURED_ROUNDS,
+                                        chunk=chunk, draws=d, device=dev)
+    reset_counts()
+    graphs.COUNTS.update(captures=0, replays=0)
+    with timed_chunks() as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim(CHUNK, draws)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts, runs = read_counts(), dict(graphs.COUNTS)
+    label = f"{name} captured"
+    print(f"[{label}] {card_name()}: d={cfg.dim} N={cfg.n_clients} seed {seed}: "
+          f"{CAPTURED_ROUNDS} rounds in chunks of {CHUNK} in {secs:.3f} s; {runs['captures']} "
+          f"capture(s) in {sum(log['capture']):.3f} s; replays "
+          f"{[round(1e3 * s, 3) for s in log['replay']]} ms, "
+          f"{1e3 * sum(log['replay']) / CAPTURED_ROUNDS:.3f} ms/round over the replays; "
+          f"launches counted at the warm-up round and the capture {counts}", flush=True)
+    check_result(res, cfg, CAPTURED_ROUNDS, label, must_fall=False)
+    if runs != {"captures": 1, "replays": CAPTURED_ROUNDS // CHUNK}:
+        fail(f"{label}: {runs}, expected 1 capture and {CAPTURED_ROUNDS // CHUNK} replays")
+    warm_and_capture = deferred_counts(cfg, 1 + CHUNK)
+    want = expect(**dict(warm_and_capture, sqexp=warm_and_capture["sqexp"] + 1))
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want} (factor_init, the warm-up "
+             "round and the capture)")
+    loop_draws = alg.ClientDraws(run_seed, range(cfg.n_clients), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = sim(0, loop_draws)
+    torch.cuda.synchronize()
+    print(f"[{label}] the loop's {CAPTURED_ROUNDS} rounds in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    hold_to_loop(loop, res, label, loop_draws, draws)
+
+    # one replayed chunk under the profiler: where its device time goes
+    with timed_chunks(profile_replays=True) as plog:
+        alg.simulate(cfg, run_seed, cobjs, query, value, CHUNK, chunk=CHUNK, device=dev)
+    kernels = [e for e in plog["profiles"][0].key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    wall_ms = 1e3 * plog["replay"][0]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[{label} profile] one replayed chunk of {CHUNK} rounds: wall {wall_ms:.3f} ms "
+          f"(profiled), device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{sum(e.count for e in kernels)} device kernels; most device time: "
+          + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top), flush=True)
+
+
+def check_objective_cli(name) -> None:
+    """Phase 4d: ``python -m repro_torch.launch.fedzoo --objective <name>
+    --clients N`` in a child process at the launcher's defaults (50
+    rounds, the default captured chunks of 16): exit 0 and a finite
+    F(x_R) and best."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo", "--objective", name,
+           "--clients", str(OBJECTIVE_CLIENTS[name])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the command line ({name}) exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    result = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
+    print(f"[{name} cli] {' '.join(cmd[1:])} in {secs:.1f} s: {lines[:2]}; {result}", flush=True)
+    fields = result.replace("=", " ").split()
+    values = [float(fields[i + 1]) for i, w in enumerate(fields[:-1])
+              if w in ("F(x_0)", "F(x_R)", "best")]
+    if len(values) != 3 or not all(np.isfinite(values)):
+        fail(f"the command line ({name}) printed no finite F: {result!r}")
+
+
 def check_per_client(cobjs, dev) -> dict:
     """Phase 7: the per-client engine at the main path's width; returns the
     launch counts of its resident and tiled runs."""
@@ -1436,6 +1671,7 @@ def main() -> int:
     check_engine_inputs(dev, "small engine inputs")
     check_engine_inputs(dev, "small engine inputs, cap tiles of 8", score_block_cap=8)
     check_engine_inputs(dev, "small engine inputs, gradient cap tiles of 8", grad_block_cap=8)
+    check_objectives(dev)
     profile_round(cfg, cobjs, dev)
 
     ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)

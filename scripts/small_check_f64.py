@@ -13,9 +13,11 @@ beside a float64 run on the CPU: a copy of the port's package under
 objective, the wrappers' type check, so the plain versions run in
 float64), fed the same draws widened to float64 and run in a child process
 so that the two packages do not mix.  For the per-client and the deferred
-engines it prints max|dF| and max|dx| over the rounds and per round for
-card vs CPU (the smoke's check), card vs float64 and CPU vs float64, and
-the card's name and power limit.
+engines on the quadratic, and the deferred engine on the small attack
+(``chip_smoke.small_model_objective``: trained once in float32 on the CPU,
+its tensors widened to float64 for the float64 run), it prints max|dF| and
+max|dx| over the rounds and per round for card vs CPU (the smoke's check),
+card vs float64 and CPU vs float64, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import sys
 from pathlib import Path
 
 import torch
+from torch.utils import _pytree as pytree
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -34,7 +37,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 F64 = ROOT / "build" / "f64_engine"
-ENGINES = {"per-client": dict(defer_repair=False), "deferred": {}}
+ENGINES = {"per-client": dict(defer_repair=False), "deferred": {},
+           "attack deferred": dict(objective="attack")}
 
 
 def f64_package() -> Path:
@@ -56,6 +60,12 @@ def child(engine: str, out: Path) -> None:
 
     if not repro_torch.__file__.startswith(str(F64)):
         raise SystemExit(f"the float64 copy was not imported: {repro_torch.__file__}")
+    objective = ENGINES[engine].get("objective")
+    if objective:  # the parent's float32 objective, its tensors widened
+        cobjs, d = torch.load(F64 / f"{objective}.objective.pt", weights_only=False)
+        wide = pytree.tree_map_only(
+            torch.Tensor, lambda t: t.double() if t.is_floating_point() else t, cobjs)
+        chip_smoke.small_model_objective = lambda name: (wide, d)
     res = chip_smoke.small_run("cpu", torch.float64, **ENGINES[engine])
     if res.f_values.dtype != torch.float64:
         raise SystemExit(f"the copy ran in {res.f_values.dtype}")
@@ -86,6 +96,9 @@ def main() -> int:
     dev = torch.device("cuda")
     for name, engine in ENGINES.items():
         out = F64 / f"{name}.pt"
+        if engine.get("objective"):
+            torch.save(chip_smoke.small_model_objective(engine["objective"]),
+                       F64 / f"{engine['objective']}.objective.pt")
         subprocess.run([sys.executable, __file__, "--f64-child", name, str(out)], check=True)
         runs = {"f64": torch.load(out)}
         for side, where in (("CPU", "cpu"), ("card", dev)):

@@ -2,7 +2,8 @@
 the reference it is held against).
 
 The subpackages mirror the reference's layout: ``core`` (objectives, GP
-surrogate, RFF, the round engine), ``optim``, ``kernels`` (plain torch
+surrogate, RFF, the round engine, the model-backed objectives), ``data``
+(label partitions), ``optim``, ``kernels`` (plain torch
 oracles plus hand-written CUDA kernels for Hopper), ``checkpoint`` (the
 round engine's checkpoints) and ``launch`` (the command line).  Entry points run on
 ``device="cuda"`` unless the caller asks for ``"cpu"``.
@@ -17,4 +18,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["checkpoint", "convert", "core", "device", "kernels", "launch", "optim"]
+__all__ = ["checkpoint", "convert", "core", "data", "device", "kernels", "launch", "optim"]

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core import algorithms as alg
 from repro_torch.core import gp_surrogate as gp
+from repro_torch.core import model_objectives as mobj
 from repro_torch.core import objectives as obj
 from repro_torch.core import rff as rfflib
 from repro_torch.optim.optimizers import AdamState
@@ -38,6 +39,28 @@ def quadratic(src, device) -> obj.QuadraticClient:
 def sinquad(src, device) -> obj.SinQuadClient:
     """A stacked reference ``SinQuadClient``."""
     return _fields(src, obj.SinQuadClient, device)
+
+
+def mlp_params(src, device) -> mobj.MLPParams:
+    """A reference ``MLPParams`` (stacked or not)."""
+    return _fields(src, mobj.MLPParams, device)
+
+
+def attack_objective(src, device) -> mobj.AttackObjective:
+    """A stacked reference ``AttackObjective``; the labels as int64, the
+    port's index type."""
+    return mobj.AttackObjective(
+        victims=mlp_params(src.victims, device), z=tensor(src.z, device),
+        label=tensor(src.label, device).long(), eps=tensor(src.eps, device),
+        noise_std=tensor(src.noise_std, device))
+
+
+def metric_objective(src, device) -> mobj.MetricObjective:
+    """A stacked reference ``MetricObjective``; the labels as int64."""
+    return mobj.MetricObjective(
+        base=mlp_params(src.base, device), xs=tensor(src.xs, device),
+        ys=tensor(src.ys, device).long(), scale=tensor(src.scale, device),
+        noise_std=tensor(src.noise_std, device), n_classes=tensor(src.n_classes, device))
 
 
 def rff(src, device) -> rfflib.RFFParams:

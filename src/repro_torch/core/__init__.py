@@ -1,4 +1,6 @@
-"""Federated ZOO core of the port: objectives, FD directions, the trajectory
-GP surrogate with its Gram-factor cache, RFF features and the round engine."""
+"""Federated ZOO core of the port: objectives (synthetic and model-backed),
+FD directions, the trajectory GP surrogate with its Gram-factor cache, RFF
+features and the round engine."""
 
-__all__ = ["algorithms", "fd", "gp_surrogate", "objectives", "rff", "rounds"]
+__all__ = ["algorithms", "fd", "gp_surrogate", "model_objectives", "objectives", "rff",
+           "rounds"]

@@ -460,7 +460,11 @@ def run_round(
         server_x=new_server_x,
         mean_cos=torch.mean(sum_cos) / cfg.local_steps,
         mean_disparity=torch.mean(sum_disp) / cfg.local_steps,
-        queries_per_client=torch.mean(f32(states.queries)),
+        # the sum of the counts over N divided by N, exact as the reference's
+        # mean: on the card torch.mean, and a division by a host scalar,
+        # multiply by 1/N, one ulp off at N=7
+        queries_per_client=torch.sum(f32(states.queries)) / torch.full(
+            (), float(states.queries.shape[0]), device=x.device),
         refactor_rate=torch.mean(f32(fac.n_refactors) / torch.clamp(f32(fac.n_updates), min=1.0)),
         repair_rate=torch.mean(f32(fac.needs_repair)),
         drop_rate=zero,

@@ -49,6 +49,16 @@ def sqexp(x1, x2, lengthscale: float):
     return torch.exp(-0.5 * d2 / (lengthscale**2))
 
 
+def sqexp_f64(x1, x2, lengthscale: float):
+    """``sqexp`` with the distances taken in float64 and the Gram rounded to
+    the inputs' type once: the SE Gram wrapper's plain version on CPU
+    tensors.  In f32 the expanded distance cancels for points a few 1e-2
+    apart (a ring's, the active queries'), which the kernel's compensated
+    and f64 sums do not; on the small attack engine (d=16) that f32 Gram
+    alone moved the CPU run an Adam step away from a float64 run."""
+    return sqexp(x1.double(), x2.double(), lengthscale).to(x1.dtype)
+
+
 def _h_cross(cands: torch.Tensor, xs: torch.Tensor, lengthscale: float):
     """SE kernel vectors h (N, n, cap), the c.x_t table and ||c||^2 (N, n)."""
     n1 = torch.sum(cands * cands, dim=-1)

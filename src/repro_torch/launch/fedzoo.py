@@ -1,9 +1,16 @@
 """The port's experiment launcher (port of ``repro.launch.fedzoo``): run
-FZooS or a baseline on a synthetic objective, on the card by default.
+FZooS or a baseline on a synthetic or model-backed objective, on the card
+by default.
 
     # paper Fig. 1 setting (synthetic quadratics, d=300, N=5)
     python -m repro_torch.launch.fedzoo --objective quadratic \\
         --algo fzoos --dim 300 --clients 5 --het 5.0 --rounds 50
+
+    # federated black-box adversarial attack (Sec. 6.2)
+    python -m repro_torch.launch.fedzoo --objective attack --clients 10
+
+    # non-differentiable metric optimization (Sec. 6.3)
+    python -m repro_torch.launch.fedzoo --objective metric --clients 7
 
     # checkpoint every chunk boundary; the same command again resumes
     python -m repro_torch.launch.fedzoo --rounds 10 --chunk 5 --ckpt-dir ckpt
@@ -15,12 +22,14 @@ Run from the repository root with ``PYTHONPATH=src``.  ``--device``
 (default ``cuda``, which raises when no card is present) is the one flag
 the reference does not have.  ``--seed`` gives two streams through
 ``algorithms.stream_seed``: the words ``(seed, 0)`` seed the objective's
-numpy draws and ``(seed, 1)`` the run's ``ClientDraws``, as the reference
+draws and ``(seed, 1)`` the run's ``ClientDraws``, as the reference
 splits one key into the objective's and the run's.
 
-The objectives ``attack`` and ``metric`` (ROADMAP Queue A, A9) and ``lm``
-(A13), and ``--distributed`` (A11), keep their places in the command line
-and exit, naming their item, until they are ported.
+The attack and the metric train their victims on the run's device and
+ignore ``--dim`` and ``--het``, as the reference's do.  The objective
+``lm`` (ROADMAP Queue A, A13) and ``--distributed`` (A11) keep their
+places in the command line and exit, naming their item, until they are
+ported.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import time
 import numpy as np
 
 from repro_torch.core import algorithms as alg
+from repro_torch.core import model_objectives as mobj
 from repro_torch.core import objectives as obj
 from repro_torch.device import resolve_device
 from repro_torch.launch import common
@@ -51,7 +61,7 @@ ARCH_IDS = (
 )
 
 #: Objectives of the command line that are not ported yet, and their item.
-_UNPORTED = {"attack": "A9", "metric": "A9", "lm": "A13"}
+_UNPORTED = {"lm": "A13"}
 
 
 def build_objective(args, seed: int, device):
@@ -67,6 +77,14 @@ def build_objective(args, seed: int, device):
         cobjs = obj.make_sinquad(seed, args.clients, args.dim, args.het, args.noise_std,
                                  device=device)
         return cobjs, obj.sinquad_query, obj.sinquad_global_value, args.dim
+    if args.objective == "attack":
+        cobjs, _ = mobj.make_attack_objective(seed, args.clients, p_shared=args.p_shared,
+                                              device=device)
+        return cobjs, mobj.attack_query, mobj.attack_global_value, cobjs.z.shape[-1]
+    if args.objective == "metric":
+        cobjs, d = mobj.make_metric_objective(seed, args.clients, p_shared=args.p_shared,
+                                              device=device)
+        return cobjs, mobj.metric_query, mobj.metric_global_value, d
     raise ValueError(args.objective)
 
 

@@ -55,6 +55,7 @@ def _port_tests(name):
 
 
 TA = _port_tests("test_torch_algorithms")
+reference_gram = TA.reference_gram  # the reference's f32 SE Gram on the port's side
 TR = _port_tests("test_torch_rounds")
 
 
@@ -432,7 +433,7 @@ def test_draw_state_round_trip():
 # ---------------------------------------------------------------------------
 
 
-def test_resume_tracks_the_reference_on_its_draws(tmp_path):
+def test_resume_tracks_the_reference_on_its_draws(tmp_path, reference_gram):
     """Both packages run 5 rounds in chunks of 2 (steps 2, 4 and 5), lose
     the steps after 2 and resume, on the reference's draws: the port's
     resumed run tracks the reference's within F 1e-3 and x 1e-2 with exact

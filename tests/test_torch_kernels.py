@@ -291,6 +291,22 @@ def test_sqexp_matches_reference(nb, a, c, d):
                 _close_gram(g, (pallas, oracle), _gram_truth(x1[i], x2[i]))
 
 
+@pytest.mark.parametrize("nb,a,c,d", [(5, 5, 192, 300), (3, 2, 16, 16)],
+                         ids=["append_event", "small_attack"])
+def test_cpu_sqexp_is_the_float64_gram_rounded(nb, a, c, d):
+    """On CPU tensors ``ops.sqexp`` takes its distances in float64
+    (``ref.sqexp_f64``): on points near 0.5, where the f32 expanded distance
+    cancels, it is the float64 Gram rounded to f32 (within 1e-7 on values
+    in (0, 1]), while the reference's f32 oracle is further off."""
+    x1, x2 = _gram_inputs(nb, a, c, d, seed=a + c + d)
+    got = ops.sqexp(T(x1), T(x2), RFF_LS).numpy()
+    for i in range(nb):
+        truth = _gram_truth(x1[i], x2[i])
+        err = float(np.abs(got[i] - truth).max())
+        ref_err = float(np.abs(np.asarray(rref.sqexp(x1[i], x2[i], RFF_LS)) - truth).max())
+        assert err <= 1e-7 and err < ref_err, (err, ref_err)
+
+
 def test_rff_and_gram_oracles_match_reference_oracles():
     """ref.py's rff_features, rff_grad, rff_grad_rows and sqexp against
     repro.kernels.ref (and the reference core's per-row form)."""

@@ -7,7 +7,8 @@ types, defaults and choices, and the launcher's parser adds only
 ``--device``.  The reference's launcher tests (tests/test_launchers.py)
 run again on ``repro_torch.launch.fedzoo.main`` with ``--device cpu``;
 a second call with the same ``--ckpt-dir`` resumes and prints the same
-final row; every objective or flag whose module is not ported yet exits
+final row; the model-backed objectives (attack, metric) run at their own
+widths; every objective or flag whose module is not ported yet exits
 naming its ROADMAP item.
 """
 
@@ -21,6 +22,9 @@ import torch
 from repro.launch import common as rcommon
 from repro.launch import fedzoo as rfedzoo
 from repro_torch.checkpoint import io
+from repro_torch.core import algorithms as alg
+from repro_torch.core import graphs
+from repro_torch.core import model_objectives as mobj
 from repro_torch.launch import common, fedzoo
 
 
@@ -106,16 +110,21 @@ SMALL = ["--dim", "6", "--clients", "4", "--rounds", "7",
          "--gp-noise", "1e-5", "--gamma-mode", "inv_t"]
 
 
-@pytest.mark.parametrize("objective, algo, extra", [
-    ("quadratic", "fzoos", ["--chunk", "5"]),
-    ("quadratic", "fedzo", ["--chunk", "0"]),
-    ("sinquad", "fzoos", ["--no-defer-repair"]),
-], ids=["fzoos", "fedzo_loop", "sinquad_per_client"])
-def test_cli_smoke(capsys, objective, algo, extra):
+@pytest.mark.parametrize("objective, algo, extra, dim, clients", [
+    ("quadratic", "fzoos", ["--chunk", "5"], 6, 4),
+    ("quadratic", "fedzo", ["--chunk", "0"], 6, 4),
+    ("sinquad", "fzoos", ["--no-defer-repair"], 6, 4),
+    ("attack", "fzoos", ["--chunk", "5", "--clients", "1"], 256, 1),
+    ("metric", "fzoos", ["--chunk", "0"], 119, 4),
+], ids=["fzoos", "fedzo_loop", "sinquad_per_client", "attack", "metric"])
+def test_cli_smoke(capsys, objective, algo, extra, dim, clients):
     """End to end on the quadratic (and the sinquad), the reference's lines;
-    the table always shows the final round (tests/test_launchers.py:40)."""
+    the table always shows the final round (tests/test_launchers.py:40).
+    The attack (16 x 16 images; one victim, trained on 512 of them)
+    and the metric (the 16 x 7 + 7 output layer) ignore ``--dim``, as the
+    reference's do."""
     out = _main(capsys, SMALL + ["--objective", objective, "--algo", algo, *extra])
-    assert out.startswith(f"objective={objective} dim=6 clients=4 algo={algo}\n")
+    assert out.startswith(f"objective={objective} dim={dim} clients={clients} algo={algo}\n")
     assert "queries/round/client = " in out and "F(x_0) = +" in out and "F(x_R) = " in out
     assert "round    7" in out and "round    0  F = " in out
 
@@ -162,8 +171,6 @@ def test_cli_ckpt_flags_and_resume(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--objective", "attack"], "A9"),
-    (["--objective", "metric"], "A9"),
     (["--objective", "lm"], "A13"),
     (["--distributed"], "A11"),
     (["--cohort", "2"], "A12"),
@@ -171,7 +178,7 @@ def test_cli_ckpt_flags_and_resume(capsys, tmp_path):
     (["--drop-rate", "0.1"], "A10"),
     (["--nan-rate", "0.2", "--fault-until", "3"], "A10"),
     (["--fault-tolerance"], "A10"),
-], ids=["attack", "metric", "lm", "distributed", "cohort", "pool", "drop", "nan", "tolerance"])
+], ids=["lm", "distributed", "cohort", "pool", "drop", "nan", "tolerance"])
 def test_unported_flags_exit_naming_their_item(capsys, argv, item):
     """An objective or flag whose module is not ported exits with a message
     that names its ROADMAP item, before any run."""
@@ -188,3 +195,18 @@ def test_cli_defaults_to_the_card():
         pytest.skip("a CUDA device is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fedzoo.main(["--dim", "4", "--clients", "2", "--rounds", "1"])
+
+
+def test_cuda_objective_builds_are_identical():
+    """On the card, two builds of one seed give the same attack and metric
+    objectives bit for bit (the victims' training has no scatter in its
+    backward), as a command-line resume, which builds the objective again,
+    needs; at the launcher's widths and defaults (N=10 and N=7, P=0.5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card's training is what is compared")
+    seed = alg.stream_seed(0, 0)
+    for make, n in ((lambda: mobj.make_attack_objective(seed, 10, p_shared=0.5)[0], 10),
+                    (lambda: mobj.make_metric_objective(seed, 7, p_shared=0.5)[0], 7)):
+        first, second = graphs.tensors(make()), graphs.tensors(make())
+        assert len(first) == len(second) and first[0].is_cuda and first[0].shape[0] == n
+        assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -50,6 +50,7 @@ def _port_algorithms_tests():
 
 
 TA = _port_algorithms_tests()
+reference_gram = TA.reference_gram  # the reference's f32 SE Gram on the port's side
 
 
 def _fzoos_cfg(**kw):
@@ -155,7 +156,7 @@ def ref_quad():
     (TA.KW, TA.F_TOL, TA.X_TOL),
     (dict(TA.FD_KW, name="fedzo"), 1e-5, 1e-5),
 ], ids=["fzoos", "fedzo"])
-def test_chunked_matches_reference_scan(ref_quad, kw, f_tol, x_tol):
+def test_chunked_matches_reference_scan(ref_quad, reference_gram, kw, f_tol, x_tol):
     """Five rounds in chunks of 2 (2, 2, 1), the port against the
     reference's scan on the reference's draws: the ring wraps, the
     boundary repairs run after rounds 2, 4 and 5 on both sides."""
@@ -266,7 +267,7 @@ def test_bad_arguments_rejected(quad, call, match):
             _sim(cfg, quad, n_rounds, **call)
 
 
-def test_boundary_repair_matches_reference(ref_quad):
+def test_boundary_repair_matches_reference(ref_quad, reference_gram):
     """The boundary's repair of clients 0 and 2, flagged on the reference's
     state after two rounds: the same flags, exactness and repair counts as
     the reference's host-read and device-gated boundaries, the repaired
