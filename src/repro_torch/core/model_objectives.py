@@ -151,10 +151,12 @@ def _cpu_generator(seed: int, *words: int) -> torch.Generator:
     return torch.Generator().manual_seed(stream_seed(seed, *words))
 
 
-def _client_subsets(parts, size: int) -> list[np.ndarray]:
-    """Each client's draw of ``size`` of its indices (with replacement only
-    where it has fewer), from ``default_rng(client)``, as the reference."""
-    return [np.random.default_rng(i).choice(idx, size=min(size, len(idx)),
+def _client_subsets(parts, size: int, *, upto: bool) -> list[np.ndarray]:
+    """Each client's draw from its indices with ``default_rng(client)``,
+    with replacement where it has fewer than ``size``, as the reference's
+    makers draw: ``size`` indices (the metric's evaluation rows), or with
+    ``upto`` no more than the client has (the attack's training images)."""
+    return [np.random.default_rng(i).choice(idx, size=min(size, len(idx)) if upto else size,
                                             replace=len(idx) < size)
             for i, idx in enumerate(parts)]
 
@@ -191,7 +193,7 @@ def make_attack_objective(
     device = resolve_device(device)
     xs, ys = blob_images(_cpu_generator(seed, 0), 4096, side, n_classes)
     parts = label_subset_partition(ys.numpy(), n_clients, p_shared, seed=stream_seed(seed, 1))
-    subs = _client_subsets(parts, train_per_client)
+    subs = _client_subsets(parts, train_per_client, upto=True)
     # Clients whose classes hold fewer than train_per_client points train on
     # fewer; their rows are padded and weighted 0.
     width = max(len(s) for s in subs)
@@ -293,7 +295,7 @@ def make_metric_objective(
 
     parts = label_subset_partition(ys[4096:].numpy(), n_clients, p_shared,
                                    seed=stream_seed(seed, 1))
-    idx = torch.from_numpy(np.stack(_client_subsets(parts, n_eval)) + 4096)
+    idx = torch.from_numpy(np.stack(_client_subsets(parts, n_eval, upto=False)) + 4096)
     rep = lambda v: torch.full((n_clients,), v, dtype=torch.float32, device=device)
     obj = MetricObjective(
         base=MLPParams(*(t.expand(n_clients, *t.shape).contiguous() for t in theta)),

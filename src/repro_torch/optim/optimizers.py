@@ -5,8 +5,8 @@ tensor, so each update is one batched expression.  ``AdamState.step`` is
 either a scalar (every client steps in lockstep) or carries the leading
 client axes; it broadcasts against the parameters from the left.
 
-The parameters may also be a (named) tuple of tensors, as the reference's
-pytrees are (``MLPParams`` of ``core/model_objectives.py``, whose leaves
+Adam's parameters may also be a (named) tuple of tensors, as the
+reference's pytrees are (``MLPParams`` of ``core/model_objectives.py``, whose leaves
 carry a leading victim axis): the moments then have the same structure,
 and every leaf is updated by the single tensor's expressions.
 """
@@ -74,19 +74,17 @@ def adam_update(st: AdamState, grads, params, lr: float, b1: float = 0.9, b2: fl
     return new, AdamState(mu=mu, nu=nu, step=step)
 
 
-def adamw_init(params) -> AdamState:
+def adamw_init(params: torch.Tensor) -> AdamState:
     return adam_init(params)
 
 
-def adamw_update(st: AdamState, grads, params, lr: float, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8, weight_decay: float = 0.1) -> tuple[Any, AdamState]:
+def adamw_update(st: AdamState, grads: torch.Tensor, params: torch.Tensor, lr: float,
+                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1) -> tuple[torch.Tensor, AdamState]:
     mu, nu, step, bc1, bc2 = _moments(st, grads, b1, b2)
-    new = pytree.tree_map(
-        lambda p, m, v: _keep_dtype(p, p - lr * ((m / _lead(bc1, m))
-                                                 / (torch.sqrt(v / _lead(bc2, v)) + eps)
-                                                 + weight_decay * p)),
-        params, mu, nu)
-    return new, AdamState(mu=mu, nu=nu, step=step)
+    new = params - lr * ((mu / _lead(bc1, mu)) / (torch.sqrt(nu / _lead(bc2, nu)) + eps)
+                         + weight_decay * params)
+    return _keep_dtype(params, new), AdamState(mu=mu, nu=nu, step=step)
 
 
 def make_optimizer(name: str) -> tuple[Callable[..., Optional[AdamState]], Callable[..., tuple]]:

@@ -20,6 +20,7 @@ card-only cases (skipped without a card) resume in captured chunks, and
 load a generator state that a captured graph then replays.
 """
 
+import functools
 import importlib.util
 import os
 import shutil
@@ -55,7 +56,7 @@ def _port_tests(name):
 
 
 TA = _port_tests("test_torch_algorithms")
-reference_gram = TA.reference_gram  # the reference's f32 SE Gram on the port's side
+port64 = TA.port64  # the port in float64, the witness of TA.assert_tracks
 TR = _port_tests("test_torch_rounds")
 
 
@@ -433,14 +434,16 @@ def test_draw_state_round_trip():
 # ---------------------------------------------------------------------------
 
 
-def test_resume_tracks_the_reference_on_its_draws(tmp_path, reference_gram):
+def test_resume_tracks_the_reference_on_its_draws(tmp_path, port64):
     """Both packages run 5 rounds in chunks of 2 (steps 2, 4 and 5), lose
     the steps after 2 and resume, on the reference's draws: the port's
     resumed run tracks the reference's within F 1e-3 and x 1e-2 with exact
     queries, and its recorded draws are used up exactly.  The horizon is
     tests/test_torch_rounds.py's scan comparison (5 rounds, key 3): over 12
     rounds the two packages' runs part beyond x 1e-2 by round 6 without any
-    resume (f32 near-ties of the active picks; 1.6e-2 on key 3)."""
+    resume (f32 near-ties of the active picks; 1.6e-2 on key 3).  F and x
+    are held with ``TA.assert_tracks``'s float64 witness: the float64
+    port's run in the same chunks on the same draws, without a resume."""
     rcfg, cfg = ralg.AlgoConfig(**TA.KW), alg.AlgoConfig(**TA.KW)
     rq = robj.make_quadratic(jax.random.PRNGKey(0), TA.N, TA.D, 5.0, 0.001)
     q = convert.quadratic(jax.tree_util.tree_map(np.asarray, rq), "cpu")
@@ -463,9 +466,20 @@ def test_resume_tracks_the_reference_on_its_draws(tmp_path, reference_gram):
     _drop_steps_after(rroot, 2)
     _drop_steps_after(root, 2)
     ref, port = ref_sim(), port_sim()
+
+    @functools.cache
+    def truth():
+        rec64, o64 = TA._recorded_simulate_draws(cfg, key, n_rounds).widened(), port64.obj
+        out = port64.alg.simulate(
+            port64.alg.AlgoConfig(**TA.KW), 0, port64.convert.quadratic(TA.wide(rq), "cpu"),
+            o64.quadratic_query, o64.quadratic_global_value, n_rounds, draws=rec64,
+            chunk=chunk, device="cpu")
+        assert rec64.exhausted()
+        return out
+
     np.testing.assert_array_equal(port.queries.numpy(), np.asarray(ref.queries))
-    np.testing.assert_allclose(port.f_values.numpy(), np.asarray(ref.f_values), atol=TA.F_TOL)
-    np.testing.assert_allclose(port.xs.numpy(), np.asarray(ref.xs), atol=TA.X_TOL)
+    TA.assert_tracks(port.f_values, ref.f_values, lambda: truth().f_values, TA.F_TOL, "F")
+    TA.assert_tracks(port.xs, ref.xs, lambda: truth().xs, TA.X_TOL, "x")
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,9 @@ naming its ROADMAP item.
 import argparse
 import os
 import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -105,25 +108,41 @@ def _main(capsys, argv) -> str:
     return capsys.readouterr().out
 
 
+def _main_one_thread(capsys, argv) -> str:
+    """``_main`` in a child Python whose torch uses one CPU thread
+    (``OMP_NUM_THREADS=1`` in the child's environment only): the
+    model-backed objectives train their victims first, and under the test
+    runner's parallel workers torch's OpenMP regions oversubscribe the
+    cores and slow that loop by tens of times."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.fedzoo", "--device", "cpu",
+                          *argv], env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return res.stdout
+
+
 SMALL = ["--dim", "6", "--clients", "4", "--rounds", "7",
          "--local-steps", "2", "--features", "16", "--traj-cap", "16", "--lengthscale", "0.5",
          "--gp-noise", "1e-5", "--gamma-mode", "inv_t"]
 
 
-@pytest.mark.parametrize("objective, algo, extra, dim, clients", [
-    ("quadratic", "fzoos", ["--chunk", "5"], 6, 4),
-    ("quadratic", "fedzo", ["--chunk", "0"], 6, 4),
-    ("sinquad", "fzoos", ["--no-defer-repair"], 6, 4),
-    ("attack", "fzoos", ["--chunk", "5", "--clients", "1"], 256, 1),
-    ("metric", "fzoos", ["--chunk", "0"], 119, 4),
+@pytest.mark.parametrize("objective, algo, extra, dim, clients, run", [
+    ("quadratic", "fzoos", ["--chunk", "5"], 6, 4, _main),
+    ("quadratic", "fedzo", ["--chunk", "0"], 6, 4, _main),
+    ("sinquad", "fzoos", ["--no-defer-repair"], 6, 4, _main),
+    ("attack", "fzoos", ["--chunk", "5", "--clients", "1"], 256, 1, _main_one_thread),
+    ("metric", "fzoos", ["--chunk", "0"], 119, 4, _main_one_thread),
 ], ids=["fzoos", "fedzo_loop", "sinquad_per_client", "attack", "metric"])
-def test_cli_smoke(capsys, objective, algo, extra, dim, clients):
+def test_cli_smoke(capsys, objective, algo, extra, dim, clients, run):
     """End to end on the quadratic (and the sinquad), the reference's lines;
     the table always shows the final round (tests/test_launchers.py:40).
     The attack (16 x 16 images; one victim, trained on 512 of them)
     and the metric (the 16 x 7 + 7 output layer) ignore ``--dim``, as the
-    reference's do."""
-    out = _main(capsys, SMALL + ["--objective", objective, "--algo", algo, *extra])
+    reference's do; they run through ``python -m`` on one CPU thread
+    (``_main_one_thread``)."""
+    out = run(capsys, SMALL + ["--objective", objective, "--algo", algo, *extra])
     assert out.startswith(f"objective={objective} dim={dim} clients={clients} algo={algo}\n")
     assert "queries/round/client = " in out and "F(x_0) = +" in out and "F(x_R) = " in out
     assert "round    7" in out and "round    0  F = " in out

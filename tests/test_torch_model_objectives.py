@@ -18,6 +18,9 @@ logits within 1e-4; the engines within the engine bound of
 """
 
 import importlib.util
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -51,7 +54,7 @@ def _port_algorithms_tests():
 
 
 TA = _port_algorithms_tests()
-reference_gram = TA.reference_gram  # the reference's f32 SE Gram on the port's side
+port64 = TA.port64  # the port in float64, the witness of TA.assert_tracks
 
 
 # -- partitions ---------------------------------------------------------------
@@ -137,26 +140,39 @@ def _reference_training(p, xs, ys, steps, lr=5e-3):
     return p, np.array(losses)
 
 
-def test_train_mlp_matches_reference():
+TRAIN_MLP = """
+import sys, torch
+from repro_torch.core import model_objectives as mobj
+p0, tx, ty, hx = torch.load(sys.argv[1])
+p, losses = mobj._train_mlp(mobj.MLPParams(*p0), tx, ty)
+torch.save((losses, mobj.mlp_logits(p, hx), [t.requires_grad for t in p]), sys.argv[2])
+"""
+
+
+def test_train_mlp_matches_reference(tmp_path):
     """300 Adam steps at lr 5e-3 from the reference's initial params on 256
     of the reference's blob images: the loss within 1e-4 at each of the
-    first 50 steps, the trained logits on 256 held-out images within 1e-2."""
+    first 50 steps, the trained logits on 256 held-out images within 1e-2.
+    The port trains on the CPU by ``one_thread``."""
     p0 = rmobj.mlp_init(jax.random.PRNGKey(2), 64, 64, 10)
     xs, ys = rmobj.blob_images(jax.random.PRNGKey(3), 512, side=8)
     tx, ty, hx = xs[:256], ys[:256], xs[256:]
-    want_p, want_losses = _reference_training(p0, tx, ty, 300)
-    ref_p = rmobj._train_mlp(jax.random.PRNGKey(0), p0, tx, ty)
+    torch.save((tuple(convert.mlp_params(to_np(p0), "cpu")), T(tx), T(ty).long(), T(hx)),
+               tmp_path / "in.pt")
+    one_thread(TRAIN_MLP, str(tmp_path / "in.pt"), str(tmp_path / "out.pt"))
+    want_p, want_losses = _reference_training(p0, tx, ty, 50)
     # the loop above is the reference's own training
-    np.testing.assert_allclose(N_(rmobj.mlp_logits(want_p, hx)),
-                               N_(rmobj.mlp_logits(ref_p, hx)), atol=1e-5)
+    np.testing.assert_allclose(
+        N_(rmobj.mlp_logits(want_p, hx)),
+        N_(rmobj.mlp_logits(rmobj._train_mlp(jax.random.PRNGKey(0), p0, tx, ty, steps=50), hx)),
+        atol=1e-5)
+    ref_p = rmobj._train_mlp(jax.random.PRNGKey(0), p0, tx, ty)
 
-    got_p, got_losses = mobj._train_mlp(convert.mlp_params(to_np(p0), "cpu"), T(tx),
-                                        T(ty).long())
+    got_losses, got_logits, needs_grad = torch.load(tmp_path / "out.pt")
     assert got_losses.shape == (300,)
-    assert all(not t.requires_grad for t in got_p)
-    np.testing.assert_allclose(got_losses[:50].numpy(), want_losses[:50], atol=1e-4)
-    np.testing.assert_allclose(mobj.mlp_logits(got_p, T(hx)).numpy(),
-                               N_(rmobj.mlp_logits(ref_p, hx)), atol=1e-2)
+    assert not any(needs_grad)
+    np.testing.assert_allclose(got_losses[:50].numpy(), want_losses, atol=1e-4)
+    np.testing.assert_allclose(got_logits.numpy(), N_(rmobj.mlp_logits(ref_p, hx)), atol=1e-2)
 
 
 def test_stacked_training_trains_each_mlp_on_its_own_batch():
@@ -211,19 +227,51 @@ def test_attack_matches_reference(attack):
     assert float(mobj.attack_global_value(cps, torch.full((d,), 0.5))) > 0
 
 
-@pytest.fixture(scope="module")
-def port_attack():
-    """The port's own attack objective at tests/test_system.py's size (side
-    8, N=4, P=0.6, 128 training images a victim), on the CPU."""
-    return mobj.make_attack_objective(1, n_clients=4, p_shared=0.6, side=8,
+def one_thread(code: str, *args: str) -> str:
+    """Runs ``code`` in a child Python whose torch uses one CPU thread
+    (``OMP_NUM_THREADS=1`` in the child's environment only) and returns
+    its output.  Under the test runner's parallel workers, torch's OpenMP
+    regions (a batched product, a log-softmax, even on small tensors)
+    oversubscribe the cores, and a loop of a few hundred such steps, as a
+    victim's training, slows by tens of times; on one thread it costs what
+    it costs alone."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
+    res = subprocess.run([sys.executable, "-c", code, *args], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return res.stdout
+
+
+PORT_ATTACK = """
+import sys, torch
+from repro_torch.core import algorithms as alg, model_objectives as mobj
+cps, img = mobj.make_attack_objective(1, n_clients=4, p_shared=0.6, side=8,
                                       train_per_client=128, device="cpu")
+cfg = alg.AlgoConfig(name="fzoos", dim=img.shape[-1], n_clients=4, local_steps=5, eta=0.02,
+                     n_features=128, traj_capacity=96, active_per_iter=3,
+                     active_candidates=30, active_round_end=3, lengthscale=0.5, noise=1e-5)
+res = alg.simulate(cfg, 2, cps, mobj.attack_query, mobj.attack_global_value, 8, device="cpu")
+torch.save((cps, img, res.f_values), sys.argv[1])
+"""
+
+
+@pytest.fixture(scope="module")
+def port_attack(tmp_path_factory):
+    """The port's own attack objective at tests/test_system.py's size (side
+    8, N=4, P=0.6, 128 training images a victim) and F over 8 rounds of
+    FZooS on it, built and run on the CPU by ``one_thread``."""
+    out = tmp_path_factory.mktemp("port_attack") / "run.pt"
+    one_thread(PORT_ATTACK, str(out))
+    return torch.load(out, weights_only=False)
 
 
 def test_attack_objective_of_the_port(port_attack):
     """The port's maker: d = side^2, the target correctly classified on
     average, no tensor requiring a gradient, no query with an autograd
     graph (two builds of a seed on the card: tests/test_torch_launch.py)."""
-    cps, img = port_attack
+    cps, img, _ = port_attack
     d = img.shape[-1]
     assert d == 64 and cps.z.shape == (4, d) and cps.label.dtype == torch.int64
     assert all(not t.requires_grad for t in (*cps.victims, *cps[1:]))
@@ -292,6 +340,22 @@ def test_metric_matches_reference(metric):
     np.testing.assert_allclose(y.numpy()[~ties], (want + 0.001 * z.numpy())[~ties], atol=1e-6)
 
 
+def test_metric_eval_rows_match_reference():
+    """The metric's evaluation rows: the port's draw from each client's
+    partition (``_client_subsets``) picks the rows the reference's maker
+    holds, exactly, with n_eval 3530 above two clients' row counts (3522,
+    drawn with replacement) and below the third's (3537)."""
+    key, n_eval = jax.random.PRNGKey(4), 3530
+    robj, _ = rmobj.make_metric_objective(key, n_clients=3, p_shared=0.8, n_eval=n_eval)
+    kd, _, kp = jax.random.split(key, 3)
+    xs, ys = (N_(a)[4096:] for a in rmobj.tabular_covertype_like(kd, 8192))
+    parts = partition.label_subset_partition(ys, 3, 0.8, seed=int(kp[0]))
+    assert [len(p) < n_eval for p in parts] == [True, False, True]
+    rows = np.stack(mobj._client_subsets(parts, n_eval, upto=False))
+    np.testing.assert_array_equal(N_(robj.ys), ys[rows])
+    np.testing.assert_array_equal(N_(robj.xs), xs[rows])
+
+
 def test_soft_precision_on_tied_rows():
     """Rows whose top logits tie exactly: both packages' argmax takes the
     first index, so the precisions agree exactly."""
@@ -325,10 +389,9 @@ def _engine_pair(robj, cps, query, rquery, value, rvalue, d, rounds=3):
     return got, want
 
 
-def test_attack_engine_matches_reference(reference_gram):
+def test_attack_engine_matches_reference():
     """Three rounds of the deferred engine on the attack at side 4 (d=16),
-    N=3, cap=16, M=32, the port on the reference's f32 SE Gram
-    (``reference_gram``): F within 1e-3, x within 1e-2, exact queries."""
+    N=3, cap=16, M=32: F within 1e-3, x within 1e-2, exact queries."""
     robj, img = rmobj.make_attack_objective(jax.random.PRNGKey(7), n_clients=TA.N,
                                             p_shared=0.6, side=4, train_per_client=64)
     cps = convert.attack_objective(to_np(robj), "cpu")
@@ -341,17 +404,29 @@ def test_attack_engine_matches_reference(reference_gram):
     np.testing.assert_allclose(got.xs.numpy(), N_(want.xs), atol=TA.X_TOL)
 
 
-def test_metric_engine_matches_reference(metric, reference_gram):
+def test_metric_engine_matches_reference(metric, port64):
     """Three rounds of the deferred engine on the metric (d=119), N=3,
-    cap=16, M=32, the port on the reference's f32 SE Gram: x within 1e-2,
-    exact queries; F is a step function of x,
-    so each side's F is held to the reference's ``metric_global_value`` at
-    that side's own x (1e-6)."""
+    cap=16, M=32: x within 1e-2 (with ``TA.assert_tracks``'s float64
+    witness: the float64 port on the same objective and draws), exact
+    queries; F is a step function of x, so each side's F is held to the
+    reference's ``metric_global_value`` at that side's own x (1e-6)."""
     robj, cps, d = metric
+    rec64 = TA._recorded_simulate_draws(alg.AlgoConfig(**_engine_kw(d)), jax.random.PRNGKey(1),
+                                        3).widened()
     got, want = _engine_pair(robj, cps, mobj.metric_query, rmobj.metric_query,
                              mobj.metric_global_value, rmobj.metric_global_value, d)
+
+    def truth():
+        m64 = port64.mobj
+        out = port64.alg.simulate(
+            port64.alg.AlgoConfig(**_engine_kw(d)), 0,
+            port64.convert.metric_objective(TA.wide(to_np(robj)), "cpu"), m64.metric_query,
+            m64.metric_global_value, 3, draws=rec64, chunk=0, device="cpu")
+        assert rec64.exhausted()
+        return out.xs
+
     np.testing.assert_array_equal(got.queries.numpy(), N_(want.queries))
-    np.testing.assert_allclose(got.xs.numpy(), N_(want.xs), atol=TA.X_TOL)
+    TA.assert_tracks(got.xs, want.xs, truth, TA.X_TOL, "x")
     for res in (got, want):
         xs, f = N_(res.xs), N_(res.f_values)
         ref_f = [float(rmobj.metric_global_value(robj, jnp.asarray(x))) for x in xs]
@@ -360,16 +435,9 @@ def test_metric_engine_matches_reference(metric, reference_gram):
 
 def test_port_attack_lowers_the_margin(port_attack):
     """tests/test_system.py's attack run on the port's own objective (side
-    8, N=4, 8 rounds): FZooS pushes the averaged margin down by more than
-    1e-3."""
-    cps, img = port_attack
-    d = img.shape[-1]
-    cfg = alg.AlgoConfig(name="fzoos", dim=d, n_clients=4, local_steps=5, eta=0.02,
-                         n_features=128, traj_capacity=96, active_per_iter=3,
-                         active_candidates=30, active_round_end=3, lengthscale=0.5,
-                         noise=1e-5)
-    res = alg.simulate(cfg, 2, cps, mobj.attack_query, mobj.attack_global_value, 8,
-                       device="cpu")
-    f = res.f_values.numpy()
-    assert np.isfinite(f).all()
+    8, N=4, 8 rounds; ``port_attack``'s run, T=5, eta 0.02, M=128, cap 96,
+    30 candidates, 3+3 active): FZooS pushes the averaged margin down by
+    more than 1e-3."""
+    f = port_attack[2].numpy()
+    assert f.shape == (9,) and np.isfinite(f).all()
     assert f.min() < f[0] - 1e-3

@@ -17,6 +17,7 @@ where no client is flagged) and run one eager deferred chunk under
 ``torch.cuda.set_sync_debug_mode("error")``; they skip without a card.
 """
 
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -50,7 +51,7 @@ def _port_algorithms_tests():
 
 
 TA = _port_algorithms_tests()
-reference_gram = TA.reference_gram  # the reference's f32 SE Gram on the port's side
+port64 = TA.port64  # the port in float64, the witness of TA.assert_tracks
 
 
 def _fzoos_cfg(**kw):
@@ -156,24 +157,38 @@ def ref_quad():
     (TA.KW, TA.F_TOL, TA.X_TOL),
     (dict(TA.FD_KW, name="fedzo"), 1e-5, 1e-5),
 ], ids=["fzoos", "fedzo"])
-def test_chunked_matches_reference_scan(ref_quad, reference_gram, kw, f_tol, x_tol):
+def test_chunked_matches_reference_scan(ref_quad, port64, kw, f_tol, x_tol):
     """Five rounds in chunks of 2 (2, 2, 1), the port against the
     reference's scan on the reference's draws: the ring wraps, the
-    boundary repairs run after rounds 2, 4 and 5 on both sides."""
+    boundary repairs run after rounds 2, 4 and 5 on both sides.  F and x
+    are held with ``TA.assert_tracks``'s float64 witness: the float64
+    port's run in the same chunks on the same draws."""
     rq, q = ref_quad
     rcfg, cfg = ralg.AlgoConfig(**kw), alg.AlgoConfig(**kw)
     key, n_rounds = jax.random.PRNGKey(3), 5
     want = ralg.simulate(rcfg, key, rq, robj.quadratic_query, robj.quadratic_global_value,
                          n_rounds, chunk=2)
     rec = TA._recorded_simulate_draws(cfg, key, n_rounds)
+    rec64 = rec.widened()
     got = alg.simulate(cfg, 0, q, obj.quadratic_query, obj.quadratic_global_value, n_rounds,
                        draws=rec, chunk=2, device="cpu")
     assert rec.exhausted()
+
+    @functools.cache
+    def truth():
+        o64 = port64.obj
+        out = port64.alg.simulate(
+            port64.alg.AlgoConfig(**kw), 0, port64.convert.quadratic(TA.wide(rq), "cpu"),
+            o64.quadratic_query, o64.quadratic_global_value, n_rounds, draws=rec64, chunk=2,
+            device="cpu")
+        assert rec64.exhausted()
+        return out
+
     np.testing.assert_array_equal(got.queries.numpy(), N_(want.queries))
     assert got.queries[-1].item() == n_rounds * cfg.queries_per_round()
     assert np.isfinite(got.f_values.numpy()).all()
-    np.testing.assert_allclose(got.f_values.numpy(), N_(want.f_values), atol=f_tol)
-    np.testing.assert_allclose(got.xs.numpy(), N_(want.xs), atol=x_tol)
+    TA.assert_tracks(got.f_values, want.f_values, lambda: truth().f_values, f_tol, "F")
+    TA.assert_tracks(got.xs, want.xs, lambda: truth().xs, x_tol, "x")
 
 
 def test_eval_every_nan_contract(quad):
@@ -267,7 +282,7 @@ def test_bad_arguments_rejected(quad, call, match):
             _sim(cfg, quad, n_rounds, **call)
 
 
-def test_boundary_repair_matches_reference(ref_quad, reference_gram):
+def test_boundary_repair_matches_reference(ref_quad):
     """The boundary's repair of clients 0 and 2, flagged on the reference's
     state after two rounds: the same flags, exactness and repair counts as
     the reference's host-read and device-gated boundaries, the repaired
