@@ -81,6 +81,21 @@ Phases, each a hard check (any failure exits non-zero):
    (50 rounds, captured chunks of 16); the small attack engine (d=16, N=3,
    built once on the CPU) on the card against the CPU, and B1, B3, B5, B6
    and B9 on the small attack and metric engines' inputs against float64;
+4e. the main path under faults (``faults.FaultConfig``; ``check_faults``):
+   ``FAULTS_MIXED`` (every kind) 10 rounds in captured chunks of 5, bit for
+   bit the same chunks run eagerly (history, final state and quarantine
+   flags, generators), each round's drop and quarantine rates and mean
+   queries and each client's final queries those of the host's schedule
+   and quarantine rule, F finite with its minimum below F(x_0); the loop,
+   bit for bit the chunks up to the first quarantine inside a chunk (the
+   loop restarts it after its round, the chunks at the boundary) and
+   within the reference's faulted scan-vs-loop bounds after it; every rate
+   0 with tolerance against no faults, ms/round over the replays in turns
+   (the cost of the masking); a window that never opens, bit for bit no
+   faults; no tolerance with every payload NaN: ``FloatingPointError`` in
+   chunks, NaN rows in the loop; one replayed faulted chunk profiled
+   (``fz::`` launches those of a chunk, device kernels, busy share); the
+   small faulted engine (d=8, N=5) on the card against the CPU;
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -1324,6 +1339,294 @@ def check_checkpoint(cfg, cobjs, dev, straight, straight_draws, straight_secs) -
     check_cli_resume()
 
 
+#: Phase 4e: the main path under the reference's fault model.  The mixed
+#: configuration (every kind; a straggler and a NaN payload among the 5
+#: clients in round 1, quarantines in rounds 1, 3, 7 and 8), and the small
+#: faulted engine's clients and rounds (drops, stragglers and a NaN
+#: payload in 5 rounds).
+FAULTS_MIXED = dict(seed=3, drop_rate=0.2, straggle_rate=0.1, nan_rate=0.05, inf_rate=0.05)
+SMALL_FAULT_N, SMALL_FAULT_ROUNDS = 5, 5
+
+
+def fault_expectations(fcfg, rounds, n, chunk, per_round):
+    """What the tolerant engine must report under ``fcfg``, from the host's
+    ``schedule_table`` and the quarantine rule alone: a client whose update
+    is not finite (nan or inf, not dropped, not straggling) is quarantined
+    until the boundary (every ``chunk`` rounds; every round in the loop,
+    ``chunk=0``); a client is live when not dropped, not quarantined before
+    the round and its update finite; a dropped, straggling or quarantined
+    client's state (its query count too) rolls back.  Returns per round
+    the drop rate, the quarantine rate and the mean queries over live
+    clients, as float32 (true divisions, as the port's), and each client's
+    queries at the end (``per_round`` queries a completed round)."""
+    from repro_torch.faults import schedule_table
+
+    tab = schedule_table(fcfg, rounds, n)
+    quar, done = np.zeros(n, bool), np.zeros(n, np.int64)
+    f32 = np.float32
+    drop, quarantine, queries = [], [], []
+    for r in range(rounds):
+        poisoned = (tab["nan"][r] | tab["inf"][r]) & ~tab["straggle"][r]
+        live = ~tab["drop"][r] & ~quar & ~poisoned
+        quar = quar | poisoned
+        done += ~(tab["drop"][r] | tab["straggle"][r] | quar)
+        counts = per_round * done
+        drop.append(f32(n - live.sum()) / f32(n))
+        quarantine.append(f32(quar.sum()) / f32(n))
+        queries.append(f32(counts[live].sum()) / f32(max(live.sum(), 1)))
+        if chunk == 0 or (r + 1) % chunk == 0:
+            quar = np.zeros(n, bool)
+    return (np.array(drop, np.float32), np.array(quarantine, np.float32),
+            np.array(queries, np.float32), per_round * done)
+
+
+def check_fault_history(res, fcfg, cfg, rounds, chunk, label, final_queries=None) -> None:
+    """A tolerant faulted run's history against ``fault_expectations``:
+    each round's drop and quarantine rates and mean queries exactly, each
+    client's final queries (exact integers) where given; F finite, and its
+    minimum over rounds 1..R below F(x_0)."""
+    drop, quar, queries, counts = fault_expectations(fcfg, rounds, cfg.n_clients, chunk,
+                                                     cfg.queries_per_round())
+    f = res.f_values.cpu()
+    print(f"[{label}] F per round: {[round(v, 6) for v in f.tolist()]}", flush=True)
+    print(f"[{label}] drop rate {res.drop_rate.cpu().tolist()}, quarantine rate "
+          f"{res.quarantine_rate.cpu().tolist()}, mean queries of live clients "
+          f"{res.queries.cpu().tolist()}", flush=True)
+    if not (np.array_equal(res.drop_rate.cpu().numpy(), drop)
+            and np.array_equal(res.quarantine_rate.cpu().numpy(), quar)
+            and np.array_equal(res.queries.cpu().numpy(), queries)):
+        fail(f"{label}: rates or queries are not the schedule's (expected drop {drop.tolist()}, "
+             f"quarantine {quar.tolist()}, queries {queries.tolist()})")
+    if final_queries is not None:
+        got = final_queries.cpu().tolist()
+        print(f"[{label}] each client's queries at the end: {got} (expected "
+              f"{counts.tolist()})", flush=True)
+        if got != counts.tolist():
+            fail(f"{label}: final queries {got}, expected {counts.tolist()}")
+    if f.shape != (rounds + 1,) or not bool(torch.isfinite(f).all()):
+        fail(f"{label}: F is not finite or has the wrong shape")
+    if not f[1:].min() < f[0]:
+        fail(f"{label}: min F over rounds 1-{rounds} {f[1:].min().item()} is not below "
+             f"F(x_0) {f[0].item()}")
+
+
+def check_faults(cfg, cobjs, dev) -> None:
+    """Phase 4e: the main path under faults (``simulate(..., faults=...)``).
+
+    The mixed configuration, ``CAPTURED_ROUNDS`` rounds: in captured chunks
+    of ``CHUNK`` (one capture, two replays; the launches counted at the
+    warm-up round and the capture; ms/round over the replays) against the
+    same chunks run eagerly on the same draws, bit for bit (every history
+    row, the final state with its quarantine flags, the generators); each
+    run's rates and queries against ``fault_expectations``; then the loop
+    (``chunk=0``), which restarts a quarantined client after its round
+    where the chunks wait for the boundary: bit for bit the chunks up to
+    the first round whose quarantine falls inside a chunk, after it within
+    the reference's faulted scan-vs-loop bounds (tests/test_faults.py: x
+    0.1, F 5e-2).  Then: every rate 0 with tolerance (the masked engine,
+    nothing injected) beside the same run without faults, in turns; a
+    window that never opens, bit for bit the run without faults; no
+    tolerance with every payload NaN, which raises ``FloatingPointError``
+    in chunks and gives NaN rows in the loop; one replayed faulted chunk
+    under ``torch.profiler``; the small faulted engine on the card and on
+    the CPU on the same draws."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs
+    from repro_torch.core import objectives as obj
+    from repro_torch.core import rff as rfflib
+    from repro_torch.core import rounds as rounds_mod
+    from repro_torch.faults import FaultConfig, schedule_table
+
+    card = card_name()
+    mixed = FaultConfig(**FAULTS_MIXED)
+    eager_draws_type = type("EagerDraws", (alg.ClientDraws,), {})  # by the capture rule eager
+    x0 = torch.full((D,), 0.5, dtype=torch.float32, device=dev)
+
+    def chunked(draws, faults, rounds=CAPTURED_ROUNDS, chunk=CHUNK):
+        """``simulate``'s chunked path, returning the final state too."""
+        rff = rfflib.make_rff(draws, cfg.n_features, cfg.dim, cfg.lengthscale)
+        return rounds_mod.run_rounds(cfg, rff, obj.quadratic_query, cobjs, alg.init_states(cfg, x0),
+                                     x0, obj.quadratic_global_value, rounds, chunk, draws=draws,
+                                     faults=faults)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the mixed configuration in captured chunks, then eagerly
+    draws = alg.ClientDraws(1, range(N_CLIENTS), dev)
+    reset_counts()
+    graphs.COUNTS.update(captures=0, replays=0)
+    with timed_chunks() as log:
+        (states, res), secs = timed(lambda: chunked(draws, mixed))
+    counts, runs = read_counts(), dict(graphs.COUNTS)
+    fault_ms = 1e3 * sum(log["replay"]) / CAPTURED_ROUNDS
+    print(f"[faults] {card}: {mixed}; d={D} N={N_CLIENTS} M={M} cap={CAP} T={cfg.local_steps}: "
+          f"{CAPTURED_ROUNDS} rounds in chunks of {CHUNK} in {secs:.3f} s; {runs['captures']} "
+          f"capture(s) in {sum(log['capture']):.3f} s; replays "
+          f"{[round(1e3 * t, 3) for t in log['replay']]} ms, {fault_ms:.3f} ms/round over the "
+          f"replays; launches counted at the warm-up round and the capture {counts}", flush=True)
+    if runs != {"captures": 1, "replays": CAPTURED_ROUNDS // CHUNK}:
+        fail(f"faults: {runs}, expected 1 capture and {CAPTURED_ROUNDS // CHUNK} replays")
+    warm_and_capture = deferred_counts(cfg, 1 + CHUNK)
+    # factor_init's SE Gram of the run's clients and of the quarantine
+    # reset's fresh-client template
+    want = expect(**dict(warm_and_capture, sqexp=warm_and_capture["sqexp"] + 2))
+    if counts != want:
+        fail(f"faults: launches {counts}, expected {want} (factor_init, the reset's template, "
+             "the warm-up round and the capture)")
+    check_fault_history(res, mixed, cfg, CAPTURED_ROUNDS, CHUNK, "faults captured",
+                        states.queries)
+
+    eager_draws = eager_draws_type(1, range(N_CLIENTS), dev)
+    (eager_states, eager), eager_secs = timed(lambda: chunked(eager_draws, mixed))
+    same_hist = all(torch.equal(a, b) for a, b in zip(res, eager))
+    same_state = all(torch.equal(a, b) for a, b in zip(graphs.tensors(states),
+                                                         graphs.tensors(eager_states)))
+    same_gens = all(torch.equal(a, b) for a, b in zip(gen_states(draws), gen_states(eager_draws)))
+    print(f"[faults eager] the same chunks run eagerly on the same draws in {eager_secs:.3f} s: "
+          f"history bitwise {same_hist}, final state (quarantine flags "
+          f"{eager_states.quarantined.tolist()}) bitwise {same_state}, generators in the same "
+          f"state {same_gens}", flush=True)
+    if not (same_hist and same_state and same_gens
+            and torch.equal(states.quarantined, eager_states.quarantined)):
+        fail("faults: the captured chunks are not the eager chunks bit for bit")
+
+    loop_draws = alg.ClientDraws(1, range(N_CLIENTS), dev)
+    loop, loop_secs = timed(lambda: alg.simulate(
+        cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value, CAPTURED_ROUNDS, chunk=0,
+        draws=loop_draws, device=dev, faults=mixed))
+    print(f"[faults loop] {CAPTURED_ROUNDS} rounds in {loop_secs:.3f} s", flush=True)
+    check_fault_history(loop, mixed, cfg, CAPTURED_ROUNDS, 0, "faults loop")
+    tab = schedule_table(mixed, CAPTURED_ROUNDS, N_CLIENTS)
+    inside = [r for r in range(CAPTURED_ROUNDS) if (r + 1) % CHUNK
+              and ((tab["nan"][r] | tab["inf"][r]) & ~tab["straggle"][r]).any()]
+    flagged = [r for r in range(CAPTURED_ROUNDS) if (r + 1) % CHUNK
+               and max(loop.repair_rate[r].item(), res.repair_rate[r].item()) > 0]
+    split = min(inside + flagged, default=CAPTURED_ROUNDS)
+    rows_same = (torch.equal(loop.xs[:split + 2], res.xs[:split + 2])
+                 and torch.equal(loop.f_values[:split + 2], res.f_values[:split + 2])
+                 and all(torch.equal(a[:split + 1], b[:split + 1])
+                         for a, b in zip(loop[2:], res[2:])))
+    df = (loop.f_values - res.f_values).abs().max().item()
+    dx = (loop.xs - res.xs).abs().max().item()
+    gens_same = all(torch.equal(a, b) for a, b in zip(gen_states(loop_draws), gen_states(draws)))
+    print(f"[faults loop] against the captured chunks: quarantines inside a chunk in rounds "
+          f"{[r + 1 for r in inside]}, clients flagged inside a chunk in rounds "
+          f"{[r + 1 for r in flagged]}; bitwise through round {split + 1}: {rows_same}; after it "
+          f"max|dF|={df:.3e} max|dx|={dx:.3e}; generators in the same state: {gens_same}",
+          flush=True)
+    if not (rows_same and gens_same and df <= 5e-2 and dx <= 0.1):
+        fail("faults: the loop disagrees with the captured chunks")
+
+    # every rate 0 with tolerance against no faults; a window that never opens
+    zero = FaultConfig()
+    ms = {"none": [], "zero": []}
+    plain = None
+    for mode in ("none", "zero", "zero", "none"):
+        with timed_chunks() as zlog:
+            out = chunked(alg.ClientDraws(1, range(N_CLIENTS), dev),
+                          None if mode == "none" else zero)[1]
+        ms[mode].append(1e3 * sum(zlog["replay"]) / CAPTURED_ROUNDS)
+        if mode == "none":
+            plain = out
+        else:
+            check_fault_history(out, zero, cfg, CAPTURED_ROUNDS, CHUNK, "faults zero rates")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"[faults masking] {card}: ms/round over the replays, in turns (none, zero, zero, "
+          f"none): without faults {[round(v, 3) for v in ms['none']]}, every rate 0 with "
+          f"tolerance {[round(v, 3) for v in ms['zero']]}; the masking costs "
+          f"{med['zero'] - med['none']:.3f} ms/round ({100 * (med['zero'] / med['none'] - 1):.2f}%"
+          f"); the mixed configuration {fault_ms:.3f} ms/round", flush=True)
+    late = FaultConfig(**dict(FAULTS_MIXED, first_round=100))
+    off = chunked(alg.ClientDraws(1, range(N_CLIENTS), dev), late)[1]
+    same_off = all(torch.equal(a, b) for a, b in zip(plain, off))
+    print(f"[faults window] {late} over {CAPTURED_ROUNDS} rounds: bit for bit the run without "
+          f"faults: {same_off}", flush=True)
+    if not same_off:
+        fail("faults: a window that never opens is not the faults-free run bit for bit")
+
+    # no tolerance: raises in chunks, NaN rows in the loop
+    poison = FaultConfig(nan_rate=1.0, tolerate=False)
+    try:
+        chunked(alg.ClientDraws(1, range(N_CLIENTS), dev), poison)
+        fail("faults: no tolerance with every payload NaN did not raise in chunks")
+    except FloatingPointError as e:
+        print(f"[faults intolerant] {poison} in captured chunks raised FloatingPointError: {e}",
+              flush=True)
+    nan_loop = alg.simulate(cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value,
+                            CAPTURED_ROUNDS, chunk=0, device=dev, faults=poison)
+    nan_rows = torch.isnan(nan_loop.xs).all(-1).tolist()
+    print(f"[faults intolerant] the same in the loop: rows of x that are NaN {nan_rows}, F "
+          f"{[round(v, 6) for v in nan_loop.f_values.cpu().tolist()]}", flush=True)
+    if nan_rows != [False] + [True] * CAPTURED_ROUNDS or not torch.isnan(
+            nan_loop.f_values[1:]).all():
+        fail("faults: the intolerant loop does not give NaN rows from round 1")
+
+    # one replayed faulted chunk under the profiler
+    with timed_chunks(profile_replays=True) as plog:
+        chunked(alg.ClientDraws(1, range(N_CLIENTS), dev), mixed, rounds=CHUNK)
+    prof, wall_ms = plog["profiles"][0], 1e3 * plog["replay"][0]
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    seen = {}
+    for e in kernels:
+        name = e.key.split("(")[0].removeprefix("void ")
+        if name.startswith("fz::"):
+            base = FZ_KERNELS.get(name.removeprefix("fz::").split("<")[0], name)
+            seen[base] = seen.get(base, 0) + e.count
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[faults profile] {card}: one replayed faulted chunk of {CHUNK} rounds: wall "
+          f"{wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} device kernels; "
+          f"fz:: launches {seen}; most device time: "
+          + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top), flush=True)
+    chunk_want = {k: v for k, v in deferred_counts(cfg, CHUNK).items() if v}
+    if seen != chunk_want:
+        fail(f"faults profile: fz:: launches {seen} in one replay, expected {chunk_want}")
+
+    check_small_faulted(dev)
+
+
+def check_small_faulted(dev) -> None:
+    """Phase 4e: the small engine (d=8, ``SMALL_FAULT_N`` clients) under the
+    mixed configuration, ``SMALL_FAULT_ROUNDS`` rounds of the loop, on the
+    card and on the CPU on the same draws: the rule of
+    ``check_small_against_cpu`` (F within 1e-3, x within 1e-2, the same
+    queries) and the same drop and quarantine rates."""
+    import dataclasses
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import objectives as obj
+    from repro_torch.faults import FaultConfig, schedule_table
+
+    cfg = dataclasses.replace(small_config(), n_clients=SMALL_FAULT_N)
+    fcfg = FaultConfig(**FAULTS_MIXED)
+
+    def run(where):
+        q = obj.make_quadratic(0, SMALL_FAULT_N, 8, 5.0, 0.001, device=where)
+        draws = SameDraws(alg.ClientDraws(2, range(SMALL_FAULT_N), "cpu"), where)
+        return alg.simulate(cfg, 2, q, obj.quadratic_query, obj.quadratic_global_value,
+                            SMALL_FAULT_ROUNDS, draws=draws, chunk=0, device=where, faults=fcfg)
+
+    cpu, gpu = run("cpu"), run(dev)
+    df = (cpu.f_values - gpu.f_values.cpu()).abs().max().item()
+    dx = (cpu.xs - gpu.xs.cpu()).abs().max().item()
+    tab = {k: v.sum(1).tolist()
+           for k, v in schedule_table(fcfg, SMALL_FAULT_ROUNDS, SMALL_FAULT_N).items()}
+    print(f"[small faults] d=8 N={SMALL_FAULT_N}, {SMALL_FAULT_ROUNDS} rounds, faults per round "
+          f"{tab}: card vs CPU on the same draws: max|dF|={df:.3e} max|dx|={dx:.3e}; "
+          f"quarantine rate {gpu.quarantine_rate.cpu().tolist()}", flush=True)
+    same_rates = all(torch.equal(getattr(cpu, f), getattr(gpu, f).cpu())
+                     for f in ("queries", "drop_rate", "quarantine_rate"))
+    if not (df <= 1e-3 and dx <= 1e-2) or not same_rates:
+        fail("the faulted engine on the card disagrees with the faulted engine on the CPU")
+
+
 def card_name() -> str:
     """The card's name and power limit as ``nvidia-smi`` prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1672,6 +1975,7 @@ def main() -> int:
     check_engine_inputs(dev, "small engine inputs, cap tiles of 8", score_block_cap=8)
     check_engine_inputs(dev, "small engine inputs, gradient cap tiles of 8", grad_block_cap=8)
     check_objectives(dev)
+    check_faults(cfg, cobjs, dev)
     profile_round(cfg, cobjs, dev)
 
     ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)

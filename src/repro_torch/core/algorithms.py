@@ -1,5 +1,5 @@
 """The federated round engines (port of ``repro.core.algorithms``, the
-single-process ``simulate`` without faults or cohorts).
+single-process ``simulate`` without cohorts).
 
 Each round: T collective-free local steps for the whole client batch, one
 mean of the iterates, then the round-end work and the second mean.  All
@@ -32,6 +32,31 @@ five algorithms of the reference run:
 The port keeps all clients in one stacked state (leading axis N) in every
 engine; only the per-client engine's surrogate calls loop over clients.
 
+Faults (``faults.FaultConfig``; ``faults/injector.py``): with ``faults``,
+``run_round`` reads the round's draws from the absolute round index, a 0-d
+tensor on the device, and injects them as the reference does.  nan and inf
+poison the update, never the state; a straggler's update is the round's
+broadcast iterate; without tolerance a dropped client is a NaN row of the
+dense mean.  With tolerance the server takes the masked,
+participation-weighted mean of the finite updates of live clients (the
+live and quarantine counts as two more columns of the same sum), keeps the
+previous iterate when no client is live, quarantines a client whose
+update is not finite, and rolls the dropped, straggling and quarantined
+clients back to their state after the round's prologue.  A quarantined
+client stays out of both means until ``make_quarantine_reset`` restarts it
+at the server iterate: after every round of the loop here, at every chunk
+boundary in ``core/rounds.py``.  ``faults=None`` runs the faults-free
+round, bit for bit what it was before faults were ported.
+
+The draw source's generators live outside ``ClientState``: the port's
+streams are its own (they never were the reference's threefry streams).
+A frozen client's generator is not rolled back with its state: every
+client draws every round, and a frozen client's draws of that round are
+discarded with its update.  So a captured chunk replays the loop's
+draws, a resumed run restores the generators with the state, and the
+parity tests feed each round's draws recorded from the reference's own
+keys, which do roll back (``tests/test_torch_faults.py``).
+
 Every random draw goes through one draw source (``ClientDraws``): per
 client, candidate deltas, query noise and FD directions, and the RFF bank.
 It is backed by one ``torch.Generator`` per client, seeded from
@@ -55,11 +80,13 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import fd as fdlib
 from repro_torch.core import gp_surrogate as gp
 from repro_torch.core import rff as rfflib
 from repro_torch.device import resolve_device
+from repro_torch.faults import injector
 from repro_torch.optim.optimizers import make_optimizer
 
 QueryFn = Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -422,6 +449,45 @@ def _broadcast_mean(a: torch.Tensor) -> torch.Tensor:
     return torch.mean(a, dim=0).expand_as(a).clone()
 
 
+def _over(v: torch.Tensor, n) -> torch.Tensor:
+    """``v / n`` by a true division: on the card a division by a host scalar
+    multiplies by 1/n, one ulp off (at N=7, say)."""
+    return v / torch.full((), float(n), dtype=torch.float32, device=v.device)
+
+
+def _fault_draws(faults, round_idx, client_ids):
+    """(config, the round's FaultDraw) from a ``FaultConfig`` (hashed now)
+    or a ``FaultSchedule`` (read from its table)."""
+    if round_idx is None:
+        raise ValueError("faults injection requires round_idx")
+    if isinstance(faults, injector.FaultSchedule):
+        return faults.config, faults.draw(round_idx)
+    return faults, injector.draw_faults(faults, round_idx, client_ids)
+
+
+def _freeze(frozen: torch.Tensor, old, new):
+    """Every leaf of ``new`` with the rows of the ``frozen`` clients taken
+    from ``old``; the optimizer's step counter, shared by all clients,
+    stays ``new``'s (the next prologue resets it)."""
+    def sel(o, n):
+        if not torch.is_tensor(n) or n.dim() == 0:
+            return n
+        return torch.where(frozen.reshape(frozen.shape + (1,) * (n.dim() - 1)), o, n)
+    return pytree.tree_map(sel, old, new)
+
+
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor, *extra: torch.Tensor):
+    """The sum over clients of the rows of ``values`` where ``mask``, with
+    ``mask`` and every ``extra`` (N,) vector as further columns of the same
+    sum: returns (sum of values, count, sums of the extras).  ``where``,
+    never a product with the mask: NaN times 0 is NaN."""
+    cols = [torch.where(mask[:, None], values, 0.0), mask.to(torch.float32)[:, None],
+            *(e.to(torch.float32)[:, None] for e in extra)]
+    tot = torch.sum(torch.cat(cols, dim=1), dim=0)
+    k = values.shape[1]
+    return tot[:k], tot[k], tot[k + 1:]
+
+
 def run_round(
     cfg: AlgoConfig,
     rff: Optional[rfflib.RFFParams],
@@ -431,11 +497,21 @@ def run_round(
     server_x: torch.Tensor,
     draws,
     diag_global_grad: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    *,
+    faults=None,
+    round_idx: Optional[torch.Tensor] = None,
 ) -> tuple[ClientState, RoundStats]:
     """One communication round with mean aggregation over all clients.
 
     ``diag_global_grad`` maps the stacked iterates (N, d) to grad F (N, d).
+    ``faults`` (a ``FaultConfig``, or a run's ``FaultSchedule``) injects
+    the draws of ``round_idx``, the absolute round as a 0-d tensor on the
+    device, and with ``faults.tolerate`` masks the aggregation (module
+    docstring); ``faults=None`` is the faults-free round.
     """
+    fd = None
+    if faults is not None:
+        faults, fd = _fault_draws(faults, round_idx, states.client_id)
     opt_init, _ = make_optimizer(cfg.optimizer)
     x = server_x.expand_as(states.x).clone()
     states = states._replace(x=x, opt=opt_init(x), fd_accum=torch.zeros_like(x))
@@ -443,34 +519,107 @@ def run_round(
         # c_i <- FD estimate at x_{r-1}: one extra transmission (Appx. D)
         c_i, states = _fd_estimate(cfg, query_fn, cobjs, states, x, draws)
         states = states._replace(c_local=c_i, c_global=_broadcast_mean(c_i))
+    # the post-prologue snapshot that faulted clients roll back to
+    states0 = states
 
     states, sum_cos, sum_disp = _local_phase(
         cfg, rff, query_fn, cobjs, states, server_x, draws, diag_global_grad)
-    new_server_x = torch.mean(states.x, dim=0)
+    tolerant = faults is not None and faults.tolerate
+    if faults is None:
+        new_server_x = torch.mean(states.x, dim=0)
+    else:
+        # the payload faults go into the update, never into the state
+        x_up = states.x
+        if faults.nan_rate > 0:
+            x_up = torch.where(fd.nan[:, None], float("nan"), x_up)
+        if faults.inf_rate > 0:
+            x_up = torch.where(fd.inf[:, None], float("inf"), x_up)
+        x_up = torch.where(fd.straggle[:, None], server_x, x_up)
+        if tolerant:
+            finite = torch.isfinite(x_up).all(-1)
+            quar = states.quarantined | (~finite & ~fd.drop)
+            live = ~fd.drop & ~states.quarantined & finite
+            x_sum, n_live, (n_quar,) = _masked_mean(x_up, live, quar)
+            new_server_x = torch.where(n_live > 0, x_sum / torch.clamp(n_live, min=1.0),
+                                       server_x)
+        else:
+            # silence is a NaN row of the dense mean
+            x_up = torch.where(fd.drop[:, None], float("nan"), x_up)
+            new_server_x = _over(torch.sum(x_up, dim=0), cfg.n_clients)
     states = _post_phase(cfg, rff, query_fn, cobjs, states, new_server_x, draws)
+    if tolerant:
+        # a client that did not deliver, or is quarantined, keeps its state
+        states = _freeze(fd.drop | fd.straggle | quar, states0, states)
+        states = states._replace(quarantined=quar)
     if cfg.is_fzoos:
-        states = states._replace(w_global=_broadcast_mean(states.w_local))
+        if tolerant:
+            # stragglers send their stale w; dropped and quarantined clients none
+            m_w = ~fd.drop & ~quar
+            w_sum, n_w, _ = _masked_mean(states.w_local, m_w)
+            w_glob = torch.where(n_w > 0, w_sum / torch.clamp(n_w, min=1.0),
+                                 torch.mean(states.w_global, dim=0))
+            states = states._replace(w_global=w_glob.expand_as(states.w_global).clone())
+        else:
+            states = states._replace(w_global=_broadcast_mean(states.w_local))
     elif cfg.name == "scaffold2":
         states = states._replace(c_global=_broadcast_mean(states.c_local))
 
     f32 = lambda v: v.to(torch.float32)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = states.queries.shape[0]
+    if tolerant:  # means over the live clients
+        denom = torch.clamp(n_live, min=1.0)
+        mean = count = lambda v: torch.sum(torch.where(live, v, 0.0)) / denom
+        # the shares of clients not live and quarantined, correctly rounded
+        drop_rate, quarantine_rate = _over(n - n_live, n), _over(n_quar, n)
+    else:
+        # the counts' mean is their sum divided by N, exact as the reference's
+        mean, count = torch.mean, lambda v: _over(torch.sum(v), n)
+        drop_rate = zero if faults is None else _over(torch.sum(f32(fd.drop)), n)
+        quarantine_rate = zero
     fac = states.factor
     stats = RoundStats(
         server_x=new_server_x,
-        mean_cos=torch.mean(sum_cos) / cfg.local_steps,
-        mean_disparity=torch.mean(sum_disp) / cfg.local_steps,
-        # the sum of the counts over N divided by N, exact as the reference's
-        # mean: on the card torch.mean, and a division by a host scalar,
-        # multiply by 1/N, one ulp off at N=7
-        queries_per_client=torch.sum(f32(states.queries)) / torch.full(
-            (), float(states.queries.shape[0]), device=x.device),
-        refactor_rate=torch.mean(f32(fac.n_refactors) / torch.clamp(f32(fac.n_updates), min=1.0)),
-        repair_rate=torch.mean(f32(fac.needs_repair)),
-        drop_rate=zero,
-        quarantine_rate=zero,
+        mean_cos=mean(sum_cos) / cfg.local_steps,
+        mean_disparity=mean(sum_disp) / cfg.local_steps,
+        queries_per_client=count(f32(states.queries)),
+        refactor_rate=mean(f32(fac.n_refactors) / torch.clamp(f32(fac.n_updates), min=1.0)),
+        repair_rate=mean(f32(fac.needs_repair)),
+        drop_rate=drop_rate,
+        quarantine_rate=quarantine_rate,
     )
     return states, stats
+
+
+def make_quarantine_reset(cfg: AlgoConfig, device):
+    """Build ``reset(states, server_x)``: restart the quarantined clients as
+    fresh clients joining at ``server_x`` (the reference's chunk-boundary
+    recovery).  The fresh client's template (empty trajectory, its factor,
+    the shared FD bank) is built here, once, outside any capture.  A
+    restarted client keeps its ``client_id``, its query count and the
+    replicated ``w_global`` (its generator lives in the draw source and is
+    not touched); everything else restarts, and its flag is cleared."""
+    template = init_states(dataclasses.replace(cfg, n_clients=1),
+                           torch.zeros((cfg.dim,), dtype=torch.float32, device=device))
+    opt_init, _ = make_optimizer(cfg.optimizer)
+
+    def reset(states: ClientState, server_x: torch.Tensor) -> ClientState:
+        flag = states.quarantined
+        x = server_x.expand_as(states.x)
+        fresh = template._replace(x=x, opt=opt_init(x))
+
+        def sel(old, new):
+            if not torch.is_tensor(old) or old.dim() == 0:
+                return old
+            f = flag.reshape(flag.shape + (1,) * (old.dim() - 1))
+            return torch.where(f, new.expand_as(old), old)
+
+        merged = pytree.tree_map(sel, states, fresh)
+        return merged._replace(client_id=states.client_id, queries=states.queries,
+                               w_global=states.w_global,
+                               quarantined=torch.zeros_like(flag))
+
+    return reset
 
 
 def simulate(
@@ -489,6 +638,7 @@ def simulate(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 1,
     async_checkpoint: bool = True,
+    faults: Optional[injector.FaultConfig] = None,
     device="cuda",
 ) -> SimResult:
     """Run ``rounds`` communication rounds.
@@ -510,10 +660,19 @@ def simulate(
     run every ``checkpoint_every`` chunks and at its end, and resumes it
     from the newest good step; ``async_checkpoint`` writes the files on a
     background thread (``core/rounds.py``).
+
+    ``faults`` (a ``faults.FaultConfig``) runs the rounds under the
+    reference's fault model (module docstring); a config that can never
+    fire in ``[0, rounds)`` runs the faults-free engine
+    (``effective_config``).  The loop resets the quarantined clients after
+    every round and returns NaN rows where a run without tolerance is
+    poisoned; chunks reset them at every boundary, where a poisoned
+    iterate raises (``core/rounds.py``).
     """
     from repro_torch.core import rounds as rounds_mod  # deferred: rounds imports this module
 
     dev = resolve_device(device)
+    faults = injector.effective_config(faults, rounds)
     if chunk is not None and chunk < 0:
         raise ValueError(f"chunk must be None, 0 (loop oracle) or positive, got {chunk}")
     if eval_every < 1:
@@ -534,16 +693,25 @@ def simulate(
             rounds_mod.DEFAULT_CHUNK if chunk is None else chunk, draws=draws,
             diag_global_grad=diag_global_grad, eval_every=eval_every,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-            async_checkpoint=async_checkpoint)
+            async_checkpoint=async_checkpoint, faults=faults)
         return res
 
     xs, fvals = [x0], [global_value_fn(cobjs, x0)]
     hist = {k: [] for k in ("queries", "cos", "disp", "refactor", "repair", "drop", "quar")}
     sx = x0
+    schedule = reset = None
+    if faults is not None:
+        schedule = injector.FaultSchedule(faults, rounds, states.client_id)
+        if faults.tolerate:
+            reset = make_quarantine_reset(cfg, dev)
     for r in range(rounds):
-        states, stats = run_round(cfg, rff, query_fn, cobjs, states, sx, draws, diag_global_grad)
+        r_idx = None if schedule is None else torch.full((), r, dtype=torch.int64, device=dev)
+        states, stats = run_round(cfg, rff, query_fn, cobjs, states, sx, draws, diag_global_grad,
+                                  faults=schedule, round_idx=r_idx)
         states, _ = rounds_mod.repair_flagged_clients(states, cfg)
         sx = stats.server_x
+        if reset is not None:
+            states, _ = rounds_mod.quarantine_reset_flagged(states, cfg, sx, reset)
         xs.append(sx)
         r1 = r + 1
         if r1 % eval_every == 0 or r1 == rounds:

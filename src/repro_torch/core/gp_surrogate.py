@@ -166,7 +166,14 @@ def _eye_like(gram: torch.Tensor) -> torch.Tensor:
 
 
 def _clamped_eigh(gram: torch.Tensor, jitter: float) -> tuple[torch.Tensor, torch.Tensor]:
-    w, v = torch.linalg.eigh(gram)
+    """Eigenvectors and clamped eigenvalues of each Gram.  A Gram with a
+    non-finite entry (a run poisoned by a fault it does not tolerate) gets
+    NaN factors, as the reference's eigh gives, where LAPACK and cuSOLVER
+    would fail; a finite Gram's factors are unchanged."""
+    bad = ~torch.isfinite(gram).all(-1).all(-1)
+    w, v = torch.linalg.eigh(torch.where(bad[..., None, None], _eye_like(gram), gram))
+    v = torch.where(bad[..., None, None], float("nan"), v)
+    w = torch.where(bad[..., None], float("nan"), w)
     return v, torch.clamp(w, min=jitter)
 
 

@@ -26,6 +26,21 @@ was not stopped, on the CPU and in captured chunks alike.
 
 ``simulate(..., chunk=0)`` keeps the per-round loop, the equivalence
 oracle, which repairs after every round.
+
+Faults (``faults.FaultConfig``): every round of a chunk reads its draws
+from the run's ``FaultSchedule`` at the absolute round ``offset + i``, a
+device tensor, so one captured chunk serves every offset.  The faulted
+boundary reads the host once: whether the server iterate is finite, and
+the N quarantine flags.  A non-finite iterate (a run without tolerance,
+poisoned) raises ``FloatingPointError`` before anything is written, as
+the reference does without a ``checkpoint_dir``; with one, the
+reference rolls the chunk back, which is not ported yet (ROADMAP Queue A,
+A10b), so it raises too.  After the repair, the tolerant engine restarts
+the quarantined clients at the server iterate (``make_quarantine_reset``;
+the reference's ``boundary_quarantine_reset``).  Quarantines persist to
+the boundary, so a chunked run is its loop bit for bit only where no
+client is quarantined in a round that does not end a chunk: the loop
+resets after every round.
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import algorithms as alg
 from repro_torch.core import gp_surrogate as gp
 from repro_torch.core import graphs
+from repro_torch.faults import injector
 
 GlobalValueFn = Callable[[Any, torch.Tensor], torch.Tensor]
 
@@ -70,6 +86,20 @@ def repair_flagged_clients(states, cfg):
     return states._replace(factor=gp.GramFactor(*merged)), int(idx.numel())
 
 
+def quarantine_reset_flagged(states, cfg, server_x, reset=None):
+    """Restart the quarantined clients at ``server_x``; returns (states,
+    count).  Reads the (N,) flags to the host and returns ``states``
+    itself when none is raised (the loop's reset; chunks read the flags
+    with the boundary's finiteness check).  ``reset`` is
+    ``make_quarantine_reset(cfg, ...)``'s function, built here if None."""
+    n = int(states.quarantined.sum())
+    if n == 0:
+        return states, 0
+    if reset is None:
+        reset = alg.make_quarantine_reset(cfg, states.x.device)
+    return reset(states, server_x), n
+
+
 def history_init(rounds: int, x0: torch.Tensor, f0: torch.Tensor) -> alg.SimResult:
     """The preallocated per-round history on x0's device, row 0 set: the
     buffers are the eventual ``SimResult``, filled chunk by chunk."""
@@ -93,7 +123,7 @@ def hist_write(hist: alg.SimResult, ys, offset: int) -> None:
 
 
 def chunk_fn(cfg, rff, query_fn, cobjs, draws, global_value_fn: GlobalValueFn,
-             diag_global_grad, length: int, eval_every: int, rounds_total: int):
+             diag_global_grad, length: int, eval_every: int, rounds_total: int, faults=None):
     """``length`` rounds with nothing between them: returns
     ``chunk(states, sx, offset) -> (states, last server iterate, ys)``,
     ``ys`` the per-round outputs stacked along a leading axis of ``length``
@@ -102,13 +132,15 @@ def chunk_fn(cfg, rff, query_fn, cobjs, draws, global_value_fn: GlobalValueFn,
     NaN on the rounds the reference skips (the absolute 1-based round not a
     multiple of ``eval_every`` and not ``rounds_total``, the run's last),
     selected on the device from ``offset``, so a captured chunk serves
-    every offset."""
+    every offset.  ``faults`` (a ``FaultSchedule``) is read at the
+    absolute round ``offset + i``, on the device as well."""
 
     def chunk(states, sx, offset):
         rows = []
         for i in range(length):
-            states, stats = alg.run_round(cfg, rff, query_fn, cobjs, states, sx, draws,
-                                          diag_global_grad)
+            states, stats = alg.run_round(
+                cfg, rff, query_fn, cobjs, states, sx, draws, diag_global_grad, faults=faults,
+                round_idx=None if faults is None else offset + i)
             sx = stats.server_x
             f = torch.as_tensor(global_value_fn(cobjs, sx), dtype=torch.float32)
             if eval_every > 1:
@@ -163,7 +195,7 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
                global_value_fn: GlobalValueFn, rounds: int, chunk: int, *, draws,
                diag_global_grad=None, eval_every: int = 1,
                checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
-               async_checkpoint: bool = True):
+               async_checkpoint: bool = True, faults: Optional[injector.FaultConfig] = None):
     """Run ``rounds`` communication rounds in chunks of ``chunk`` rounds;
     returns (final stacked ClientState, SimResult history).
 
@@ -186,6 +218,11 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
     goes to a background thread (``async_checkpoint``) after a
     synchronous host snapshot; the last boundary's write is drained before
     the run returns, and a write's error fails the run.
+
+    ``faults`` runs the chunks under that ``FaultConfig`` (module
+    docstring); one that can never fire in ``[0, rounds)`` runs the
+    faults-free engine.  It is part of the run's identity: a checkpoint
+    names it, and a resume with another one raises.
     """
     if rounds < 0:
         raise ValueError(f"rounds must be >= 0, got {rounds}")
@@ -199,13 +236,13 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
         raise TypeError(f"checkpoint_dir needs a draw source with state() and load_state(); "
                         f"{type(draws).__name__} has not both, so its generators could not "
                         "be resumed")
+    faults = injector.effective_config(faults, rounds)
     chunk = min(chunk, max(rounds, 1))
     dev = x0.device
     # The run's identity, recorded at every write and checked at resume;
     # ``chunk`` is recorded but not checked (the boundaries' cadence only).
-    # Faults are those of the reference's faults-free engine until A10.
     run_meta = {"rounds": rounds, "chunk": chunk, "cfg": repr(cfg),
-                "eval_every": eval_every, "faults": repr(None)}
+                "eval_every": eval_every, "faults": repr(faults)}
     start, hist = 0, None
     if checkpoint_dir and ckpt_io.latest_step(checkpoint_dir) is not None:
         r_states, r_hist, r_draws, start = _restore_newest_good(
@@ -216,8 +253,13 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
     if hist is None:
         hist = history_init(rounds, x0, global_value_fn(cobjs, x0))
     sx = hist.xs[start]
+    schedule = reset = None
+    if faults is not None:
+        schedule = injector.FaultSchedule(faults, rounds, states.client_id)
+        if faults.tolerate:
+            reset = alg.make_quarantine_reset(cfg, dev)
     make = lambda k, d: chunk_fn(cfg, rff, query_fn, cobjs, d, global_value_fn,
-                                 diag_global_grad, k, eval_every, rounds)
+                                 diag_global_grad, k, eval_every, rounds, faults=schedule)
     captured = None
     if rounds > start and graphs.captures(cfg, draws, dev):
         captured = graphs.CapturedChunks(make, draws, states, sx)
@@ -235,8 +277,17 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
             hist_write(hist, ys, done)
             done += k
             chunks_done += 1
+            restart = False
+            if schedule is not None:
+                # the faulted boundary's one host read: sx finite, the flags
+                read = torch.cat([torch.isfinite(sx).all()[None], states.quarantined]).cpu()
+                if not bool(read[0]):
+                    raise FloatingPointError(_poisoned(done, checkpoint_dir))
+                restart = reset is not None and bool(read[1:].any())
             states, n_repaired = repair_flagged_clients(states, cfg)
-            if captured is not None and n_repaired:
+            if restart:
+                states = reset(states, sx)
+            if captured is not None and (n_repaired or restart):
                 captured.load(states)
             if checkpoint_dir and (chunks_done % max(checkpoint_every, 1) == 0
                                    or done == rounds):
@@ -255,3 +306,13 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
         if writer is not None:
             writer.wait()
     return states, hist
+
+
+def _poisoned(done: int, checkpoint_dir: Optional[str]) -> str:
+    """The error of a chunk whose server iterate is not finite."""
+    if not checkpoint_dir:
+        return (f"non-finite server iterate at round {done} with no checkpoint_dir to "
+                "roll back to (chunk rollback needs checkpointing)")
+    return (f"non-finite server iterate at round {done}: rolling the chunk back to the last "
+            f"good checkpoint under {checkpoint_dir!r} is not ported yet (ROADMAP Queue A, "
+            "A10b)")

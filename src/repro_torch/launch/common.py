@@ -10,10 +10,11 @@
   ``--ckpt-dir``, ``--ckpt-every``, ``--sync-ckpt``, ``--eval-every``) and
   the pool and fault flags.
 
-Every flag keeps the reference's name, type and default.  The port has no
-fault injection (ROADMAP A10) and no client pool (A12) yet, so
-``faults_from_args`` and ``pool_from_args`` exit, naming the item, when a
-flag asks for either: a run never goes on with such a flag ignored.
+Every flag keeps the reference's name, type and default.  The port's
+command line has no fault flags (ROADMAP A10b: the engine takes faults
+since A10a, the flags come with chunk rollback) and no client pool (A12)
+yet, so ``faults_from_args`` and ``pool_from_args`` exit, naming the item,
+when a flag asks for either: a run never goes on with such a flag ignored.
 """
 
 from __future__ import annotations
@@ -131,12 +132,13 @@ def add_fault_flags(ap: argparse.ArgumentParser) -> None:
 
 def faults_from_args(args: argparse.Namespace):
     """None (the faults-free engine) unless a fault rate is above 0 or
-    ``--fault-tolerance`` asks for the fault-tolerant engine, which is not
-    ported yet: then an exit."""
+    ``--fault-tolerance`` asks for the fault-tolerant engine, whose flags
+    are not ported yet: then an exit."""
     rates = (args.drop_rate, args.straggle_rate, args.nan_rate, args.inf_rate)
     if any(r > 0 for r in rates) or args.fault_tolerance:
-        raise SystemExit("fault injection and the fault-tolerant engine are not ported "
-                         "yet (ROADMAP Queue A, A10)")
+        raise SystemExit("the command line's fault flags are not ported yet (ROADMAP Queue "
+                         "A, A10b); in Python, simulate(..., faults=FaultConfig(...)) runs "
+                         "the faulted engine")
     return None
 
 

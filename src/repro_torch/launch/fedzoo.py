@@ -114,7 +114,7 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
     common.pool_from_args(args)  # exits on a pool flag until A12
-    common.faults_from_args(args)  # exits on a fault flag until A10
+    common.faults_from_args(args)  # exits on a fault flag until A10b
     if args.distributed:
         raise SystemExit("--distributed: the distributed engine is not ported yet "
                          "(ROADMAP Queue A, A11)")

@@ -108,12 +108,14 @@ def assert_tracks(got, want, truth, atol, what):
 
 
 class RecordedDraws:
-    """The port's draw source, replaying arrays recorded from the reference.
-    ``state()`` is how many arrays of each kind it has handed out, and
-    ``load_state`` skips ahead to such a state (a resumed run's draws)."""
+    """The port's draw source, replaying arrays recorded from the reference
+    for ``n`` clients.  ``state()`` is how many arrays of each kind it has
+    handed out, and ``load_state`` skips ahead to such a state (a resumed
+    run's draws)."""
 
-    def __init__(self, bank=None):
+    def __init__(self, bank=None, n=N):
         self.banks = [] if bank is None else [bank]
+        self.n = n
         self.deltas_, self.noise_, self.directions_ = [], [], []
         self.used = [0, 0, 0, 0]  # arrays taken from banks, deltas_, noise_, directions_
 
@@ -126,22 +128,22 @@ class RecordedDraws:
 
     def deltas(self, n, d, radius):
         out = self._take(1)
-        assert out.shape == (N, n, d)
+        assert out.shape == (self.n, n, d)
         return out
 
     def noise(self, k):
         out = self._take(2)
-        assert out.shape == (N, k)
+        assert out.shape == (self.n, k)
         return out
 
     def directions(self, q, d):
         out = self._take(3)
-        assert out.shape == (N, q, d)
+        assert out.shape == (self.n, q, d)
         return out
 
     def widened(self):
         """The draws not yet handed out, in float64 (the float64 port's)."""
-        out = RecordedDraws()
+        out = RecordedDraws(n=self.n)
         out.banks = [tuple(t.double() for t in b) for b in self.banks]
         out.deltas_, out.noise_, out.directions_ = (
             [t.double() for t in ts] for ts in (self.deltas_, self.noise_, self.directions_))

@@ -37,6 +37,25 @@ def test_importing_every_module_loads_no_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_fault_schedule_imports_neither_jax_nor_the_reference():
+    """``repro_torch.faults`` computes the reference's threefry draws itself:
+    importing it and drawing a schedule loads neither JAX nor ``repro``."""
+    assert "repro_torch.faults" in _modules() and "repro_torch.faults.injector" in _modules()
+    code = (
+        "import sys\n"
+        "from repro_torch.faults import FaultConfig, schedule_table\n"
+        "tab = schedule_table(FaultConfig(seed=3, drop_rate=0.5), 4, 3)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', int(tab['drop'].sum()))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("path", [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_the_reference(path):

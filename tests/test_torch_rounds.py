@@ -191,6 +191,40 @@ def test_chunked_matches_reference_scan(ref_quad, port64, kw, f_tol, x_tol):
     TA.assert_tracks(got.xs, want.xs, lambda: truth().xs, x_tol, "x")
 
 
+@pytest.mark.parametrize("key", [3, 4])
+@pytest.mark.parametrize("chunk", [0, 2])
+def test_twelve_rounds_against_float64(ref_quad, port64, key, chunk):
+    """Twelve rounds of ``TA.KW`` on the reference's draws, in the loop and
+    in chunks of 2, where the two packages were seen to part beyond x 1e-2
+    (ROADMAP Queue C): each side's largest distance from the float64 port
+    on the same draws is printed (``-s``), and the port is held to the
+    reference by ``TA.assert_tracks`` with the bounds of the 5-round tests
+    (F 1e-3, x 1e-2), the queries exactly."""
+    rq, q = ref_quad
+    rcfg, cfg = ralg.AlgoConfig(**TA.KW), alg.AlgoConfig(**TA.KW)
+    n_rounds = 12
+    want = ralg.simulate(rcfg, jax.random.PRNGKey(key), rq, robj.quadratic_query,
+                         robj.quadratic_global_value, n_rounds, chunk=chunk)
+    rec = TA._recorded_simulate_draws(cfg, jax.random.PRNGKey(key), n_rounds)
+    rec64 = rec.widened()
+    got = alg.simulate(cfg, 0, q, obj.quadratic_query, obj.quadratic_global_value, n_rounds,
+                       draws=rec, chunk=chunk, device="cpu")
+    truth = port64.alg.simulate(
+        port64.alg.AlgoConfig(**TA.KW), 0, port64.convert.quadratic(TA.wide(rq), "cpu"),
+        port64.obj.quadratic_query, port64.obj.quadratic_global_value, n_rounds, draws=rec64,
+        chunk=chunk, device="cpu")
+    assert rec.exhausted() and rec64.exhausted()
+    for f in ("xs", "f_values"):
+        t = getattr(truth, f).numpy()
+        e_port = np.abs(getattr(got, f).numpy().astype(np.float64) - t).max()
+        e_ref = np.abs(N_(getattr(want, f)).astype(np.float64) - t).max()
+        print(f"key {key}, chunk {chunk}, {f}: from float64 port {e_port:.3e}, "
+              f"reference {e_ref:.3e}")
+    np.testing.assert_array_equal(got.queries.numpy(), N_(want.queries))
+    TA.assert_tracks(got.f_values, want.f_values, lambda: truth.f_values, TA.F_TOL, "F")
+    TA.assert_tracks(got.xs, want.xs, lambda: truth.xs, TA.X_TOL, "x")
+
+
 def test_eval_every_nan_contract(quad):
     """eval_every=3 over 7 rounds in chunks of 3: F at rounds 0, 3, 6 and
     the last, NaN elsewhere; the evaluated rows, x and the queries are
