@@ -96,6 +96,23 @@ Phases, each a hard check (any failure exits non-zero):
    chunks, NaN rows in the loop; one replayed faulted chunk profiled
    (``fz::`` launches those of a chunk, device kernels, busy share); the
    small faulted engine (d=8, N=5) on the card against the CPU;
+4f. chunk rollback (``check_rollback``): ``ROLLBACK_FAULTS`` (no
+   tolerance; a NaN payload in round 9) on the main path, 10 rounds in
+   captured chunks of 5 with a ``checkpoint_dir``: the ROLLBACK line at
+   the round the host's schedule gives, the restore to the step before,
+   tolerance forced on (two captures, three replays), F finite, the
+   rolled-back round and the re-run's seconds; bit for bit the same run
+   in eager chunks (history, generators);
+4g. the client pool (``check_pool``): a pool of ``POOL_N`` = 256 at the
+   main path's width, cohorts of ``POOL_K`` = 5, 10 rounds in captured
+   chunks of 2: one capture and five replays whatever the cohort, ms/round
+   over the replays, the gather and scatter ms per boundary, the pool's
+   host bytes, the queries of the cohorts' members, min F below F(x_0);
+   bit for bit the same chunks run eagerly (history, the pool, its
+   generator states); the kernels' launches those of the dense 5-client
+   engine; K = N = 5 bit for bit phase 4b's run; a pooled run without
+   tolerance rolled back; the command line with ``--pool-size 256
+   --cohort 5``, fault flags and ``--max-rollbacks`` in a child process;
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -1627,6 +1644,312 @@ def check_small_faulted(dev) -> None:
         fail("the faulted engine on the card disagrees with the faulted engine on the CPU")
 
 
+#: Phase 4f: chunk rollback at the main path's width.  Without tolerance a
+#: NaN payload in round 9 poisons the chunk of rounds 6-10 (schedule of
+#: seed 4 at 5 clients, from ``schedule_table``): the run rolls back to
+#: step 5 and runs rounds 6-10 again with tolerance on.
+ROLLBACK_FAULTS = dict(seed=4, nan_rate=0.05, tolerate=False)
+
+
+def rollback_expectations(fcfg, rounds, chunk, n, cohorts=None):
+    """The (round of the fault, round restored) of the first rollback that
+    ``fcfg`` causes in a run of ``rounds`` rounds in chunks of ``chunk``
+    checkpointed at every boundary (``cohorts``: chunk start -> the pool
+    ids that run it), from the host's ``schedule_table``: the first chunk
+    with a NaN or inf payload that is not a straggler's; None if none."""
+    from repro_torch.faults import schedule_table
+
+    tab = schedule_table(fcfg, rounds, n)
+    poisoned = (tab["nan"] | tab["inf"]) & ~tab["straggle"]
+    for start in range(0, rounds, chunk):
+        ids = slice(None) if cohorts is None else cohorts[start]
+        if poisoned[start:start + chunk][:, ids].any():
+            return min(start + chunk, rounds), start
+    return None
+
+
+@contextlib.contextmanager
+def rollback_log():
+    """Within the block, the lines the round drivers print and the host
+    time of each rollback.  Yields {"lines": [str], "at": [s]}."""
+    import io as _io
+
+    from repro_torch.core import rounds as rounds_mod
+
+    real = rounds_mod.rollback_or_raise
+    log = {"lines": [], "at": []}
+
+    def stamped(*args, **kwargs):
+        torch.cuda.synchronize()
+        log["at"].append(time.perf_counter())
+        return real(*args, **kwargs)
+
+    buf = _io.StringIO()
+    try:
+        rounds_mod.rollback_or_raise = stamped
+        with contextlib.redirect_stdout(buf):
+            yield log
+    finally:
+        rounds_mod.rollback_or_raise = real
+        log["lines"] += [ln for ln in buf.getvalue().splitlines()
+                         if ln.startswith("[repro_torch.")]
+        for ln in log["lines"]:
+            print(ln, flush=True)
+
+
+def check_rollback(cfg, cobjs, dev) -> None:
+    """Phase 4f: ``ROLLBACK_FAULTS`` (no tolerance) on the main path,
+    ``CAPTURED_ROUNDS`` rounds in captured chunks of ``CHUNK`` with a
+    ``checkpoint_dir``: the ROLLBACK line at the schedule's round, the
+    restore to the step before, tolerance forced on (the turned run
+    captured afresh: two captures), F finite; bit for bit the same run in
+    eager chunks on the card (every history row, every generator); the
+    rolled-back round and the re-run's seconds, the card's name and power
+    limit beside them."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs
+    from repro_torch.core import objectives as obj
+    from repro_torch.faults import FaultConfig
+
+    card = card_name()
+    fcfg = FaultConfig(**ROLLBACK_FAULTS)
+    want = rollback_expectations(fcfg, CAPTURED_ROUNDS, CHUNK, N_CLIENTS)
+    if want is None:
+        fail(f"rollback: {fcfg} poisons no chunk of {CAPTURED_ROUNDS} rounds")
+    eager_draws_type = type("EagerDraws", (alg.ClientDraws,), {})
+    runs = {}
+    for mode, draws in (("captured", alg.ClientDraws(1, range(N_CLIENTS), dev)),
+                        ("eager", eager_draws_type(1, range(N_CLIENTS), dev))):
+        graphs.COUNTS.update(captures=0, replays=0)
+        with tempfile.TemporaryDirectory() as root, rollback_log() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = alg.simulate(cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value,
+                               CAPTURED_ROUNDS, chunk=CHUNK, draws=draws, checkpoint_dir=root,
+                               faults=fcfg, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        runs[mode] = (res, draws)
+        rerun = t1 - log["at"][0] if log["at"] else float("nan")
+        f = res.f_values.cpu()
+        print(f"[rollback {mode}] {card}: {fcfg}; d={D} N={N_CLIENTS} M={M} cap={CAP}: "
+              f"{CAPTURED_ROUNDS} rounds in chunks of {CHUNK} with checkpoint_dir in "
+              f"{t1 - t0:.3f} s; {dict(graphs.COUNTS)}; rolled back at round {want[0]} to "
+              f"round {want[1]}, the re-run {rerun:.3f} s; F "
+              f"{[round(v, 6) for v in f.tolist()]}", flush=True)
+        lines = [ln.split("] ", 1)[1] for ln in log["lines"]]
+        expect_lines = [f"ROLLBACK 1/3 at round {want[0]} (non-finite server iterate): "
+                        "restoring last good checkpoint",
+                        "re-running with fault tolerance FORCED ON"]
+        if lines != expect_lines:
+            fail(f"rollback {mode}: printed {lines}, expected {expect_lines}")
+        if not (bool(torch.isfinite(res.xs).all()) and bool(torch.isfinite(f).all())):
+            fail(f"rollback {mode}: the rolled-back run is not finite")
+        if mode == "captured" and dict(graphs.COUNTS) != {"captures": 2, "replays": 3}:
+            fail(f"rollback: {dict(graphs.COUNTS)}, expected 2 captures (without and with "
+                 "tolerance) and 3 replays")
+    (cap, cap_draws), (eager, eager_draws) = runs["captured"], runs["eager"]
+    same = {"history": bitwise(cap, eager),
+            "generators": bitwise(gen_states(cap_draws), gen_states(eager_draws))}
+    print(f"[rollback] captured against eager chunks on the card: {same}", flush=True)
+    if not all(same.values()):
+        fail(f"rollback: the captured rolled-back run is not the eager one bit for bit: {same}")
+
+
+#: Phase 4g: the client pool at the main path's width.  N=256 (the pool of
+#: the reference's benchmarks/rounds_bench.py, BENCH_rounds.json), a cohort
+#: of K=5, POOL_ROUNDS rounds in captured chunks of POOL_CHUNK, cohort seed
+#: 0; a pooled run without tolerance whose NaN payloads roll it back.
+POOL_N, POOL_K, POOL_ROUNDS, POOL_CHUNK = 256, 5, 10, 2
+POOL_FAULTS = dict(seed=5, nan_rate=0.1, tolerate=False)
+
+
+@contextlib.contextmanager
+def timed_pool():
+    """Within the block, every ``ClientPool.gather`` and ``scatter`` timed
+    on the host between two synchronizations.  Yields {"gather": [s],
+    "scatter": [s]}."""
+    from repro_torch.core import pool as pool_mod
+
+    real = {k: getattr(pool_mod.ClientPool, k) for k in ("gather", "scatter")}
+    log = {k: [] for k in real}
+
+    def timed(name):
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            log[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    try:
+        for k in real:
+            setattr(pool_mod.ClientPool, k, timed(k))
+        yield log
+    finally:
+        for k, fn in real.items():
+            setattr(pool_mod.ClientPool, k, fn)
+
+
+def check_pool(cfg, cobjs, dev, straight, straight_draws) -> None:
+    """Phase 4g: the client pool (``core/pool.py``).  A pool of ``POOL_N``
+    clients at the main path's width, ``POOL_K`` a chunk, ``POOL_ROUNDS``
+    rounds in captured chunks of ``POOL_CHUNK``: one capture and one replay
+    a chunk whatever the cohort, ms/round over the replays, the gather and
+    scatter ms per boundary, the pool's host bytes; bit for bit the same
+    chunks run eagerly (history, the pool's leaves and generator states);
+    min F over the rounds below F(x_0); the kernels' launches those of the
+    dense engine of K clients over the same rounds and chunks.  Then
+    K = N = 5 against phase 4b's dense run on its seed, bit for bit (the
+    history and each client's generator); a pooled run without tolerance
+    rolled back (the ROLLBACK line at the round the schedule and the
+    cohorts give, F finite); the command line with the pool and fault
+    flags in a child process."""
+    import dataclasses
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graphs
+    from repro_torch.core import objectives as obj
+    from repro_torch.core import pool as pool_mod
+    from repro_torch.core import rff as rfflib
+    from repro_torch.faults import FaultConfig
+
+    card = card_name()
+    pcfg = dataclasses.replace(cfg, n_clients=POOL_N)
+    pq = obj.make_quadratic(0, POOL_N, D, 5.0, 0.001, device=dev)
+    x0 = torch.full((D,), 0.5, dtype=torch.float32, device=dev)
+    eager_draws_type = type("EagerDraws", (alg.ClientDraws,), {})
+
+    def pooled(draws, faults=None, root=None, every=1, q=pq, c=pcfg, k=POOL_K,
+               rounds=POOL_ROUNDS, chunk=POOL_CHUNK):
+        rff = rfflib.make_rff(draws, c.n_features, c.dim, c.lengthscale)
+        return pool_mod.run_pooled_rounds(
+            c, rff, obj.quadratic_query, q, pool_mod.init_pool(c, x0, 1), x0,
+            obj.quadratic_global_value, rounds, chunk, cohort=k, draws=draws, faults=faults,
+            checkpoint_dir=root, checkpoint_every=every)
+
+    reset_counts()
+    graphs.COUNTS.update(captures=0, replays=0)
+    draws = alg.ClientDraws(1, range(POOL_K), dev)
+    with timed_chunks() as log, timed_pool() as plog:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool, res = pooled(draws)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts, runs = read_counts(), dict(graphs.COUNTS)
+    ms_round = 1e3 * sum(log["replay"]) / POOL_ROUNDS
+    gather = [round(1e3 * t, 3) for t in plog["gather"][1:]]  # the first is the capture's
+    scatter = [round(1e3 * t, 3) for t in plog["scatter"][1:]]  # the first is init_pool's
+    print(f"[pool] {card}: N={POOL_N} K={POOL_K} d={D} M={M} cap={CAP} T={cfg.local_steps}: "
+          f"{POOL_ROUNDS} rounds in captured chunks of {POOL_CHUNK} in {secs:.3f} s; {runs}; "
+          f"capture {sum(log['capture']):.3f} s; replays "
+          f"{[round(1e3 * t, 3) for t in log['replay']]} ms, {ms_round:.3f} ms/round over the "
+          f"replays; gather {gather} ms, scatter {scatter} ms per boundary (the pool's "
+          f"build scattered all {POOL_N} clients in {1e3 * plog['scatter'][0]:.3f} ms); the "
+          f"pool {pool.nbytes()} bytes on the host; launches {counts}", flush=True)
+    f = res.f_values.cpu()
+    print(f"[pool] F per round (the cohort's estimate): {[round(v, 6) for v in f.tolist()]}; "
+          f"queries/client {res.queries.cpu().tolist()}", flush=True)
+    if runs != {"captures": 1, "replays": POOL_ROUNDS // POOL_CHUNK}:
+        fail(f"pool: {runs}, expected 1 capture and {POOL_ROUNDS // POOL_CHUNK} replays")
+    if not bool(torch.isfinite(f).all()) or not f[1:].min() < f[0]:
+        fail(f"pool: F not finite or min F over rounds 1-{POOL_ROUNDS} not below F(x_0)")
+    cohorts = {s: pool_mod.sample_cohort(0, s, POOL_N, POOL_K)
+               for s in range(0, POOL_ROUNDS, POOL_CHUNK)}
+    done, want_q = np.zeros(POOL_N, np.int64), []
+    for s, idx in cohorts.items():  # a member's queries count every round it ran
+        for _ in range(s, min(s + POOL_CHUNK, POOL_ROUNDS)):
+            done[idx] += 1
+            want_q.append(np.float32(cfg.queries_per_round() * done[idx].sum())
+                          / np.float32(POOL_K))
+    if not np.array_equal(res.queries.cpu().numpy(), np.array(want_q, np.float32)):
+        fail(f"pool: queries/client {res.queries.cpu().tolist()}, expected {want_q} (the "
+             "cohorts' members' rounds)")
+
+    eager_draws = eager_draws_type(1, range(POOL_K), dev)
+    graphs.COUNTS.update(captures=0, replays=0)
+    eager_pool, eager = pooled(eager_draws)
+    same = {"history": bitwise(res, eager),
+            "pool": bitwise(pool.leaves, eager_pool.leaves),
+            "generators": bitwise(pool.draw_states, eager_pool.draw_states)}
+    print(f"[pool eager] the same chunks run eagerly on the same draws: {same}; "
+          f"{dict(graphs.COUNTS)}", flush=True)
+    if not all(same.values()) or graphs.COUNTS["captures"]:
+        fail(f"pool: the captured pooled run is not its eager chunks bit for bit: {same}")
+
+    reset_counts()
+    alg.simulate(cfg, 1, cobjs, obj.quadratic_query, obj.quadratic_global_value, POOL_ROUNDS,
+                 chunk=POOL_CHUNK, device=dev)
+    dense_counts = read_counts()
+    print(f"[pool launches] the dense engine of {POOL_K} clients over the same rounds and "
+          f"chunks: {dense_counts}; the pool's: {counts}", flush=True)
+    if counts != dense_counts:
+        fail(f"pool: launches {counts}, the dense {POOL_K}-client engine's {dense_counts}")
+
+    full_draws = alg.ClientDraws(1, range(N_CLIENTS), dev)
+    full_pool, full = pooled(full_draws, q=cobjs, c=cfg, k=N_CLIENTS, rounds=CAPTURED_ROUNDS,
+                             chunk=CHUNK)
+    same = {"history": bitwise(full, straight),
+            "generators": bitwise(full_pool.draw_states, straight_draws.state()[1:])}
+    print(f"[pool full] K = N = {N_CLIENTS}, {CAPTURED_ROUNDS} rounds in chunks of {CHUNK}, "
+          f"against phase 4b's dense run on seed 1: {same}", flush=True)
+    if not all(same.values()):
+        fail(f"pool: at K = N the pooled run is not the dense run bit for bit: {same}")
+
+    fcfg = FaultConfig(**POOL_FAULTS)
+    want = rollback_expectations(fcfg, POOL_ROUNDS, POOL_CHUNK, POOL_N, cohorts)
+    if want is None:
+        fail(f"pool: {fcfg} poisons no cohort's chunk in {POOL_ROUNDS} rounds")
+    graphs.COUNTS.update(captures=0, replays=0)
+    with tempfile.TemporaryDirectory() as root, rollback_log() as rlog, timed_pool() as wlog:
+        # a step at the insurance and the end only: the rollback restores step 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, faulted = pooled(alg.ClientDraws(1, range(POOL_K), dev), fcfg, root, every=100)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    lines = [ln.split("] ", 1)[1] for ln in rlog["lines"]]
+    print(f"[pool rollback] {card}: {fcfg}, N={POOL_N} K={POOL_K}: {t1 - t0:.3f} s; "
+          f"{dict(graphs.COUNTS)}; rolled back at round {want[0]} to round 0 (the insurance "
+          f"step), the re-run {t1 - rlog['at'][0] if rlog['at'] else float('nan'):.3f} s; F "
+          f"{[round(v, 6) for v in faulted.f_values.cpu().tolist()]}", flush=True)
+    expect_lines = [f"ROLLBACK 1/3 at round {want[0]} (non-finite server iterate): restoring "
+                    "last good checkpoint", "re-running with fault tolerance FORCED ON"]
+    if lines != expect_lines or not bool(torch.isfinite(faulted.xs).all()):
+        fail(f"pool rollback: printed {lines}, expected {expect_lines}, or F is not finite")
+    check_pool_cli()
+
+
+def check_pool_cli() -> None:
+    """Phase 4g: ``python -m repro_torch.launch.fedzoo --pool-size 256
+    --cohort 5`` with the fault flags, ``--max-rollbacks`` and
+    ``--ckpt-dir`` in a child process, at the command line's defaults but 4
+    rounds in chunks of 2: it must exit 0 and print the cohort, the rates
+    and a finite F(x_R)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as root:
+        cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo", "--pool-size", str(POOL_N),
+               "--cohort", str(POOL_K), "--rounds", "4", "--chunk", "2", "--drop-rate", "0.2",
+               "--nan-rate", "0.1", "--max-rollbacks", "2", "--ckpt-every", "100",
+               "--ckpt-dir", root]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    result = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
+    rates = next((ln for ln in lines if ln.startswith("mean drop_rate")), "")
+    print(f"[pool cli] {' '.join(cmd[3:])} in {secs:.1f} s: {lines[:1]}; {result}; {rates}",
+          flush=True)
+    if (proc.returncode != 0 or f"cohort={POOL_K}" not in proc.stdout or not rates
+            or "nan" in result.lower()):
+        fail(f"pool cli: exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+
+
 def card_name() -> str:
     """The card's name and power limit as ``nvidia-smi`` prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1976,6 +2299,8 @@ def main() -> int:
     check_engine_inputs(dev, "small engine inputs, gradient cap tiles of 8", grad_block_cap=8)
     check_objectives(dev)
     check_faults(cfg, cobjs, dev)
+    check_rollback(cfg, cobjs, dev)
+    check_pool(cfg, cobjs, dev, straight, straight_draws)
     profile_round(cfg, cobjs, dev)
 
     ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)

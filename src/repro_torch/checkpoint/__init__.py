@@ -7,8 +7,10 @@ from repro_torch.checkpoint.io import (  # noqa: F401
     latest_step,
     list_steps,
     load_meta,
+    prepare_pool_state,
     prepare_round_state,
     restore,
+    restore_pool_state,
     restore_round_state,
     restore_train_state,
     save,

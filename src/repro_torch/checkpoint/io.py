@@ -37,9 +37,18 @@ reference's two groups, ``states`` and ``hist``, the port's round state
 has a third, ``draws``: the draw source's generator states, where the
 reference keeps one key per client inside the state.
 
-The reference's sharded layout (a mesh, one file per process) and its
-client-pool layout are not ported: restoring a step written in either
-raises ``NotImplementedError``.
+Client-pool checkpoints (``core/pool.py``) take the reference's
+``pool-v1`` layout: ``step_<N>/meta.json`` is the manifest (the layout,
+one shard, the pool's and the history's leaf counts, dtypes and treedefs,
+the pool's rows) and ``step_<N>/shard_00000/`` holds ``arrays.npz``
+(members ``pool_<i>`` and ``hist_<i>``) and ``shard.json`` (the rows and a
+checksum per member).  The port adds a ``draws`` group (members
+``draws_<i>``: the draw source's own state, then the N clients' generator
+states stacked) and the pool leaves' layouts, under keys the reference
+does not read.
+
+The reference's sharded layout (a mesh, one file per process) is not
+ported: restoring a step written in it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,8 +70,6 @@ _SHARDED_LAYOUT = "sharded-v1"
 _POOL_LAYOUT = "pool-v1"
 _SHARDED = ("the per-shard checkpoint layout of a device mesh is not ported yet "
             "(ROADMAP Queue A, A11: the distributed engine)")
-_POOL = ("the client-pool checkpoint layout is not ported yet "
-         "(ROADMAP Queue A, A12: the client pool)")
 
 
 class CorruptCheckpointError(ValueError):
@@ -340,14 +347,37 @@ def prepare_round_state(states, history, draws=None) -> dict:
 
 def write_round_state(root: str, round_idx: int, payload: dict,
                       extra_meta: dict | None = None) -> str:
-    """Persist a ``prepare_round_state`` payload, keyed by the number of
-    completed rounds: file I/O on host arrays, no device access, so it may
-    run on the writer thread."""
+    """Persist a ``prepare_round_state`` or ``prepare_pool_state`` payload,
+    keyed by the number of completed rounds: file I/O on host arrays, no
+    device access, so it may run on the writer thread."""
+    if payload.get("layout") == "sharded":
+        return _write_shard(_step_path(root, round_idx), round_idx, payload, extra_meta)
     meta = _with_checksums(payload["meta"], payload["arrays"])
     meta["step"] = round_idx
     if extra_meta:
         meta["extra"] = extra_meta
     return _write_single(_step_path(root, round_idx), payload["arrays"], meta)
+
+
+def _write_shard(path: str, round_idx: int, payload: dict, extra_meta: dict | None) -> str:
+    """The per-shard layout of one process: the manifest as the step's
+    ``meta.json``, the arrays and ``shard.json`` (rows, a checksum per
+    member) under ``shard_<p>``."""
+    def populate(tmp: str) -> None:
+        shard = payload["shard_meta"]
+        sdir = os.path.join(tmp, f"shard_{shard['shard']:05d}")
+        os.makedirs(sdir)
+        np.savez(os.path.join(sdir, "arrays.npz"), **payload["arrays"])
+        shard = dict(shard, checksums={k: int(_crc(a)) for k, a in payload["arrays"].items()})
+        with open(os.path.join(sdir, "shard.json"), "w") as f:
+            json.dump(shard, f)
+        manifest = dict(payload["manifest"], step=round_idx)
+        if extra_meta:
+            manifest["extra"] = extra_meta
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(manifest, f)
+
+    return _write_step_dir(path, populate)
 
 
 def restore_round_state(root: str, states_like, hist_like, step: int | None = None,
@@ -363,9 +393,110 @@ def restore_round_state(root: str, states_like, hist_like, step: int | None = No
     if layout == _SHARDED_LAYOUT:
         raise NotImplementedError(f"checkpoint step {step} under {root!r}: {_SHARDED}")
     if layout == _POOL_LAYOUT:
-        raise NotImplementedError(f"checkpoint step {step} under {root!r}: {_POOL}")
+        raise ValueError(f"checkpoint step {step} under {root!r} is a client-pool step "
+                         f"({_POOL_LAYOUT}); restore it with restore_pool_state (a pooled "
+                         "run's directory is not shared with a dense run)")
     tree = restore(root, _round_tree(states_like, hist_like, draws_like), step=step)
     return tree["states"], tree["hist"], tree.get("draws"), step
+
+
+# ---------------------------------------------------------------------------
+# Client-pool checkpoints (core/pool.py)
+# ---------------------------------------------------------------------------
+
+
+def prepare_pool_state(pool_leaves: list, treedef_str: str, row_start: int, global_rows: int,
+                       history, draws=None, orders: Optional[list] = None) -> dict:
+    """Host snapshot of a client-pool checkpoint: the pool's leaves (host
+    tensors, copied: the next boundary's scatter writes them in place
+    while the writer may still be saving these), the history (the only
+    device read) and the draw states (``[source state, (N, S) clients'
+    generator states]``).  The payload is the ``pool-v1`` layout, for
+    ``write_round_state``.  ``orders`` are the pool leaves' layouts
+    (``core/pool.py``'s ``dim_order``), kept in the manifest."""
+    arrays: dict = {}
+    p_tags = []
+    for i, leaf in enumerate(pool_leaves):
+        arrays[f"pool_{i}"], tag, _ = _to_numpy(leaf)
+        p_tags.append(tag)
+    h_leaves, h_def = tree_flatten(history)
+    h_tags = []
+    for i, leaf in enumerate(h_leaves):
+        arrays[f"hist_{i}"], tag, _ = _to_numpy(leaf)
+        h_tags.append(tag)
+    manifest = {
+        "layout": _POOL_LAYOUT,
+        "n_shards": 1,
+        "pool": {"treedef": treedef_str, "n_leaves": len(pool_leaves), "dtypes": p_tags,
+                 "global_rows": int(global_rows), "orders": orders},
+        "hist": {"treedef": h_def, "n_leaves": len(h_leaves), "dtypes": h_tags},
+    }
+    if draws is not None:
+        d_tags = []
+        for i, leaf in enumerate(draws):
+            arrays[f"draws_{i}"], tag, _ = _to_numpy(leaf)
+            d_tags.append(tag)
+        manifest["draws"] = {"n_leaves": len(draws), "dtypes": d_tags}
+    rows = int(pool_leaves[0].shape[0]) if pool_leaves and np.ndim(pool_leaves[0]) else 0
+    shard_meta = {"shard": 0, "row_start": int(row_start), "row_stop": int(row_start) + rows}
+    return {"layout": "sharded", "arrays": arrays, "manifest": manifest,
+            "shard_meta": shard_meta}
+
+
+def restore_pool_state(root: str, pool_like: list, hist_like, step: int | None = None,
+                       draws_like=None):
+    """Inverse of ``prepare_pool_state`` + ``write_round_state``: returns
+    (pool leaves as CPU tensors, history, draws, layouts, round_idx);
+    ``draws`` is None when ``draws_like`` is.  The manifest (layout, one
+    shard), every member's checksum and every leaf's shape and dtype are
+    checked against the templates, as ``restore_round_state`` checks its
+    own; damage raises ``CorruptCheckpointError``."""
+    if step is None:
+        step = latest_step(root)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {root}")
+    meta = load_meta(root, step)
+    if meta.get("layout") != _POOL_LAYOUT:
+        raise ValueError(f"checkpoint step {step} under {root!r} has layout "
+                         f"{meta.get('layout')!r}, expected {_POOL_LAYOUT!r} (a client-pool "
+                         "checkpoint directory must not be shared with round-state runs)")
+    if meta.get("n_shards") != 1:
+        raise ValueError(f"pool checkpoint was written by {meta.get('n_shards')} process(es), "
+                         "cannot restore with 1")
+    sdir = os.path.join(_step_path(root, step), "shard_00000")
+    with open(os.path.join(sdir, "shard.json")) as f:
+        shard_meta = json.load(f)
+    apath = os.path.join(sdir, "arrays.npz")
+    data = _load_npz(apath)
+    sums = shard_meta.get("checksums") or {}
+
+    def member(key: str) -> np.ndarray:
+        raw = _npz_member(data, key, apath)
+        if key in sums and _crc(raw) != sums[key]:
+            raise CorruptCheckpointError(f"checksum mismatch at {key!r} in {apath!r}")
+        return raw
+
+    def group(name: str, like: list, prefix: str) -> list:
+        if len(like) != meta[name]["n_leaves"]:
+            raise ValueError(f"pool checkpoint has {meta[name]['n_leaves']} {name} leaves, "
+                             f"template has {len(like)}")
+        out = []
+        for i, want in enumerate(like):
+            raw, tag = member(f"{prefix}_{i}"), meta[name]["dtypes"][i]
+            _check_leaf(i, raw.shape, _BF16 if tag == _BF16 else _dtype_name(raw), want)
+            out.append(_from_numpy(raw, tag, want, None))
+        return out
+
+    rows = shard_meta["row_stop"] - shard_meta["row_start"]
+    if rows != meta["pool"]["global_rows"]:
+        raise ValueError(f"pool shard rows [{shard_meta['row_start']}, "
+                         f"{shard_meta['row_stop']}) are not the pool's "
+                         f"{meta['pool']['global_rows']}")
+    leaves = group("pool", pool_like, "pool")
+    h_like, _ = tree_flatten(hist_like)
+    hist = tree_unflatten(hist_like, group("hist", h_like, "hist"))
+    draws = None if draws_like is None else group("draws", list(draws_like), "draws")
+    return leaves, hist, draws, meta["pool"].get("orders"), step
 
 
 class AsyncCheckpointWriter:

@@ -461,7 +461,7 @@ def _fault_draws(faults, round_idx, client_ids):
     if round_idx is None:
         raise ValueError("faults injection requires round_idx")
     if isinstance(faults, injector.FaultSchedule):
-        return faults.config, faults.draw(round_idx)
+        return faults.config, faults.draw(round_idx, client_ids)
     return faults, injector.draw_faults(faults, round_idx, client_ids)
 
 
@@ -639,6 +639,10 @@ def simulate(
     checkpoint_every: int = 1,
     async_checkpoint: bool = True,
     faults: Optional[injector.FaultConfig] = None,
+    max_rollbacks: int = 3,
+    cohort: Optional[int] = None,
+    cohort_seed: int = 0,
+    identity: Optional[dict] = None,
     device="cuda",
 ) -> SimResult:
     """Run ``rounds`` communication rounds.
@@ -667,7 +671,20 @@ def simulate(
     (``effective_config``).  The loop resets the quarantined clients after
     every round and returns NaN rows where a run without tolerance is
     poisoned; chunks reset them at every boundary, where a poisoned
-    iterate raises (``core/rounds.py``).
+    iterate rolls the run back to its last good checkpoint, at most
+    ``max_rollbacks`` times, or raises without a ``checkpoint_dir``
+    (``core/rounds.py``).  ``identity`` adds the caller's fields (the
+    command line's seed and objective arguments) to the run identity that
+    a resume checks.
+
+    ``cohort=K`` runs partial participation (``core/pool.py``): the N =
+    ``cfg.n_clients`` clients live in a host pool and each chunk a cohort
+    of K, drawn from ``cohort_seed`` and the chunk's first round, runs on
+    the device, its means over the live members of the cohort; the draw
+    source then has K generators (``ClientDraws(seed, range(K),
+    device)`` by default), loaded with the cohort's states every chunk.
+    K = N is the dense engine bit for bit.  The pooled engine has no loop:
+    ``chunk=0`` raises.
     """
     from repro_torch.core import rounds as rounds_mod  # deferred: rounds imports this module
 
@@ -679,21 +696,33 @@ def simulate(
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
     if chunk == 0 and checkpoint_dir:
         raise ValueError("checkpoint_dir requires the scan driver (chunk != 0)")
+    if cohort is not None and chunk == 0:
+        raise ValueError("cohort (partial participation) requires chunks (chunk != 0); the "
+                         "dense engine at cohort == n_clients is the equivalence oracle")
     if x0 is None:
         x0 = torch.full((cfg.dim,), 0.5, dtype=torch.float32, device=dev)
     x0 = x0.to(dev)
     if draws is None:
-        draws = ClientDraws(seed, range(cfg.n_clients), dev)
+        draws = ClientDraws(seed, range(cfg.n_clients if cohort is None else cohort), dev)
     rff = rfflib.make_rff(draws, cfg.n_features, cfg.dim, cfg.lengthscale) \
         if cfg.is_fzoos else None
+    engine = dict(diag_global_grad=diag_global_grad, eval_every=eval_every,
+                  checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+                  async_checkpoint=async_checkpoint, faults=faults,
+                  max_rollbacks=max_rollbacks, identity=identity)
+    chunk = rounds_mod.DEFAULT_CHUNK if chunk is None else chunk
+    if cohort is not None:
+        from repro_torch.core import pool as pool_mod  # deferred: pool imports rounds
+
+        pool = pool_mod.init_pool(cfg, x0, seed)
+        _, res = pool_mod.run_pooled_rounds(
+            cfg, rff, query_fn, cobjs, pool, x0, global_value_fn, rounds, chunk,
+            cohort=cohort, cohort_seed=cohort_seed, draws=draws, **engine)
+        return res
     states = init_states(cfg, x0)
     if chunk != 0:
-        _, res = rounds_mod.run_rounds(
-            cfg, rff, query_fn, cobjs, states, x0, global_value_fn, rounds,
-            rounds_mod.DEFAULT_CHUNK if chunk is None else chunk, draws=draws,
-            diag_global_grad=diag_global_grad, eval_every=eval_every,
-            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-            async_checkpoint=async_checkpoint, faults=faults)
+        _, res = rounds_mod.run_rounds(cfg, rff, query_fn, cobjs, states, x0, global_value_fn,
+                                       rounds, chunk, draws=draws, **engine)
         return res
 
     xs, fvals = [x0], [global_value_fn(cobjs, x0)]

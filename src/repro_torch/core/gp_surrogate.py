@@ -272,7 +272,11 @@ def factor_init(traj: Trajectory, hyper: GPHyper) -> GramFactor:
     n = gram.shape[0]
     return GramFactor(
         gram=gram,
-        chol=torch.where(ok[:, None, None], chol, eye),
+        # row-major, as every update leaves it: an eager chunk's arithmetic
+        # follows its inputs' strides, so a captured chunk (whose static
+        # state keeps the initial layout) and the eager chunks meet the
+        # same layouts at every boundary
+        chol=torch.where(ok[:, None, None], chol, eye).contiguous(),
         eigvecs=v,
         eigvals=w,
         exact=ok,

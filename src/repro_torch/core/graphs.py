@@ -76,7 +76,8 @@ class CapturedChunks:
     the chunk of that length (capturing it on first use) from round
     ``offset`` and returns its stacked per-round outputs, valid until the
     next replay; ``states`` and ``sx`` are then the state after the chunk.
-    ``load`` overwrites the static state (the boundary's repair).
+    ``load`` overwrites the static state (the boundary's repair, a
+    rollback's restore, a cohort's gather).
     """
 
     def __init__(self, make_chunk, draws, states, sx: torch.Tensor):
@@ -122,5 +123,8 @@ class CapturedChunks:
         COUNTS["replays"] += 1
         return ys
 
-    def load(self, states) -> None:
+    def load(self, states, sx=None) -> None:
+        """Overwrite the static state (and server iterate, where given)."""
         copy_into(self.states, states)
+        if sx is not None and sx is not self.sx:
+            self.sx.copy_(sx)

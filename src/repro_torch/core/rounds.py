@@ -31,20 +31,30 @@ Faults (``faults.FaultConfig``): every round of a chunk reads its draws
 from the run's ``FaultSchedule`` at the absolute round ``offset + i``, a
 device tensor, so one captured chunk serves every offset.  The faulted
 boundary reads the host once: whether the server iterate is finite, and
-the N quarantine flags.  A non-finite iterate (a run without tolerance,
-poisoned) raises ``FloatingPointError`` before anything is written, as
-the reference does without a ``checkpoint_dir``; with one, the
-reference rolls the chunk back, which is not ported yet (ROADMAP Queue A,
-A10b), so it raises too.  After the repair, the tolerant engine restarts
+the N quarantine flags.  After the repair, the tolerant engine restarts
 the quarantined clients at the server iterate (``make_quarantine_reset``;
 the reference's ``boundary_quarantine_reset``).  Quarantines persist to
 the boundary, so a chunked run is its loop bit for bit only where no
 client is quarantined in a round that does not end a chunk: the loop
 resets after every round.
+
+Chunk rollback (the reference's): a faulted run with a ``checkpoint_dir``
+writes one step before its first chunk (the insurance), so a restore
+target always exists.  A non-finite server iterate at a boundary (a run
+without tolerance, poisoned), or a checkpoint write that fails with an
+``OSError`` under faults, restores the newest good step (its state, its
+history and its generators), turns tolerance on and runs the lost rounds
+again, at most ``max_rollbacks`` times; nothing poisoned is written.  On
+the card the tolerant chunks are captured afresh: no graph of the chunk
+without tolerance is replayed after the turn.  Without a
+``checkpoint_dir``, with the budget spent, or with nothing to restore,
+the boundary raises ``FloatingPointError``.  Without faults a failed
+write fails the run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Any, Callable, Optional
 
@@ -156,46 +166,134 @@ def chunk_fn(cfg, rff, query_fn, cobjs, draws, global_value_fn: GlobalValueFn,
     return chunk
 
 
-def _restore_newest_good(checkpoint_dir: str, run_meta: dict, rounds: int, x0: torch.Tensor,
-                         states_like, draws_like):
-    """Restore from the newest complete, uncorrupted checkpoint step.
+def run_identity(rounds: int, chunk: int, cfg, eval_every: int, faults,
+                 identity: Optional[dict] = None) -> dict:
+    """The run's identity, recorded in every step's ``extra`` and checked at
+    resume (``newest_good``): the reference's fields, then the caller's
+    ``identity`` (the launcher's seed and objective arguments, the pool's
+    size, cohort and cohort seed).  ``chunk`` is recorded, never checked:
+    it sets only the boundaries' cadence."""
+    meta = {"rounds": rounds, "chunk": chunk, "cfg": repr(cfg), "eval_every": eval_every,
+            "faults": repr(faults)}
+    for field, value in (identity or {}).items():
+        if field in meta:
+            raise ValueError(f"identity field {field!r} is one of the run's own")
+        meta[field] = value
+    return meta
+
+
+def newest_good(checkpoint_dir: str, run_meta: dict, restore: Callable[[int], Any],
+                 who: str = "rounds"):
+    """``restore(step)`` of the newest complete, uncorrupted step, or None.
 
     A step whose meta is unreadable or whose arrays fail the integrity
-    checks (``CorruptCheckpointError``) is skipped with a printed line and
-    the next older one is tried.  A step of another run identity raises.
-    Returns ``(states, hist, draws_state, start)``; ``hist`` is None when
-    nothing under ``checkpoint_dir`` restores.
-    """
+    checks (``CorruptCheckpointError``, ``OSError``) is skipped with a
+    printed line and the next older one is tried.  A step of another run
+    identity raises: every field of ``run_meta`` but ``chunk`` is compared,
+    and a field that the step does not record is not (a step of an older
+    version resumes)."""
     for step in sorted(ckpt_io.list_steps(checkpoint_dir), reverse=True):
         try:
             saved = ckpt_io.load_meta(checkpoint_dir, step).get("extra") or {}
         except (OSError, ValueError) as e:
-            print(f"[repro_torch.rounds] checkpoint step {step}: unreadable meta ({e}); "
+            print(f"[repro_torch.{who}] checkpoint step {step}: unreadable meta ({e}); "
                   "trying an older step")
             continue
-        for field in ("rounds", "cfg", "eval_every", "faults"):
-            if saved.get(field) not in (None, run_meta[field]):
+        for field, want in run_meta.items():
+            if field != "chunk" and saved.get(field) not in (None, want):
                 raise ValueError(
                     f"checkpoint_dir {checkpoint_dir!r} holds a run with "
                     f"{field}={saved[field]!r}, cannot resume it with "
-                    f"{field}={run_meta[field]!r}; point at a fresh directory")
-        hist_like = history_init(rounds, x0, torch.zeros((), dtype=torch.float32))
+                    f"{field}={want!r}; point at a fresh directory")
         try:
-            states, hist, draws, start = ckpt_io.restore_round_state(
-                checkpoint_dir, states_like, hist_like, step=step, draws_like=draws_like)
+            return restore(step)
         except (ckpt_io.CorruptCheckpointError, OSError) as e:
-            print(f"[repro_torch.rounds] checkpoint step {step}: corrupt ({e}); "
+            print(f"[repro_torch.{who}] checkpoint step {step}: corrupt ({e}); "
                   "trying an older step")
-            continue
+    return None
+
+
+def _restore_newest_good(checkpoint_dir: str, run_meta: dict, rounds: int, x0: torch.Tensor,
+                         states_like, draws_like):
+    """Restore from the newest complete, uncorrupted checkpoint step
+    (``newest_good``).  Returns ``(states, hist, draws_state, start)``;
+    ``hist`` is None when nothing under ``checkpoint_dir`` restores."""
+    def restore(step):
+        hist_like = history_init(rounds, x0, torch.zeros((), dtype=torch.float32))
+        states, hist, draws, start = ckpt_io.restore_round_state(
+            checkpoint_dir, states_like, hist_like, step=step, draws_like=draws_like)
         return states, hist, draws, min(start, rounds)
-    return states_like, None, None, 0
+
+    got = newest_good(checkpoint_dir, run_meta, restore)
+    return got if got is not None else (states_like, None, None, 0)
+
+
+def write_boundary(writer, write: Callable[[], Any], final: bool, faulted: bool,
+                   done: int, who: str = "rounds") -> bool:
+    """One boundary's checkpoint: ``write()`` now, or on ``writer``'s thread
+    (a submit surfaces the previous write's error; the last boundary is
+    drained at once, so its error is this boundary's and not the run's
+    end).  Returns False when a write failed with an ``OSError`` under
+    faults (the caller rolls back); without faults the error fails the
+    run."""
+    try:
+        if writer is None:
+            write()
+        else:
+            writer.submit(write)
+            if final:
+                writer.wait()
+    except OSError as e:
+        if not faulted:
+            raise
+        print(f"[repro_torch.{who}] checkpoint write failed at round {done}: {e}")
+        return False
+    return True
+
+
+def rollback_or_raise(reason: str, done: int, checkpoint_dir: Optional[str], rollbacks: int,
+                      max_rollbacks: int, writer, who: str = "rounds") -> int:
+    """The checks of a rollback at round ``done`` (the reference's three
+    errors): raises ``FloatingPointError`` without a ``checkpoint_dir`` or
+    with the budget spent; else drains ``writer`` (a failed write is the
+    fault being rolled back), prints the ROLLBACK line and returns the
+    count with this one."""
+    if not checkpoint_dir:
+        raise FloatingPointError(f"{reason} at round {done} with no checkpoint_dir to roll "
+                                 "back to (chunk rollback needs checkpointing)")
+    if rollbacks >= max_rollbacks:
+        raise FloatingPointError(f"{reason} at round {done}: rollback budget "
+                                 f"max_rollbacks={max_rollbacks} exhausted")
+    if writer is not None:
+        try:
+            writer.wait()
+        except OSError:
+            pass
+    rollbacks += 1
+    print(f"[repro_torch.{who}] ROLLBACK {rollbacks}/{max_rollbacks} at round {done} "
+          f"({reason}): restoring last good checkpoint")
+    return rollbacks
+
+
+def nothing_to_restore(done: int, checkpoint_dir: str) -> FloatingPointError:
+    return FloatingPointError(f"rollback at round {done} failed: no restorable checkpoint "
+                              f"under {checkpoint_dir!r}")
+
+
+def tolerant(fcfg, who: str = "rounds"):
+    """``fcfg`` with tolerance on, printing the turn when it was off."""
+    if fcfg.tolerate:
+        return fcfg
+    print(f"[repro_torch.{who}] re-running with fault tolerance FORCED ON")
+    return dataclasses.replace(fcfg, tolerate=True)
 
 
 def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
                global_value_fn: GlobalValueFn, rounds: int, chunk: int, *, draws,
                diag_global_grad=None, eval_every: int = 1,
                checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
-               async_checkpoint: bool = True, faults: Optional[injector.FaultConfig] = None):
+               async_checkpoint: bool = True, faults: Optional[injector.FaultConfig] = None,
+               max_rollbacks: int = 3, identity: Optional[dict] = None):
     """Run ``rounds`` communication rounds in chunks of ``chunk`` rounds;
     returns (final stacked ClientState, SimResult history).
 
@@ -217,12 +315,15 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
     resume with another ``chunk`` moves the boundary repairs.  The write
     goes to a background thread (``async_checkpoint``) after a
     synchronous host snapshot; the last boundary's write is drained before
-    the run returns, and a write's error fails the run.
+    the run returns.
 
     ``faults`` runs the chunks under that ``FaultConfig`` (module
     docstring); one that can never fire in ``[0, rounds)`` runs the
-    faults-free engine.  It is part of the run's identity: a checkpoint
-    names it, and a resume with another one raises.
+    faults-free engine.  A poisoned boundary or a failed write under faults
+    rolls the run back, at most ``max_rollbacks`` times (module
+    docstring).  ``identity`` adds the caller's fields to the run's
+    identity (``run_identity``): a checkpoint names them with the config
+    and the faults, and a resume with another value raises.
     """
     if rounds < 0:
         raise ValueError(f"rounds must be >= 0, got {rounds}")
@@ -239,10 +340,7 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
     faults = injector.effective_config(faults, rounds)
     chunk = min(chunk, max(rounds, 1))
     dev = x0.device
-    # The run's identity, recorded at every write and checked at resume;
-    # ``chunk`` is recorded but not checked (the boundaries' cadence only).
-    run_meta = {"rounds": rounds, "chunk": chunk, "cfg": repr(cfg),
-                "eval_every": eval_every, "faults": repr(faults)}
+    run_meta = run_identity(rounds, chunk, cfg, eval_every, faults, identity)
     start, hist = 0, None
     if checkpoint_dir and ckpt_io.latest_step(checkpoint_dir) is not None:
         r_states, r_hist, r_draws, start = _restore_newest_good(
@@ -253,18 +351,29 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
     if hist is None:
         hist = history_init(rounds, x0, global_value_fn(cobjs, x0))
     sx = hist.xs[start]
-    schedule = reset = None
-    if faults is not None:
-        schedule = injector.FaultSchedule(faults, rounds, states.client_id)
-        if faults.tolerate:
-            reset = alg.make_quarantine_reset(cfg, dev)
-    make = lambda k, d: chunk_fn(cfg, rff, query_fn, cobjs, d, global_value_fn,
-                                 diag_global_grad, k, eval_every, rounds, faults=schedule)
-    captured = None
-    if rounds > start and graphs.captures(cfg, draws, dev):
-        captured = graphs.CapturedChunks(make, draws, states, sx)
+    fcfg = faults
+
+    def engine(states, sx, done):
+        """(schedule, reset, chunk maker, captured chunks) of ``fcfg``."""
+        schedule = reset = captured = None
+        if fcfg is not None:
+            schedule = injector.FaultSchedule(fcfg, rounds, states.client_id)
+            if fcfg.tolerate:
+                reset = alg.make_quarantine_reset(cfg, dev)
+        make = lambda k, d: chunk_fn(cfg, rff, query_fn, cobjs, d, global_value_fn,
+                                     diag_global_grad, k, eval_every, rounds, faults=schedule)
+        if rounds > done and graphs.captures(cfg, draws, dev):
+            captured = graphs.CapturedChunks(make, draws, states, sx)
+        return schedule, reset, make, captured
+
+    schedule, reset, make, captured = engine(states, sx, start)
     writer = ckpt_io.AsyncCheckpointWriter() if checkpoint_dir and async_checkpoint else None
-    done, chunks_done = start, 0
+    if fcfg is not None and checkpoint_dir and ckpt_io.latest_step(checkpoint_dir) is None:
+        # the insurance: a restore target before the first faulted chunk
+        ckpt_io.write_round_state(checkpoint_dir, start,
+                                  ckpt_io.prepare_round_state(states, hist, draws.state()),
+                                  run_meta)
+    done, chunks_done, rollbacks = start, 0, 0
     try:
         while done < rounds:
             k = min(chunk, rounds - done)
@@ -277,42 +386,46 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
             hist_write(hist, ys, done)
             done += k
             chunks_done += 1
-            restart = False
+            ok = wrote = True
             if schedule is not None:
                 # the faulted boundary's one host read: sx finite, the flags
                 read = torch.cat([torch.isfinite(sx).all()[None], states.quarantined]).cpu()
-                if not bool(read[0]):
-                    raise FloatingPointError(_poisoned(done, checkpoint_dir))
+                ok = bool(read[0])
+            if ok:
                 restart = reset is not None and bool(read[1:].any())
-            states, n_repaired = repair_flagged_clients(states, cfg)
-            if restart:
-                states = reset(states, sx)
-            if captured is not None and (n_repaired or restart):
-                captured.load(states)
-            if checkpoint_dir and (chunks_done % max(checkpoint_every, 1) == 0
-                                   or done == rounds):
-                # the snapshot completes before the next chunk overwrites
-                # the state; only the file I/O goes to the writer thread
-                payload = ckpt_io.prepare_round_state(states, hist, draws.state())
-                write = partial(ckpt_io.write_round_state, checkpoint_dir, done, payload,
-                                run_meta)
-                if writer is None:
-                    write()
-                else:
-                    writer.submit(write)
-                    if done >= rounds:  # no later submit would surface its error
-                        writer.wait()
+                states, n_repaired = repair_flagged_clients(states, cfg)
+                if restart:
+                    states = reset(states, sx)
+                if captured is not None and (n_repaired or restart):
+                    captured.load(states)
+                if checkpoint_dir and (chunks_done % max(checkpoint_every, 1) == 0
+                                       or done == rounds):
+                    # the snapshot completes before the next chunk overwrites
+                    # the state; only the file I/O goes to the writer thread
+                    payload = ckpt_io.prepare_round_state(states, hist, draws.state())
+                    wrote = write_boundary(
+                        writer, partial(ckpt_io.write_round_state, checkpoint_dir, done,
+                                        payload, run_meta),
+                        done >= rounds, fcfg is not None, done)
+            if ok and wrote:
+                continue
+            reason = "non-finite server iterate" if not ok else "checkpoint write failure"
+            rollbacks = rollback_or_raise(reason, done, checkpoint_dir, rollbacks,
+                                          max_rollbacks, writer)
+            r_states, r_hist, r_draws, r_start = _restore_newest_good(
+                checkpoint_dir, run_meta, rounds, x0, states, draws.state())
+            if r_hist is None:
+                raise nothing_to_restore(done, checkpoint_dir)
+            states, hist, done = r_states, r_hist, r_start
+            draws.load_state(r_draws)
+            sx = hist.xs[done]
+            chunks_done = 0
+            if not fcfg.tolerate:
+                fcfg = tolerant(fcfg)
+                schedule, reset, make, captured = engine(states, sx, done)
+            elif captured is not None:
+                captured.load(states, sx)
     finally:
         if writer is not None:
             writer.wait()
     return states, hist
-
-
-def _poisoned(done: int, checkpoint_dir: Optional[str]) -> str:
-    """The error of a chunk whose server iterate is not finite."""
-    if not checkpoint_dir:
-        return (f"non-finite server iterate at round {done} with no checkpoint_dir to "
-                "roll back to (chunk rollback needs checkpointing)")
-    return (f"non-finite server iterate at round {done}: rolling the chunk back to the last "
-            f"good checkpoint under {checkpoint_dir!r} is not ported yet (ROADMAP Queue A, "
-            "A10b)")

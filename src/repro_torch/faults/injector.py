@@ -38,7 +38,8 @@ either can run inside a captured CUDA graph:
   each kind whose rate is above 0;
 * ``FaultSchedule(fcfg, rounds, client_ids)``: every round of a run,
   hashed once when it is built; ``draw(round_idx)`` is then one index
-  operation per round.  The round engine's loop and chunks read this one.
+  operation per round (a pool's, ``by_id``, two).  The round engine's
+  loop and chunks read this one.
 
 ``schedule_table`` is the host's (rounds, N) view of the same draws.
 """
@@ -211,16 +212,27 @@ class FaultSchedule:
     bool in the order of ``KINDS``, equal to ``draw_faults`` round by
     round.  ``draw(round_idx)`` reads one round from a 0-d index tensor
     with one ``index_select``, so a captured graph reads the round it is
-    replayed at."""
+    replayed at.
 
-    def __init__(self, config: FaultConfig, rounds: int, client_ids: torch.Tensor):
+    ``by_id=True`` is the client pool's table: built over every pool id
+    ``0..N-1``, its ``draw(round_idx, client_ids)`` also selects the
+    columns of the round's cohort by its ``client_id`` leaf, which a
+    captured graph reads from its static buffers; without it the columns
+    are the batch's positions, as the dense engine reads them."""
+
+    def __init__(self, config: FaultConfig, rounds: int, client_ids: torch.Tensor,
+                 by_id: bool = False):
         self.config = config
+        self.by_id = by_id
         rs = torch.arange(rounds, dtype=torch.int64, device=client_ids.device)[:, None]
         self.table = torch.stack(tuple(_gate(config, _draws(config, rs, client_ids[None, :]),
                                              rs)))
 
-    def draw(self, round_idx: torch.Tensor) -> FaultDraw:
+    def draw(self, round_idx: torch.Tensor, client_ids: Optional[torch.Tensor] = None
+             ) -> FaultDraw:
         rows = self.table.index_select(1, round_idx.reshape(1).to(torch.int64))
+        if self.by_id:
+            rows = rows.index_select(2, client_ids.to(torch.int64))
         return FaultDraw(*rows[:, 0].unbind(0))
 
 

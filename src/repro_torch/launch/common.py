@@ -10,11 +10,11 @@
   ``--ckpt-dir``, ``--ckpt-every``, ``--sync-ckpt``, ``--eval-every``) and
   the pool and fault flags.
 
-Every flag keeps the reference's name, type and default.  The port's
-command line has no fault flags (ROADMAP A10b: the engine takes faults
-since A10a, the flags come with chunk rollback) and no client pool (A12)
-yet, so ``faults_from_args`` and ``pool_from_args`` exit, naming the item,
-when a flag asks for either: a run never goes on with such a flag ignored.
+Every flag keeps the reference's name, type and default.
+``pool_from_args`` and ``faults_from_args`` read the pool flags
+(``--pool-size``, ``--cohort``, ``--cohort-seed``) and the fault flags
+(the ``FaultConfig`` fields, ``--fault-tolerance``, ``--max-rollbacks``)
+as the reference's do.
 """
 
 from __future__ import annotations
@@ -95,12 +95,17 @@ def add_pool_flags(ap: argparse.ArgumentParser) -> None:
 
 
 def pool_from_args(args: argparse.Namespace) -> tuple[int | None, int | None]:
-    """(n_clients override, cohort) from the pool flags: (None, None), or an
-    exit when a flag asks for the pool, which is not ported yet."""
-    if args.pool_size is not None or args.cohort is not None:
-        raise SystemExit("--pool-size/--cohort: partial participation (the client pool) "
-                         "is not ported yet (ROADMAP Queue A, A12)")
-    return None, None
+    """(n_clients override, cohort) from the pool flags, validated: an exit
+    on ``--pool-size`` without ``--cohort`` or on a size below 1."""
+    if args.pool_size is not None:
+        if args.cohort is None:
+            raise SystemExit("--pool-size requires --cohort (K clients per round out of the "
+                             "N pooled)")
+        if args.pool_size < 1:
+            raise SystemExit(f"--pool-size {args.pool_size} must be >= 1")
+    if args.cohort is not None and args.cohort < 1:
+        raise SystemExit(f"--cohort {args.cohort} must be >= 1")
+    return args.pool_size, args.cohort
 
 
 def add_fault_flags(ap: argparse.ArgumentParser) -> None:
@@ -131,15 +136,18 @@ def add_fault_flags(ap: argparse.ArgumentParser) -> None:
 
 
 def faults_from_args(args: argparse.Namespace):
-    """None (the faults-free engine) unless a fault rate is above 0 or
-    ``--fault-tolerance`` asks for the fault-tolerant engine, whose flags
-    are not ported yet: then an exit."""
-    rates = (args.drop_rate, args.straggle_rate, args.nan_rate, args.inf_rate)
-    if any(r > 0 for r in rates) or args.fault_tolerance:
-        raise SystemExit("the command line's fault flags are not ported yet (ROADMAP Queue "
-                         "A, A10b); in Python, simulate(..., faults=FaultConfig(...)) runs "
-                         "the faulted engine")
-    return None
+    """The ``FaultConfig`` of the fault flags; None (the faults-free engine)
+    unless a fault can fire or ``--fault-tolerance`` asks for the masked
+    engine with nothing injected."""
+    from repro_torch.faults import FaultConfig
+
+    fcfg = FaultConfig(seed=args.fault_seed, drop_rate=args.drop_rate,
+                       straggle_rate=args.straggle_rate, nan_rate=args.nan_rate,
+                       inf_rate=args.inf_rate, first_round=args.fault_from,
+                       last_round=args.fault_until, tolerate=not args.no_fault_tolerance)
+    if not fcfg.injects and not args.fault_tolerance:
+        return None
+    return fcfg
 
 
 def config_from_args(args: argparse.Namespace, *, dim: int, n_clients: int) -> alg.AlgoConfig:

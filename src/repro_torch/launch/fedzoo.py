@@ -18,6 +18,14 @@ by default.
     # on the CPU (every kernel wrapper runs its plain torch version)
     python -m repro_torch.launch.fedzoo --device cpu --dim 8 --clients 3
 
+    # faults; without tolerance a poisoned chunk rolls back to its last
+    # good step and runs again with tolerance on
+    python -m repro_torch.launch.fedzoo --nan-rate 0.1 --no-fault-tolerance \
+        --chunk 4 --ckpt-dir ckpt
+
+    # partial participation: a pool of 256 clients, 5 of them a chunk
+    python -m repro_torch.launch.fedzoo --pool-size 256 --cohort 5 --chunk 2
+
 Run from the repository root with ``PYTHONPATH=src``.  ``--device``
 (default ``cuda``, which raises when no card is present) is the one flag
 the reference does not have.  ``--seed`` gives two streams through
@@ -26,10 +34,14 @@ draws and ``(seed, 1)`` the run's ``ClientDraws``, as the reference
 splits one key into the objective's and the run's.
 
 The attack and the metric train their victims on the run's device and
-ignore ``--dim`` and ``--het``, as the reference's do.  The objective
-``lm`` (ROADMAP Queue A, A13) and ``--distributed`` (A11) keep their
-places in the command line and exit, naming their item, until they are
-ported.
+ignore ``--dim`` and ``--het``, as the reference's do.  ``--pool-size``
+overrides ``--clients``: the objective and the config are built for the
+pool, and ``--cohort`` clients of it run each chunk.  The run's identity
+holds the seed and the objective's arguments, so a resume with another
+``--seed``, ``--het``, ``--noise-std`` or ``--p-shared`` raises instead
+of joining two runs.  The objective ``lm`` (ROADMAP Queue A, A13) and
+``--distributed`` (A11) keep their places in the command line and exit,
+naming their item, until they are ported.
 """
 
 from __future__ import annotations
@@ -111,10 +123,24 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def run_identity(args) -> dict:
+    """The command line's part of the run identity: the seed and the
+    objective's arguments (those ``build_objective`` reads)."""
+    objective = {"objective": args.objective, "clients": args.clients,
+                 "noise_std": args.noise_std}
+    if args.objective in ("quadratic", "sinquad"):
+        objective.update(dim=args.dim, het=args.het)
+    else:
+        objective.update(p_shared=args.p_shared)
+    return {"seed": args.seed, "objective": objective}
+
+
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
-    common.pool_from_args(args)  # exits on a pool flag until A12
-    common.faults_from_args(args)  # exits on a fault flag until A10b
+    pool_size, cohort = common.pool_from_args(args)
+    if pool_size is not None:
+        args.clients = pool_size  # the pool is the population
+    faults = common.faults_from_args(args)
     if args.distributed:
         raise SystemExit("--distributed: the distributed engine is not ported yet "
                          "(ROADMAP Queue A, A11)")
@@ -122,16 +148,22 @@ def main(argv=None) -> None:
 
     cobjs, query, global_value, dim = build_objective(args, alg.stream_seed(args.seed, 0),
                                                       device)
-    print(f"objective={args.objective} dim={dim} clients={args.clients} algo={args.algo}")
+    print(f"objective={args.objective} dim={dim} clients={args.clients} algo={args.algo}"
+          + (f" cohort={cohort}" if cohort is not None else ""))
     cfg = common.config_from_args(args, dim=dim, n_clients=args.clients)
     print(f"queries/round/client = {cfg.queries_per_round()}  "
           f"uplink floats/round/client = {cfg.comm_floats_per_round()}")
+    if faults is not None:
+        print(f"faults: {faults}")
 
     t0 = time.time()
     res = alg.simulate(cfg, alg.stream_seed(args.seed, 1), cobjs, query, global_value,
                        args.rounds, chunk=args.chunk, eval_every=args.eval_every,
                        checkpoint_dir=args.ckpt_dir or None, checkpoint_every=args.ckpt_every,
-                       async_checkpoint=not args.sync_ckpt, device=device)
+                       async_checkpoint=not args.sync_ckpt, faults=faults,
+                       max_rollbacks=args.max_rollbacks, cohort=cohort,
+                       cohort_seed=args.cohort_seed, identity=run_identity(args),
+                       device=device)
     f = res.f_values.cpu().numpy()
     queries = res.queries.cpu().numpy()
     dt = time.time() - t0
@@ -140,6 +172,9 @@ def main(argv=None) -> None:
     print(f"F(x_0) = {float(f[0]):+.5f}   F(x_R) = {float(f[-1]):+.5f}   "
           f"best = {best:+.5f}   ({dt:.1f}s, "
           f"{args.rounds / max(dt, 1e-9):.1f} rounds/s)")
+    if faults is not None:
+        print(f"mean drop_rate = {float(res.drop_rate.mean()):.3f}   "
+              f"mean quarantine_rate = {float(res.quarantine_rate.mean()):.3f}")
     stride = max(args.rounds // 10, 1)
     shown = sorted(set(range(0, args.rounds + 1, stride)) | {args.rounds})
     for r in shown:

@@ -35,13 +35,14 @@ import torch
 from repro.checkpoint import io as rio
 from repro.core import algorithms as ralg
 from repro.core import objectives as robj
-from repro.faults import corrupt
+from repro.faults import corrupt as rcorrupt
 from repro_torch import convert
 from repro_torch.checkpoint import io
 from repro_torch.core import algorithms as alg
 from repro_torch.core import graphs
 from repro_torch.core import objectives as obj
 from repro_torch.core import rounds
+from repro_torch.faults import corrupt
 
 ROUNDS, CHUNK = 12, 4
 
@@ -246,14 +247,47 @@ def test_async_writer_reraises_background_error():
 
 
 def test_unported_layouts_raise(tmp_path):
-    """A step in the sharded or pool layout names its item."""
-    for layout, item in (("sharded-v1", "A11"), ("pool-v1", "A12")):
+    """A step in the sharded layout names its item (A11); a client-pool
+    step (ported with the pool) is refused by the round-state restore and
+    names ``restore_pool_state``."""
+    for layout, err, match in (("sharded-v1", NotImplementedError, "A11"),
+                               ("pool-v1", ValueError, "restore_pool_state")):
         step = os.path.join(str(tmp_path), layout, "step_00000002")
         os.makedirs(step)
         with open(os.path.join(step, "meta.json"), "w") as f:
             f.write(f'{{"layout": "{layout}"}}')
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(err, match=match):
             io.restore_round_state(os.path.dirname(step), {}, {})
+
+
+@pytest.mark.parametrize("damage", ["truncate_npz", "flip_bytes"])
+@pytest.mark.parametrize("layout", ["single", "pool"])
+def test_corrupt_helpers_damage_like_the_reference(tmp_path, damage, layout):
+    """The port's ``faults.corrupt`` and the reference's damage copies of
+    one step alike, byte for byte (the same bytes cut or flipped), in the
+    single-file layout and in the pool's per-shard one; the damaged step
+    no longer restores."""
+    src = str(tmp_path / "src")
+    if layout == "single":
+        io.save(src, _two_leaves(), step=1)
+    else:
+        hist = alg.SimResult(*(torch.arange(3.0) for _ in alg.SimResult._fields))
+        leaves = [torch.arange(4096, dtype=torch.float32).reshape(8, 512)]
+        io.write_round_state(src, 1, io.prepare_pool_state(leaves, "*", 0, 8, hist))
+    roots = []
+    for mod, name in ((corrupt, "port"), (rcorrupt, "ref")):
+        root = str(tmp_path / name)
+        shutil.copytree(src, root)
+        paths = getattr(mod, damage)(root, 1)
+        assert len(paths) == 1
+        roots.append(paths[0])
+    with open(roots[0], "rb") as a, open(roots[1], "rb") as b:
+        assert a.read() == b.read()
+    with pytest.raises(io.CorruptCheckpointError):
+        if layout == "single":
+            io.restore(str(tmp_path / "port"), _two_leaves(), step=1)
+        else:
+            io.restore_pool_state(str(tmp_path / "port"), leaves, hist, step=1)
 
 
 # ---------------------------------------------------------------------------

@@ -524,12 +524,13 @@ def test_zero_rates_run_the_masked_engine(quad):
     assert not masked.drop_rate.any() and not masked.quarantine_rate.any()
 
 
-def test_no_tolerance_poisons_or_raises(quad, tmp_path):
+def test_no_tolerance_poisons_or_raises(quad, tmp_path, capsys):
     """Without tolerance a NaN payload poisons the dense mean: NaN rows from
     the first poisoned round in the loop, as the reference's loop; in
     chunks a ``FloatingPointError`` at the first boundary, naming the
-    missing checkpoint_dir, or, with one, the rollback still to port
-    (A10b), and no step written."""
+    missing checkpoint_dir, or, with one, a rollback to the last good step
+    (tests/test_torch_rollback.py): the run ends finite with tolerance
+    forced on, and no poisoned step is ever written."""
     cfg = alg.AlgoConfig(**KW)
     fcfg = faults.FaultConfig(seed=KEY, nan_rate=0.3, tolerate=False)
     first = int(np.flatnonzero(faults.schedule_table(fcfg, 6, N)["nan"].any(1))[0])
@@ -539,14 +540,22 @@ def test_no_tolerance_poisons_or_raises(quad, tmp_path):
     with pytest.raises(FloatingPointError, match="no checkpoint_dir"):
         _sim(cfg, quad, chunk=2, faults=fcfg)
     root = str(tmp_path / "ck")
-    with pytest.raises(FloatingPointError, match="A10b"):
-        _sim(cfg, quad, chunk=2, faults=fcfg, checkpoint_dir=root)
-    assert all(step <= first for step in io.list_steps(root))
+    rolled = _sim(cfg, quad, chunk=2, faults=fcfg, checkpoint_dir=root)
+    out = capsys.readouterr().out
+    assert "ROLLBACK 1/3" in out and "FORCED ON" in out
+    assert np.isfinite(rolled.xs.numpy()).all()
+    for step in io.list_steps(root):
+        hist = io.restore_round_state(root, alg.init_states(cfg, torch.zeros(D)),
+                                      rounds.history_init(6, torch.zeros(D), torch.zeros(())),
+                                      step=step,
+                                      draws_like=alg.ClientDraws(5, range(N), "cpu").state())[1]
+        assert np.isfinite(hist.xs[:step + 1].numpy()).all()
 
 
 def test_faulted_resume_is_bitwise(quad, tmp_path):
-    """Six rounds under the mix in chunks of 2 with checkpoints: with the
-    last step removed the resumed run is the straight run bit for bit, its
+    """Six rounds under the mix in chunks of 2 with checkpoints (and the
+    insurance step 0 a faulted run writes first): with the last step
+    removed the resumed run is the straight run bit for bit, its
     generators included; the step names the FaultConfig, and a resume with
     another one raises."""
     cfg, root = alg.AlgoConfig(**KW), str(tmp_path / "ck")
@@ -558,7 +567,7 @@ def test_faulted_resume_is_bitwise(quad, tmp_path):
     straight, straight_draws = run()
     first, _ = run(checkpoint_dir=root)
     TR._assert_bitwise(straight, first)
-    assert io.list_steps(root) == [2, 4, 6]
+    assert io.list_steps(root) == [0, 2, 4, 6]
     assert io.load_meta(root, 6)["extra"]["faults"] == repr(MIX)
     shutil.rmtree(os.path.join(root, f"step_{6:08d}"))
     resumed, resumed_draws = run(checkpoint_dir=root)

@@ -56,6 +56,31 @@ def test_fault_schedule_imports_neither_jax_nor_the_reference():
     assert out.stdout.startswith("ok")
 
 
+def test_pool_and_corrupt_import_neither_jax_nor_the_reference():
+    """``repro_torch.core.pool`` samples the reference's cohorts with its own
+    threefry and ``repro_torch.faults.corrupt`` damages steps with the
+    standard library: importing them and using them loads neither JAX nor
+    ``repro``."""
+    assert {"repro_torch.core.pool", "repro_torch.faults.corrupt"} <= set(_modules())
+    code = (
+        "import os, sys, tempfile\n"
+        "from repro_torch.core.pool import sample_cohort\n"
+        "from repro_torch.faults import corrupt\n"
+        "c = sample_cohort(7, 3, 256, 5)\n"
+        "d = tempfile.mkdtemp(); os.makedirs(os.path.join(d, 'step_00000001'))\n"
+        "open(os.path.join(d, 'step_00000001', 'arrays.npz'), 'wb').write(bytes(4096))\n"
+        "corrupt.flip_bytes(d, 1); corrupt.truncate_npz(d, 1)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', c.tolist())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("path", [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_the_reference(path):

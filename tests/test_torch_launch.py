@@ -7,8 +7,10 @@ types, defaults and choices, and the launcher's parser adds only
 ``--device``.  The reference's launcher tests (tests/test_launchers.py)
 run again on ``repro_torch.launch.fedzoo.main`` with ``--device cpu``;
 a second call with the same ``--ckpt-dir`` resumes and prints the same
-final row; the model-backed objectives (attack, metric) run at their own
-widths; every objective or flag whose module is not ported yet exits
+final row, and one with another seed or objective argument raises; the
+model-backed objectives (attack, metric) run at their own widths; the
+pool and fault flags run the pooled and faulted engines, a poisoned run
+rolls back; every objective or flag whose module is not ported yet exits
 naming its ROADMAP item.
 """
 
@@ -192,12 +194,7 @@ def test_cli_ckpt_flags_and_resume(capsys, tmp_path):
 @pytest.mark.parametrize("argv, item", [
     (["--objective", "lm"], "A13"),
     (["--distributed"], "A11"),
-    (["--cohort", "2"], "A12"),
-    (["--pool-size", "8", "--cohort", "2"], "A12"),
-    (["--drop-rate", "0.1"], "A10"),
-    (["--nan-rate", "0.2", "--fault-until", "3"], "A10"),
-    (["--fault-tolerance"], "A10"),
-], ids=["lm", "distributed", "cohort", "pool", "drop", "nan", "tolerance"])
+], ids=["lm", "distributed"])
 def test_unported_flags_exit_naming_their_item(capsys, argv, item):
     """An objective or flag whose module is not ported exits with a message
     that names its ROADMAP item, before any run."""
@@ -205,6 +202,94 @@ def test_unported_flags_exit_naming_their_item(capsys, argv, item):
         fedzoo.main(["--device", "cpu", "--dim", "4", "--clients", "2", "--rounds", "1",
                      *argv])
     assert "F(x_0)" not in capsys.readouterr().out
+
+
+POOLED = ["--dim", "4", "--clients", "2", "--rounds", "4", "--local-steps", "1", "--features",
+          "8", "--traj-cap", "8", "--chunk", "2"]
+
+
+@pytest.mark.parametrize("argv, printed", [
+    (["--cohort", "2"], "cohort=2"),
+    (["--pool-size", "8", "--cohort", "2"], "clients=8 algo=fzoos cohort=2"),
+    (["--drop-rate", "0.1"], "mean drop_rate"),
+    (["--nan-rate", "0.2", "--fault-until", "3"], "mean quarantine_rate"),
+    (["--fault-tolerance"], "faults: FaultConfig(seed=0, drop_rate=0.0"),
+], ids=["cohort", "pool", "drop", "nan", "tolerance"])
+def test_pool_and_fault_flags_run(capsys, argv, printed):
+    """The pool flags (``--pool-size`` overrides ``--clients``) and the
+    fault flags run the engine as the reference's launcher does and print
+    its lines."""
+    out = _main(capsys, POOLED + argv)
+    assert printed in out and "round    4" in out and "F(x_R) = " in out
+
+
+def test_pool_flags_validated():
+    """tests/test_pool.py:345 on the port's ``pool_from_args``."""
+    ap = argparse.ArgumentParser()
+    common.add_pool_flags(ap)
+    with pytest.raises(SystemExit, match="cohort"):
+        common.pool_from_args(ap.parse_args(["--pool-size", "16"]))
+    assert common.pool_from_args(ap.parse_args(["--pool-size", "16", "--cohort", "4"])) == (16, 4)
+    with pytest.raises(SystemExit, match="cohort"):
+        common.pool_from_args(ap.parse_args(["--cohort", "0"]))
+
+
+def test_faults_from_args_matches_the_reference():
+    """Each flag set gives the reference's ``FaultConfig`` (its repr) or,
+    like it, None."""
+    for argv in ([], ["--drop-rate", "0.1", "--fault-seed", "4"], ["--fault-tolerance"],
+                 ["--nan-rate", "0.2", "--fault-from", "2", "--fault-until", "5",
+                  "--no-fault-tolerance"], ["--inf-rate", "0.3", "--fault-until", "0"]):
+        args = _shared_parser(common).parse_args(argv)
+        got, want = common.faults_from_args(args), rcommon.faults_from_args(args)
+        assert repr(got) == repr(want), argv
+
+
+def test_cli_rollback(capsys, tmp_path):
+    """``--no-fault-tolerance --nan-rate`` with ``--ckpt-dir``: the poisoned
+    chunk rolls back, tolerance is forced on and the run ends finite;
+    ``--max-rollbacks 0`` fails it."""
+    argv = POOLED + ["--clients", "5", "--nan-rate", "0.5", "--no-fault-tolerance",
+                     "--ckpt-dir", str(tmp_path / "a")]
+    out = _main(capsys, argv)
+    assert "ROLLBACK 1/3" in out and "FORCED ON" in out and "nan" not in out.split("F(x_0)")[1]
+    with pytest.raises(FloatingPointError, match="max_rollbacks=0 exhausted"):
+        _main(capsys, POOLED + ["--clients", "5", "--nan-rate", "0.5", "--no-fault-tolerance",
+                                "--ckpt-dir", str(tmp_path / "b"), "--max-rollbacks", "0"])
+
+
+def _child(argv) -> subprocess.CompletedProcess:
+    """The launcher in a child Python on one CPU thread (``_main_one_thread``)."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.fedzoo", "--device", "cpu",
+                           *argv], env=env, capture_output=True, text=True, timeout=600)
+
+
+def test_cli_resume_checks_the_seed_and_the_objective(capsys, tmp_path):
+    """The run identity holds the seed and the objective's arguments: a
+    resume with another ``--seed`` (the quadratic) or another
+    ``--p-shared`` (the metric, in a child Python on one thread) raises
+    instead of joining two runs; the same flags resume bit for bit."""
+    rows = lambda out: [line for line in out.splitlines() if line.startswith("  round")]
+    quad = FD_CKPT + ["--ckpt-dir", str(tmp_path / "quad")]
+    first = _main(capsys, quad)
+    shutil.rmtree(os.path.join(str(tmp_path / "quad"), "step_00000004"))
+    with pytest.raises(ValueError, match="seed=0, cannot resume it with seed=1"):
+        _main(capsys, quad + ["--seed", "1"])
+    assert rows(_main(capsys, quad)) == rows(first)
+
+    metric = SMALL + ["--objective", "metric", "--rounds", "4", "--chunk", "2", "--ckpt-dir",
+                      str(tmp_path / "metric")]
+    first = _child(metric)
+    assert first.returncode == 0, first.stderr[-4000:]
+    shutil.rmtree(os.path.join(str(tmp_path / "metric"), "step_00000004"))
+    other = _child(metric + ["--p-shared", "0.3"])
+    assert other.returncode != 0 and "cannot resume it with objective=" in other.stderr
+    again = _child(metric)
+    assert again.returncode == 0, again.stderr[-4000:]
+    assert rows(again.stdout) == rows(first.stdout)
 
 
 def test_cli_defaults_to_the_card():
