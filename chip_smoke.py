@@ -47,7 +47,10 @@ Phases, each a hard check (any failure exits non-zero):
    the same seed and rounds in the loop (``chunk=0``), bit for bit where
    no client is flagged (``hold_to_loop``); one replayed chunk under
    ``torch.profiler``, each ``fz::`` kernel's launches equal to one
-   chunk's and the card's busy share; the whole ``simulate`` call, the
+   chunk's and the card's busy share; the same 10 rounds in captured
+   chunks of 2 bit for bit the same chunks run eagerly, the Cholesky
+   factor's strides at init those of an eager boundary
+   (``check_chunk_layout``); the whole ``simulate`` call, the
    default (``chunk=None``, captured chunks of 16) against the loop at 10,
    35 and 50 rounds (``time_whole_runs``); the small card-vs-CPU check in
    chunks of 2, captured on the card (the other phases run the loop,
@@ -1104,6 +1107,60 @@ def check_captured(cfg, cobjs, dev) -> None:
     return res, draws, secs
 
 
+#: Chunk length of the layout check: short chunks meet the most boundaries.
+LAYOUT_CHUNK = 2
+
+
+def check_chunk_layout(cfg, cobjs, dev) -> None:
+    """Phase 4b: the main path's ``CAPTURED_ROUNDS`` rounds in captured
+    chunks of ``LAYOUT_CHUNK`` against the same chunks run eagerly on the
+    same draws, and the Cholesky factor's strides at init and at the eager
+    run's first boundary.  A captured chunk replays on static buffers laid
+    out as the initial state; eager chunks start from the layouts the last
+    chunk left, and an eager round's arithmetic follows its inputs'
+    strides: the two runs are the same bits only where the layouts agree.
+    Prints both and max|dx| per round, with the card's name and power
+    limit, then fails unless the runs agree bit for bit and the strides
+    are the same.  Uses only ``simulate``, ``init_states`` and
+    ``rounds.repair_flagged_clients``, so it also measures an older
+    tree's ``repro_torch`` (imported first)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import objectives as obj
+    from repro_torch.core import rounds
+
+    x0 = torch.full((cfg.dim,), 0.5, dtype=torch.float32, device=dev)
+    strides = {"init": list(alg.init_states(cfg, x0).factor.chol.stride())}
+    real = rounds.repair_flagged_clients
+
+    def first_boundary(states, c):
+        strides.setdefault("eager boundary", list(states.factor.chol.stride()))
+        return real(states, c)
+
+    eager_type = type("EagerDraws", (alg.ClientDraws,), {})
+    runs = {}
+    for mode, draws in (("captured", alg.ClientDraws(1, range(cfg.n_clients), dev)),
+                        ("eager", eager_type(1, range(cfg.n_clients), dev))):
+        rounds.repair_flagged_clients = first_boundary if mode == "eager" else real
+        try:
+            runs[mode] = alg.simulate(cfg, 1, cobjs, obj.quadratic_query,
+                                      obj.quadratic_global_value, CAPTURED_ROUNDS,
+                                      chunk=LAYOUT_CHUNK, draws=draws, device=dev)
+        finally:
+            rounds.repair_flagged_clients = real
+    a, b = runs["captured"], runs["eager"]
+    out = {"bitwise": bitwise(a, b),
+           "max_dx_per_round": [(a.xs[r] - b.xs[r]).abs().max().item()
+                                for r in range(a.xs.shape[0])],
+           "chol_strides": strides}
+    print(f"[layout] {card_name()}: captured against eager chunks of {LAYOUT_CHUNK}, "
+          f"{CAPTURED_ROUNDS} rounds: bitwise {out['bitwise']}; max|dx| per round "
+          f"{[f'{v:.3e}' for v in out['max_dx_per_round']]}; Cholesky factor strides "
+          f"{strides}", flush=True)
+    if not (out["bitwise"] and strides["init"] == strides["eager boundary"]):
+        fail(f"layout: captured chunks of {LAYOUT_CHUNK} are not their eager chunks bit for "
+             f"bit, or the factor's layout moves: {out}")
+
+
 #: Round counts of the whole-run timing: the captured phase's, the full
 #: run of benchmarks/fig1_synthetic.py (the main path's settings) and the
 #: paper's 50.
@@ -1670,27 +1727,36 @@ def rollback_expectations(fcfg, rounds, chunk, n, cohorts=None):
 
 @contextlib.contextmanager
 def rollback_log():
-    """Within the block, the lines the round drivers print and the host
-    time of each rollback.  Yields {"lines": [str], "at": [s]}."""
+    """Within the block, the lines the round drivers print, the host time of
+    each rollback and the step each restore of the dense or the pooled
+    driver returned (``rounds.newest_good``).  Yields {"lines": [str],
+    "at": [s], "restored": [step]}."""
     import io as _io
 
     from repro_torch.core import rounds as rounds_mod
 
-    real = rounds_mod.rollback_or_raise
-    log = {"lines": [], "at": []}
+    real, real_newest = rounds_mod.rollback_or_raise, rounds_mod.newest_good
+    log = {"lines": [], "at": [], "restored": []}
 
     def stamped(*args, **kwargs):
         torch.cuda.synchronize()
         log["at"].append(time.perf_counter())
         return real(*args, **kwargs)
 
+    def newest(checkpoint_dir, run_meta, restore, *args, **kwargs):
+        def logged(step):
+            out = restore(step)
+            log["restored"].append(step)
+            return out
+        return real_newest(checkpoint_dir, run_meta, logged, *args, **kwargs)
+
     buf = _io.StringIO()
     try:
-        rounds_mod.rollback_or_raise = stamped
+        rounds_mod.rollback_or_raise, rounds_mod.newest_good = stamped, newest
         with contextlib.redirect_stdout(buf):
             yield log
     finally:
-        rounds_mod.rollback_or_raise = real
+        rounds_mod.rollback_or_raise, rounds_mod.newest_good = real, real_newest
         log["lines"] += [ln for ln in buf.getvalue().splitlines()
                          if ln.startswith("[repro_torch.")]
         for ln in log["lines"]:
@@ -1717,6 +1783,8 @@ def check_rollback(cfg, cobjs, dev) -> None:
     if want is None:
         fail(f"rollback: {fcfg} poisons no chunk of {CAPTURED_ROUNDS} rounds")
     eager_draws_type = type("EagerDraws", (alg.ClientDraws,), {})
+    # the turned run is captured afresh; a replay for every chunk started
+    replays = (len(range(0, want[0], CHUNK)) + len(range(want[1], CAPTURED_ROUNDS, CHUNK)))
     runs = {}
     for mode, draws in (("captured", alg.ClientDraws(1, range(N_CLIENTS), dev)),
                         ("eager", eager_draws_type(1, range(N_CLIENTS), dev))):
@@ -1735,7 +1803,7 @@ def check_rollback(cfg, cobjs, dev) -> None:
         print(f"[rollback {mode}] {card}: {fcfg}; d={D} N={N_CLIENTS} M={M} cap={CAP}: "
               f"{CAPTURED_ROUNDS} rounds in chunks of {CHUNK} with checkpoint_dir in "
               f"{t1 - t0:.3f} s; {dict(graphs.COUNTS)}; rolled back at round {want[0]} to "
-              f"round {want[1]}, the re-run {rerun:.3f} s; F "
+              f"step {log['restored']}, the re-run {rerun:.3f} s; F "
               f"{[round(v, 6) for v in f.tolist()]}", flush=True)
         lines = [ln.split("] ", 1)[1] for ln in log["lines"]]
         expect_lines = [f"ROLLBACK 1/3 at round {want[0]} (non-finite server iterate): "
@@ -1743,11 +1811,16 @@ def check_rollback(cfg, cobjs, dev) -> None:
                         "re-running with fault tolerance FORCED ON"]
         if lines != expect_lines:
             fail(f"rollback {mode}: printed {lines}, expected {expect_lines}")
+        if log["restored"] != [want[1]]:
+            fail(f"rollback {mode}: restored step(s) {log['restored']}, expected [{want[1]}] "
+                 "(the boundary before the poisoned chunk)")
         if not (bool(torch.isfinite(res.xs).all()) and bool(torch.isfinite(f).all())):
             fail(f"rollback {mode}: the rolled-back run is not finite")
-        if mode == "captured" and dict(graphs.COUNTS) != {"captures": 2, "replays": 3}:
-            fail(f"rollback: {dict(graphs.COUNTS)}, expected 2 captures (without and with "
-                 "tolerance) and 3 replays")
+        counts = {"captures": 2, "replays": replays} if mode == "captured" else {
+            "captures": 0, "replays": 0}
+        if dict(graphs.COUNTS) != counts:
+            fail(f"rollback {mode}: {dict(graphs.COUNTS)}, expected {counts} (without and "
+                 "with tolerance)")
     (cap, cap_draws), (eager, eager_draws) = runs["captured"], runs["eager"]
     same = {"history": bitwise(cap, eager),
             "generators": bitwise(gen_states(cap_draws), gen_states(eager_draws))}
@@ -1913,13 +1986,21 @@ def check_pool(cfg, cobjs, dev, straight, straight_draws) -> None:
         t1 = time.perf_counter()
     lines = [ln.split("] ", 1)[1] for ln in rlog["lines"]]
     print(f"[pool rollback] {card}: {fcfg}, N={POOL_N} K={POOL_K}: {t1 - t0:.3f} s; "
-          f"{dict(graphs.COUNTS)}; rolled back at round {want[0]} to round 0 (the insurance "
-          f"step), the re-run {t1 - rlog['at'][0] if rlog['at'] else float('nan'):.3f} s; F "
+          f"{dict(graphs.COUNTS)}; rolled back at round {want[0]} to step {rlog['restored']} "
+          f"(0 is the insurance step), the re-run "
+          f"{t1 - rlog['at'][0] if rlog['at'] else float('nan'):.3f} s; F "
           f"{[round(v, 6) for v in faulted.f_values.cpu().tolist()]}", flush=True)
     expect_lines = [f"ROLLBACK 1/3 at round {want[0]} (non-finite server iterate): restoring "
                     "last good checkpoint", "re-running with fault tolerance FORCED ON"]
     if lines != expect_lines or not bool(torch.isfinite(faulted.xs).all()):
         fail(f"pool rollback: printed {lines}, expected {expect_lines}, or F is not finite")
+    # no step between the insurance and the end: the restore is step 0, the
+    # turned run captured afresh, a replay for every chunk started
+    counts = {"captures": 2, "replays": len(range(0, want[0], POOL_CHUNK))
+              + len(range(0, POOL_ROUNDS, POOL_CHUNK))}
+    if rlog["restored"] != [0] or dict(graphs.COUNTS) != counts:
+        fail(f"pool rollback: restored step(s) {rlog['restored']} and {dict(graphs.COUNTS)}, "
+             f"expected [0] and {counts}")
     check_pool_cli()
 
 
@@ -2291,6 +2372,7 @@ def main() -> int:
         fail(f"main path: {init_gram} SE Gram launches with {CAP} rows, expected 1")
     check_small_against_cpu(dev)
     straight, straight_draws, straight_secs = check_captured(cfg, cobjs, dev)
+    check_chunk_layout(cfg, cobjs, dev)
     time_whole_runs(cfg, cobjs, dev)
     check_small_captured(dev)
     check_checkpoint(cfg, cobjs, dev, straight, straight_draws, straight_secs)

@@ -20,7 +20,7 @@ either package restores a plain tree of arrays that the other wrote:
 ``strides``, each tensor leaf's element strides (None for a leaf without
 them).  The arrays are stored in logical order either way; restore lays a
 tensor out with its saved strides, since an eager chunk's arithmetic can
-follow its inputs' layout (a Cholesky factor is column-major), so a
+follow its inputs' layout (a leaf may be a transposed array), so a
 resumed run computes on the layouts the stopped run had.  A leaf without
 saved strides takes the template's.
 

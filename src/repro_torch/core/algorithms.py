@@ -730,7 +730,7 @@ def simulate(
     sx = x0
     schedule = reset = None
     if faults is not None:
-        schedule = injector.FaultSchedule(faults, rounds, states.client_id)
+        schedule = injector.FaultSchedule(faults, rounds, cfg.n_clients, dev)
         if faults.tolerate:
             reset = make_quarantine_reset(cfg, dev)
     for r in range(rounds):

@@ -110,9 +110,9 @@ def sample_cohort(seed: int, round_idx: int, pool_size: int, cohort: int) -> np.
 
 def dim_order(t: torch.Tensor) -> Optional[list]:
     """The order of ``t``'s dimensions from the outermost in memory to the
-    innermost (a Cholesky factor's rows are column-major; an objective's
-    (N, d) weights may be a transposed array), or None when ``t`` is not
-    dense (then a gather lays its rows out contiguously)."""
+    innermost (an objective's (N, d) weights may be a transposed array),
+    or None when ``t`` is not dense (then a gather lays its rows out
+    contiguously)."""
     if t.dim() == 0 or torch.empty_like(t, device="meta").stride() != t.stride():
         return None
     return sorted(range(t.dim()), key=lambda i: (-t.stride(i), i))
@@ -359,13 +359,12 @@ def run_pooled_rounds(cfg, rff, query_fn, cobjs, pool: ClientPool, x0: torch.Ten
 
     # the cohort's objectives: one set of K-row buffers the chunks close over
     c_cobjs = _gather_cobjs(cobjs_host, sample_cohort(cohort_seed, start, n, cohort), n, dev)
-    ids = torch.arange(n, dtype=torch.int64, device=dev)
 
     def engine(done):
         """(reset, chunk maker, captured chunks) of ``fcfg``."""
         schedule = reset = None
         if fcfg is not None:
-            schedule = injector.FaultSchedule(fcfg, rounds, ids, by_id=True)
+            schedule = injector.FaultSchedule(fcfg, rounds, n, dev)
             if fcfg.tolerate:
                 reset = alg.make_quarantine_reset(ccfg, dev)
         make = lambda k, d: rounds_mod.chunk_fn(ccfg, rff, query_fn, c_cobjs, d,

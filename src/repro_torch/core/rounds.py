@@ -357,7 +357,7 @@ def run_rounds(cfg, rff, query_fn, cobjs, states, x0: torch.Tensor,
         """(schedule, reset, chunk maker, captured chunks) of ``fcfg``."""
         schedule = reset = captured = None
         if fcfg is not None:
-            schedule = injector.FaultSchedule(fcfg, rounds, states.client_id)
+            schedule = injector.FaultSchedule(fcfg, rounds, cfg.n_clients, dev)
             if fcfg.tolerate:
                 reset = alg.make_quarantine_reset(cfg, dev)
         make = lambda k, d: chunk_fn(cfg, rff, query_fn, cobjs, d, global_value_fn,

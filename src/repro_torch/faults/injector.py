@@ -36,10 +36,11 @@ either can run inside a captured CUDA graph:
 * ``draw_faults(fcfg, round_idx, client_ids)``: one round, from the round
   index as a 0-d tensor: two hashes of the client batch, and two more for
   each kind whose rate is above 0;
-* ``FaultSchedule(fcfg, rounds, client_ids)``: every round of a run,
-  hashed once when it is built; ``draw(round_idx)`` is then one index
-  operation per round (a pool's, ``by_id``, two).  The round engine's
-  loop and chunks read this one.
+* ``FaultSchedule(fcfg, rounds, n_clients, device)``: every round of a
+  run over the client ids ``0..n_clients-1``, hashed once when it is
+  built; ``draw(round_idx, client_ids)`` then reads one round's columns of
+  the batch's ids with two index operations.  The round engine's loop and
+  chunks, dense or pooled, read this one.
 
 ``schedule_table`` is the host's (rounds, N) view of the same draws.
 """
@@ -207,32 +208,24 @@ def draw_faults(fcfg: FaultConfig, round_idx: torch.Tensor, client_ids: torch.Te
 
 
 class FaultSchedule:
-    """A run's fault draws for rounds ``[0, rounds)`` and the clients
-    ``client_ids`` (their device), hashed once: ``table`` is (4, rounds, N)
-    bool in the order of ``KINDS``, equal to ``draw_faults`` round by
-    round.  ``draw(round_idx)`` reads one round from a 0-d index tensor
-    with one ``index_select``, so a captured graph reads the round it is
-    replayed at.
+    """A run's fault draws for rounds ``[0, rounds)`` and the client ids
+    ``0..n_clients-1`` (on ``device``), hashed once: ``table`` is (4,
+    rounds, n_clients) bool in the order of ``KINDS``, equal to
+    ``draw_faults`` round by round.  ``draw(round_idx, client_ids)`` reads
+    one round from a 0-d index tensor and the columns of the batch's
+    ``client_id`` leaf, so a captured graph reads the round it is replayed
+    at and the clients in its static buffers: the dense engine's ids
+    ``0..N-1``, or a pool's cohort."""
 
-    ``by_id=True`` is the client pool's table: built over every pool id
-    ``0..N-1``, its ``draw(round_idx, client_ids)`` also selects the
-    columns of the round's cohort by its ``client_id`` leaf, which a
-    captured graph reads from its static buffers; without it the columns
-    are the batch's positions, as the dense engine reads them."""
-
-    def __init__(self, config: FaultConfig, rounds: int, client_ids: torch.Tensor,
-                 by_id: bool = False):
+    def __init__(self, config: FaultConfig, rounds: int, n_clients: int, device="cpu"):
         self.config = config
-        self.by_id = by_id
-        rs = torch.arange(rounds, dtype=torch.int64, device=client_ids.device)[:, None]
-        self.table = torch.stack(tuple(_gate(config, _draws(config, rs, client_ids[None, :]),
-                                             rs)))
+        rs = torch.arange(rounds, dtype=torch.int64, device=device)[:, None]
+        ids = torch.arange(n_clients, dtype=torch.int64, device=device)[None, :]
+        self.table = torch.stack(tuple(_gate(config, _draws(config, rs, ids), rs)))
 
-    def draw(self, round_idx: torch.Tensor, client_ids: Optional[torch.Tensor] = None
-             ) -> FaultDraw:
+    def draw(self, round_idx: torch.Tensor, client_ids: torch.Tensor) -> FaultDraw:
         rows = self.table.index_select(1, round_idx.reshape(1).to(torch.int64))
-        if self.by_id:
-            rows = rows.index_select(2, client_ids.to(torch.int64))
+        rows = rows.index_select(2, client_ids.to(torch.int64))
         return FaultDraw(*rows[:, 0].unbind(0))
 
 
@@ -240,5 +233,5 @@ def schedule_table(fcfg: FaultConfig, rounds: int, n_clients: int) -> dict:
     """Host-side (rounds, N) view of the schedule per kind: a dict of numpy
     bool arrays keyed by ``KINDS``, computed with the draws the engine
     reads."""
-    table = FaultSchedule(fcfg, rounds, torch.arange(n_clients, dtype=torch.int64)).table
+    table = FaultSchedule(fcfg, rounds, n_clients).table
     return {k: table[i].numpy().astype(bool) for i, k in enumerate(KINDS)}

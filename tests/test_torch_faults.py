@@ -121,11 +121,11 @@ def test_draw_faults_matches_reference_per_round():
     args = dict(seed=9, rates=(0.3, 0.2, 0.2, 0.1), window=(2, 15))
     rcfg, cfg = _config(rfaults, **args), _config(faults, **args)
     ids = np.array([5, 2, 7, 0, 1, 3, 4, 6])
-    table = faults.FaultSchedule(cfg, 20, torch.tensor(ids))
+    table = faults.FaultSchedule(cfg, 20, len(ids))
     for r in range(20):
         want = rfaults.draw_faults(rcfg, jnp.int32(r), jnp.asarray(ids, jnp.int32))
         got = faults.draw_faults(cfg, torch.tensor(r), torch.tensor(ids, dtype=torch.int32))
-        read = table.draw(torch.tensor(r))
+        read = table.draw(torch.tensor(r), torch.tensor(ids))
         for kind in faults.KINDS:
             np.testing.assert_array_equal(getattr(got, kind).numpy(), N_(getattr(want, kind)))
             assert torch.equal(getattr(read, kind), getattr(got, kind)), (r, kind)
@@ -402,7 +402,7 @@ def test_run_round_reads_a_config_or_a_schedule_alike(quads):
     assert all(getattr(faults.draw_faults(fcfg, r, states.client_id), k).any()
                for k in faults.KINDS)
     outs = []
-    for how in (fcfg, faults.FaultSchedule(fcfg, 4, states.client_id)):
+    for how in (fcfg, faults.FaultSchedule(fcfg, 4, N)):
         draws = alg.ClientDraws(5, range(N), "cpu")
         rff = alg.rfflib.make_rff(draws, cfg.n_features, D, cfg.lengthscale)
         outs.append(alg.run_round(cfg, rff, obj.quadratic_query, q, states,
@@ -628,7 +628,7 @@ def test_cuda_eager_faulted_chunk_has_no_host_sync():
     x0 = torch.full((D,), 0.5, device=dev)
     rff = alg.rfflib.make_rff(draws, cfg.n_features, cfg.dim, cfg.lengthscale)
     states = alg.init_states(cfg, x0)
-    schedule = faults.FaultSchedule(MIX, 10, states.client_id)
+    schedule = faults.FaultSchedule(MIX, 10, N, dev)
     chunk = rounds.chunk_fn(cfg, rff, obj.quadratic_query, q, draws,
                             obj.quadratic_global_value, None, 2, 1, 10, faults=schedule)
     offset = torch.zeros((), dtype=torch.int64, device=dev)

@@ -141,9 +141,9 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("kw", [{}, dict(name="scaffold2", q=3)], ids=["fzoos", "scaffold2"])
 def test_init_pool_matches_init_states(kw):
-    """``batch=None`` is ``init_states`` bit for bit, row layouts included
-    (the Cholesky factor's rows are column-major); client i's generator
-    state is ``ClientDraws``'s for client i; slices of 3 give the same."""
+    """``batch=None`` is ``init_states`` bit for bit, every leaf's strides
+    included; client i's generator state is ``ClientDraws``'s for client
+    i; slices of 3 give the same."""
     cfg = _cfg(**kw)
     x0 = torch.full((D,), 0.5)
     dense = alg.init_states(cfg, x0)
@@ -485,6 +485,22 @@ def test_pooled_rollback_matches_reference(quads, tmp_path, capsys):
     assert np.isfinite(got.xs.numpy()).all() and np.isfinite(N_(r.xs)).all()
     np.testing.assert_array_equal(got.queries.numpy(), N_(r.queries))
     assert io.list_steps(str(tmp_path / "port")) == ckpt_steps(str(tmp_path / "ref"))
+
+
+def test_pooled_rollback_restores_the_generators(quads, tmp_path, monkeypatch, capsys):
+    """A pooled rollback to the insurance step past scattered chunks: the
+    re-run's first chunk starts from the generator states its first run
+    started from (the pool's rows restored from ``pool-v1``, then
+    gathered), which the scattered chunks had moved on."""
+    root = str(tmp_path / "ck")
+    starts = TR.record_chunk_starts(monkeypatch)
+    _sim(_cfg(), quads[1], chunk=2, cohort=K, checkpoint_dir=root, checkpoint_every=100,
+         faults=faults.FaultConfig(seed=0, nan_rate=0.1, tolerate=False))
+    # the chunk of rounds 4-5 is the first whose cohort is poisoned
+    assert "ROLLBACK 1/3 at round 6 " in capsys.readouterr().out
+    assert TR.restarted_chunks(starts) == [0, 2, 4]
+    first, rerun = [s for r, s in starts if r == 0]
+    assert TR.same_states(rerun, first)
 
 
 def ckpt_steps(root):

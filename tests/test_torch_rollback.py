@@ -329,6 +329,27 @@ def test_failed_final_write(quads, tmp_path, monkeypatch, capsys, faulted):
     assert np.isfinite(res.xs.numpy()).all()
 
 
+def test_rollback_restores_the_generators(quads, tmp_path, monkeypatch, capsys):
+    """The chunk re-run after a rollback starts from the generator states
+    of the step it restored: those its first run started from, and those
+    that step holds (its ``draws_*`` members).  Without the restore the
+    re-run would draw on from where the poisoned chunk left them."""
+    root = str(tmp_path / "ck")
+    starts = TR.record_chunk_starts(monkeypatch)
+    _sim(quads[1], faults=faults.FaultConfig(**POISON), checkpoint_dir=root,
+         draws=alg.ClientDraws(5, range(N), "cpu"))
+    assert "ROLLBACK 1/3" in capsys.readouterr().out
+    (restored,) = TR.restarted_chunks(starts)
+    first, rerun = [s for r, s in starts if r == restored]
+    cfg, x0 = alg.AlgoConfig(**KW), torch.full((D,), 0.5)
+    _, _, saved, step = io.restore_round_state(
+        root, alg.init_states(cfg, x0), rounds.history_init(ROUNDS, x0, torch.zeros(())),
+        step=restored, draws_like=alg.ClientDraws(0, range(N), "cpu").state())
+    assert step == restored
+    assert TR.same_states(rerun, first) and TR.same_states(rerun, saved)
+    assert not TR.same_states(rerun, starts[-1][1])  # the draws move on
+
+
 def test_rolled_back_run_resumes(quads, tmp_path):
     """A rolled-back run's steps resume like any run's: with its last step
     removed, the same call ends bit for bit where the first did."""

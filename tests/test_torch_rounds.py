@@ -31,6 +31,8 @@ from repro.core import algorithms as ralg
 from repro.core import objectives as robj
 from repro.core import rounds as rrounds
 from repro_torch import convert
+from repro_torch import faults
+from repro_torch.checkpoint import io
 from repro_torch.core import algorithms as alg
 from repro_torch.core import gp_surrogate as gp
 from repro_torch.core import graphs
@@ -89,6 +91,35 @@ def _assert_bounded(ref, new):
     np.testing.assert_allclose(ref.f_values.numpy(), new.f_values.numpy(), atol=5e-2)
     np.testing.assert_array_equal(ref.queries.numpy(), new.queries.numpy())
     assert np.isfinite(new.f_values.numpy()).all()
+
+
+def record_chunk_starts(monkeypatch) -> list:
+    """Every eager chunk that the round drivers run from now on records
+    ``(its first round, its draw source's state())`` as it starts: the
+    generator states its draws come from."""
+    starts, real = [], rounds.chunk_fn
+
+    def spy(cfg, rff, query_fn, cobjs, draws, *args, **kwargs):
+        chunk = real(cfg, rff, query_fn, cobjs, draws, *args, **kwargs)
+
+        def run(states, sx, offset):
+            starts.append((int(offset), [s.clone() for s in draws.state()]))
+            return chunk(states, sx, offset)
+
+        return run
+
+    monkeypatch.setattr(rounds, "chunk_fn", spy)
+    return starts
+
+
+def restarted_chunks(starts) -> list:
+    """The rounds at which a chunk started twice: a rollback's re-runs."""
+    seen = [r for r, _ in starts]
+    return sorted({r for r in seen if seen.count(r) > 1})
+
+
+def same_states(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("chunk", [8, 1])
@@ -390,6 +421,39 @@ def test_copy_into_keeps_aliased_sources():
     nested = (a, (b, None))
     graphs.copy_into(nested, (torch.zeros(3), (torch.ones(3), None)))
     assert a.tolist() == [0.0] * 3 and b.tolist() == [1.0] * 3
+
+
+@pytest.mark.parametrize("engine", [
+    dict(), dict(score_block_cap=8, grad_block_cap=8), dict(name="fedzo", q=2), "faulted",
+], ids=["fzoos", "fzoos_tiled", "fedzo", "fzoos_faulted"])
+def test_state_layout_is_kept_by_a_chunk(quad, engine):
+    """Every leaf of ``init_states`` (the Cholesky factor's above all) has
+    the strides that one eager chunk and its boundary leave it in, and so
+    has a quarantined client's restart: a captured chunk's static buffers
+    keep the initial layout while eager chunks chain the updated one, and
+    an eager round's arithmetic follows its inputs' strides, so the two
+    meet the same bits only where the layouts agree."""
+    faulted = engine == "faulted"
+    cfg = _fzoos_cfg(**({} if faulted else engine))
+    schedule = (faults.FaultSchedule(faults.FaultConfig(seed=3, nan_rate=0.5), 4, 4)
+                if faulted else None)
+    x0 = torch.full((8,), 0.5)
+    draws = alg.ClientDraws(5, range(4), "cpu")
+    rff = alg.rfflib.make_rff(draws, cfg.n_features, cfg.dim, cfg.lengthscale)
+    init = alg.init_states(cfg, x0)
+    chunk = rounds.chunk_fn(cfg, rff, obj.quadratic_query, quad, draws,
+                            obj.quadratic_global_value, None, 2, 1, 4, faults=schedule)
+    states, sx, _ = chunk(init, x0, torch.zeros((), dtype=torch.int64))
+    states, _ = rounds.repair_flagged_clients(states, cfg)
+    outs = [states]
+    if faulted:
+        assert bool(states.quarantined.any())
+        outs.append(alg.make_quarantine_reset(cfg, "cpu")(states, sx))
+    want = [t.stride() for t in io.tree_flatten(init)[0]]
+    if cfg.name == "fzoos":  # row-major, as every update leaves it
+        assert init.factor.chol.stride() == (32 * 32, 32, 1)
+    for out in outs:
+        assert [t.stride() for t in io.tree_flatten(out)[0]] == want
 
 
 @pytest.mark.parametrize("engine,device,captured", [
