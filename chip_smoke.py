@@ -116,6 +116,25 @@ Phases, each a hard check (any failure exits non-zero):
    engine; K = N = 5 bit for bit phase 4b's run; a pooled run without
    tolerance rolled back; the command line with ``--pool-size 256
    --cohort 5``, fault flags and ``--max-rollbacks`` in a child process;
+4h. the LM objective (``check_lm``; ``models/``, ``configs/``): Qwen1.5-0.5B
+   at full width (``FULL``: 24 layers, d_model=1024, vocab 151,936, bf16,
+   random parameters from ``models.init_params``) with N=5 clients of
+   ``make_lm_objective``'s batches (2 x 32 tokens) at the command line's
+   engine defaults (d = d_model, M=1000, cap=192, T=10, 100 candidates,
+   5+5 active queries; B5 takes its chunked route there): 3 rounds in the
+   loop (F finite, exact queries, the deferred engine's launches, min F
+   not above F(x_0), the build seconds and the parameters' bytes,
+   ms/round), 10 rounds in captured chunks of 5 bit for bit the loop
+   (``hold_to_loop``) with ms/round over the replays, one replayed chunk
+   profiled beside the device time of the round's forward passes and
+   their bound at the bf16 peak, B1, B3, B5, B6 and B9 on two loop rounds'
+   inputs against float64 (``check_engine_inputs``), the peak of
+   ``torch.cuda.max_memory_allocated``; Mamba2-370m ``FULL`` (48 layers)
+   2 rounds in the loop and 2 in a captured chunk, bit for bit; the SMOKE
+   forward and objective of both on the card against the CPU (float32
+   within 1e-4, bf16 by ``LM_BF16_MULTIPLE``); ``python -m
+   repro_torch.launch.fedzoo --objective lm --arch A --rounds 10`` for both
+   (the SMOKE variant, as the reference's launcher) in a child process;
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -139,7 +158,9 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -833,7 +854,8 @@ def recording(names):
             setattr(ops, name, real[name])
 
 
-def check_engine_inputs(dev, label="engine inputs", objective="quadratic", **engine) -> dict:
+def check_engine_inputs(dev, label="engine inputs", objective="quadratic", run=None,
+                        **engine) -> dict:
     """B5, B6, B9 and the scoring and gradient-mean ops (B1/B3 on the
     deferred engine, B7a/B8a on the per-client one; B2/B7b with
     ``score_block_cap`` pinned below cap, B4/B8b with ``grad_block_cap``)
@@ -844,8 +866,10 @@ def check_engine_inputs(dev, label="engine inputs", objective="quadratic", **eng
     are held against a float64 evaluation of the same call.  A kernel less
     accurate than its plain version over the run (max error over the
     calls) fails; so is printed the eq. 8 correction, the difference of
-    each step's two B5 calls.  ``objective`` as ``small_run``'s.  Returns
-    the recorded calls of each op."""
+    each step's two B5 calls.  ``objective`` as ``small_run``'s; ``run``, a
+    function of no arguments, runs another card engine in its place (phase
+    4h: the LM engine at full width).  Returns the recorded calls of each
+    op."""
     from repro_torch.kernels import gp_grad, gp_score, ref
 
     plain = {
@@ -874,7 +898,10 @@ def check_engine_inputs(dev, label="engine inputs", objective="quadratic", **eng
             else ref.grad_mean_batch(*a, lengthscale),
     }
     with recording(plain) as calls:
-        small_run(dev, objective=objective, **engine)
+        if run is None:
+            small_run(dev, objective=objective, **engine)
+        else:
+            run()
     f64 = lambda args: [a.double() if torch.is_tensor(a) else a for a in args]
     for name, recs in calls.items():
         if not recs:
@@ -2170,39 +2197,44 @@ def check_objectives(dev) -> None:
     check_engine_inputs(dev, "small metric engine inputs", objective="metric")
 
 
-def check_objective_captured(name, cfg, cobjs, query, value, seed, dev) -> None:
-    """Phase 4d: an objective in captured chunks (CAPTURED_ROUNDS in chunks
-    of CHUNK: one capture, two replays; the launches counted at the warm-up
-    round and the capture) against the loop's CAPTURED_ROUNDS rounds on the
-    same seed (``hold_to_loop``); then one replayed chunk profiled: its busy
-    share and the kernels with the most device time."""
+def check_objective_captured(name, cfg, cobjs, query, value, seed, dev, rounds=CAPTURED_ROUNDS,
+                             chunk=CHUNK, profile=True):
+    """Phase 4d: an objective in captured chunks (``rounds`` in chunks of
+    ``chunk``, CAPTURED_ROUNDS in chunks of CHUNK: one capture, two
+    replays; the launches counted at the warm-up round and the capture)
+    against the loop's ``rounds`` rounds on the same seed
+    (``hold_to_loop``); then, with ``profile``, one replayed chunk
+    profiled: its busy share and the kernels with the most device time.
+    Returns (ms/round over the replays, the profiled replay's device busy
+    ms or None)."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core import graphs
 
     run_seed = alg.stream_seed(seed, 1)
     draws = alg.ClientDraws(run_seed, range(cfg.n_clients), dev)
-    sim = lambda chunk, d: alg.simulate(cfg, run_seed, cobjs, query, value, CAPTURED_ROUNDS,
+    sim = lambda chunk, d: alg.simulate(cfg, run_seed, cobjs, query, value, rounds,
                                         chunk=chunk, draws=d, device=dev)
     reset_counts()
     graphs.COUNTS.update(captures=0, replays=0)
     with timed_chunks() as log:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = sim(CHUNK, draws)
+        res = sim(chunk, draws)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     counts, runs = read_counts(), dict(graphs.COUNTS)
     label = f"{name} captured"
+    ms_round = 1e3 * sum(log["replay"]) / rounds
     print(f"[{label}] {card_name()}: d={cfg.dim} N={cfg.n_clients} seed {seed}: "
-          f"{CAPTURED_ROUNDS} rounds in chunks of {CHUNK} in {secs:.3f} s; {runs['captures']} "
+          f"{rounds} rounds in chunks of {chunk} in {secs:.3f} s; {runs['captures']} "
           f"capture(s) in {sum(log['capture']):.3f} s; replays "
           f"{[round(1e3 * s, 3) for s in log['replay']]} ms, "
-          f"{1e3 * sum(log['replay']) / CAPTURED_ROUNDS:.3f} ms/round over the replays; "
+          f"{ms_round:.3f} ms/round over the replays; "
           f"launches counted at the warm-up round and the capture {counts}", flush=True)
-    check_result(res, cfg, CAPTURED_ROUNDS, label, must_fall=False)
-    if runs != {"captures": 1, "replays": CAPTURED_ROUNDS // CHUNK}:
-        fail(f"{label}: {runs}, expected 1 capture and {CAPTURED_ROUNDS // CHUNK} replays")
-    warm_and_capture = deferred_counts(cfg, 1 + CHUNK)
+    check_result(res, cfg, rounds, label, must_fall=False)
+    if runs != {"captures": 1, "replays": rounds // chunk}:
+        fail(f"{label}: {runs}, expected 1 capture and {rounds // chunk} replays")
+    warm_and_capture = deferred_counts(cfg, 1 + chunk)
     want = expect(**dict(warm_and_capture, sqexp=warm_and_capture["sqexp"] + 1))
     if counts != want:
         fail(f"{label}: launches {counts}, expected {want} (factor_init, the warm-up "
@@ -2212,33 +2244,37 @@ def check_objective_captured(name, cfg, cobjs, query, value, seed, dev) -> None:
     t0 = time.perf_counter()
     loop = sim(0, loop_draws)
     torch.cuda.synchronize()
-    print(f"[{label}] the loop's {CAPTURED_ROUNDS} rounds in "
+    print(f"[{label}] the loop's {rounds} rounds in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     hold_to_loop(loop, res, label, loop_draws, draws)
+    if not profile:
+        return ms_round, None
 
     # one replayed chunk under the profiler: where its device time goes
     with timed_chunks(profile_replays=True) as plog:
-        alg.simulate(cfg, run_seed, cobjs, query, value, CHUNK, chunk=CHUNK, device=dev)
+        alg.simulate(cfg, run_seed, cobjs, query, value, chunk, chunk=chunk, device=dev)
     kernels = [e for e in plog["profiles"][0].key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     wall_ms = 1e3 * plog["replay"][0]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[{label} profile] one replayed chunk of {CHUNK} rounds: wall {wall_ms:.3f} ms "
+    print(f"[{label} profile] one replayed chunk of {chunk} rounds: wall {wall_ms:.3f} ms "
           f"(profiled), device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{sum(e.count for e in kernels)} device kernels; most device time: "
           + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in top), flush=True)
+    return ms_round, busy_ms
 
 
-def check_objective_cli(name) -> None:
+def check_objective_cli(name, args=None) -> None:
     """Phase 4d: ``python -m repro_torch.launch.fedzoo --objective <name>
     --clients N`` in a child process at the launcher's defaults (50
     rounds, the default captured chunks of 16): exit 0 and a finite
-    F(x_R) and best."""
+    F(x_R) and best.  ``args`` replaces the flags after the module (phase
+    4h: ``--objective lm --arch A --rounds 10``)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo", "--objective", name,
-           "--clients", str(OBJECTIVE_CLIENTS[name])]
+    cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo",
+           *(args or ["--objective", name, "--clients", str(OBJECTIVE_CLIENTS[name])])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
     secs = time.perf_counter() - t0
@@ -2253,6 +2289,244 @@ def check_objective_cli(name) -> None:
               if w in ("F(x_0)", "F(x_R)", "best")]
     if len(values) != 3 or not all(np.isfinite(values)):
         fail(f"the command line ({name}) printed no finite F: {result!r}")
+
+
+#: Phase 4h, the LM objective (A13a: ``models/``, ``configs/``, the third
+#: part of ``core/model_objectives.py``): each published config at full
+#: width (``FULL``, bf16, random parameters from ``models.init_params``),
+#: LM_CLIENTS clients of ``make_lm_objective``'s defaults (batch 2, seq
+#: 32), through ``simulate`` at the command line's engine defaults
+#: (``launcher_config``; d = d_model = 1024), both seeded as the command
+#: line seeds ``--seed 0``; per config (rounds in the loop, rounds in
+#: captured chunks, chunk length, whether a replay is profiled).
+LM_FULL = {"qwen1.5-0.5b": (3, 10, 5, True), "mamba2-370m": (2, 2, 2, False)}
+LM_CLIENTS = 5
+#: Peak bf16 rate of the tensor cores (NVIDIA data sheet, H100 SXM, dense):
+#: the bound of a round's forward passes.
+BF16_FLOPS_S = 989e12
+#: The SMOKE forward and objective on the card against the CPU: float32
+#: within 1e-4 of the largest magnitude (the CPU tests' bound against the
+#: reference); bf16 by each side's distance from the CPU's float64
+#: evaluation, the card's at most LM_BF16_MULTIPLE times the CPU's or
+#: within LM_BF16_FLOOR of the largest magnitude (one bf16 spacing: cuBLAS
+#: may reduce bf16 products in bf16 and sums in another order).
+LM_BF16_MULTIPLE, LM_BF16_FLOOR = 2.0, 2.0 ** -8
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def build_lm(arch, dev, variant="full", dtype=None):
+    """The LM objective of ``arch`` as the command line builds it at ``--seed
+    0`` (``build_lm`` and ``make_lm_objective`` on ``stream_seed(0, 0)``),
+    on ``dev``: (config, params, objective, query, global value, value,
+    build seconds between two synchronizations).  ``dtype`` replaces the
+    config's."""
+    from repro_torch import configs
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import model_objectives as mobj
+    from repro_torch.models.params import init_params
+
+    cfg = configs.get_config(arch, variant)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    seed = alg.stream_seed(0, 0)
+    sync(dev)
+    t0 = time.perf_counter()
+    params = init_params(seed, cfg, dev)
+    cobjs = mobj.make_lm_objective(seed, cfg, LM_CLIENTS, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    query, value, _, per_point = mobj.make_lm_query(cfg, params)
+    return cfg, params, cobjs, query, value, per_point, secs
+
+
+def lm_round_work(cfg, ecfg, cobjs) -> dict:
+    """What one round's forward passes compute, from the shapes: the
+    sequences (the queries of every local step and of the round end, and
+    F's evaluation, each point a client's batch), their tokens, the
+    operations (2 per parameter of the blocks and of the vocabulary
+    projection per token, and the attention's scores and values), the
+    bound at the bf16 peak, and the float32 logits of the largest query
+    (the active queries)."""
+    n, (b, l) = ecfg.n_clients, cobjs.batches_tokens.shape[1:]
+    points = ecfg.local_steps * (1 + ecfg.active_per_iter) + ecfg.active_round_end + 1
+    seqs = points * n * b
+    tokens = seqs * l
+    dense = 2 * cfg.d_model * cfg.vocab_size  # the vocabulary projection, per token
+    from repro_torch.models.params import param_defs
+
+    blocks = sum(int(np.prod(pd.shape)) for k, pd in param_defs(cfg).items()
+                 if k.startswith("blocks/"))
+    attn = 0 if cfg.arch_type == "ssm" else 2 * 2 * cfg.n_layers * cfg.q_dim * (l + 1) // 2
+    flops = tokens * (2 * blocks + dense + attn)
+    active = n * max(ecfg.active_per_iter, ecfg.active_round_end) * b * l * cfg.vocab_size * 4
+    return {"sequences": seqs, "tokens": tokens, "TFLOP": flops / 1e12,
+            "bound_ms": 1e3 * flops / BF16_FLOPS_S, "active_logits_GB": active / 1e9}
+
+
+def lm_model_ms(ecfg, cobjs, query, value, dev, label) -> float:
+    """Device ms of one round's forward passes: each kind of call of the
+    round (the iterate's query, N x 1 points, and the active queries, N x
+    ``active_per_iter``, at every local step; the round end's active
+    queries; F at one point) profiled once eagerly after a warm-up call,
+    times its count.  The replayed graph runs the same kernels.  Prints the
+    torch operators with the most device time in an active-query call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, d, t = ecfg.n_clients, ecfg.dim, ecfg.local_steps
+    pts = lambda k: torch.full((n, k, d), 0.5, device=dev)
+    calls = [(lambda: query(cobjs, pts(1), torch.zeros(n, 1, device=dev)), t),
+             (lambda: query(cobjs, pts(ecfg.active_per_iter),
+                            torch.zeros(n, ecfg.active_per_iter, device=dev)), t),
+             (lambda: query(cobjs, pts(ecfg.active_round_end),
+                            torch.zeros(n, ecfg.active_round_end, device=dev)), 1),
+             (lambda: value(cobjs, torch.full((d,), 0.5, device=dev)), 1)]
+    total = 0.0
+    for call, count in calls:
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        total += count * sum(e.self_device_time_total for e in events
+                             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        if call is calls[1][0]:
+            ops = sorted((e for e in events if e.key.startswith("aten::")),
+                         key=lambda e: -e.self_device_time_total)[:10]
+            print(f"[{label} profile] an active-query call ({n} x {ecfg.active_per_iter} "
+                  "points), the operators with the most device time: "
+                  + "; ".join(f"{e.key} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                              for e in ops), flush=True)
+    return total
+
+
+def check_lm(dev) -> None:
+    """Phase 4h: each config of LM_FULL at full width through ``simulate``:
+    the loop (F finite, exact queries, the deferred engine's launches, min
+    F over the rounds not above F(x_0)), the parameters' build seconds and
+    bytes, ms/round; captured chunks bit for bit the loop
+    (``check_objective_captured``), ms/round over the replays; where
+    LM_FULL says so (qwen1.5) one replayed chunk profiled beside the device time of the
+    round's forward passes (``lm_model_ms``) and their bound
+    (``lm_round_work``), and B1, B3, B5, B6 and B9 on two loop rounds'
+    inputs against float64 (``check_engine_inputs``); the peak of
+    ``torch.cuda.max_memory_allocated`` of each config's loop and
+    captured runs (before that check's recordings); then the SMOKE
+    forward and objective on the card against the CPU
+    (``check_lm_small``) and the command line on both architectures."""
+    from repro_torch.core import algorithms as alg
+
+    card = card_name()
+    for arch, (loop_rounds, cap_rounds, chunk, profiled) in LM_FULL.items():
+        gc.collect()  # the previous config's graphs and tensors
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by the earlier phases
+        cfg, params, cobjs, query, value, per_point, build_secs = build_lm(arch, dev)
+        n_params = sum(t.numel() for t in params.values())
+        n_bytes = sum(t.numel() * t.element_size() for t in params.values())
+        ecfg = launcher_config(cfg.d_model, LM_CLIENTS)
+        label = f"lm {cfg.name}"
+        run = lambda rounds: alg.simulate(ecfg, alg.stream_seed(0, 1), cobjs, query, value,
+                                          rounds, chunk=0, device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(loop_rounds)
+        torch.cuda.synchronize()
+        secs, counts = time.perf_counter() - t0, read_counts()
+        print(f"[{label}] {card}: {cfg.n_layers} layers, d_model={cfg.d_model}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, {n_bytes} bytes, built "
+              f"in {build_secs:.3f} s; N={LM_CLIENTS} batch {cobjs.batches_tokens.shape[1]} x "
+              f"{cobjs.batches_tokens.shape[2]} tokens, d={ecfg.dim} M={ecfg.n_features} "
+              f"cap={ecfg.traj_capacity} T={ecfg.local_steps}; {loop_rounds} rounds (loop) in "
+              f"{secs:.3f} s, {1e3 * secs / loop_rounds:.3f} ms/round; launches {counts}",
+              flush=True)
+        check_result(res, ecfg, loop_rounds, label, must_fall=False)
+        loop_counts = deferred_counts(ecfg, loop_rounds)
+        want = expect(**dict(loop_counts, sqexp=loop_counts["sqexp"] + 1))
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+        f = res.f_values.cpu()
+        print(f"[{label}] F(x_0) {f[0].item():.7f}, min F over rounds 1-{loop_rounds} "
+              f"{f[1:].min().item():.7f}", flush=True)
+        if not f[1:].min() <= f[0]:
+            fail(f"{label}: min F over rounds 1-{loop_rounds} is above F(x_0)")
+        ms_round, busy_ms = check_objective_captured(label, ecfg, cobjs, query, value, 0, dev,
+                                                     rounds=cap_rounds, chunk=chunk,
+                                                     profile=profiled)
+        if profiled:
+            work = lm_round_work(cfg, ecfg, cobjs)
+            model_ms = lm_model_ms(ecfg, cobjs, query, value, dev, label)
+            print(f"[{label} profile] a round's forward passes: {work['sequences']} sequences, "
+                  f"{work['tokens']} tokens, {work['TFLOP']:.3f} TFLOP, bound "
+                  f"{work['bound_ms']:.3f} ms at {BF16_FLOPS_S / 1e12:.0f} TFLOP/s bf16; "
+                  f"float32 logits of an active-query call {work['active_logits_GB']:.3f} GB; "
+                  f"their device time {model_ms:.3f} ms a round (eager calls of the round's "
+                  f"shapes, profiled), {chunk * model_ms:.3f} ms of the replayed chunk's "
+                  f"{busy_ms:.3f} ms busy ({100 * chunk * model_ms / busy_ms:.1f}%), the GP, "
+                  f"RFF and engine the other {busy_ms - chunk * model_ms:.3f} ms; replayed "
+                  f"{ms_round:.3f} ms/round against the bound's {work['bound_ms']:.3f}",
+                  flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{label}] peak torch.cuda.max_memory_allocated {peak} bytes over the loop, "
+              f"the captured runs and their profile, {peak - held} above the {held} bytes "
+              "the earlier phases hold", flush=True)
+        if profiled:
+            # two rounds: the first round's RFF weights are 0, the second's are fitted
+            check_engine_inputs(dev, f"{label} engine inputs", run=lambda: run(2))
+        del params, cobjs, query, value, per_point, res
+    check_lm_small(dev)
+    for arch in LM_FULL:
+        check_objective_cli(f"lm {arch}", ["--objective", "lm", "--arch", arch, "--rounds", "10"])
+
+
+def check_lm_small(dev) -> None:
+    """Phase 4h: the SMOKE forward's logits and the LM objective's values at
+    LM_CLIENTS x 4 points (the base gains and random points), on the card
+    and on the CPU from the same parameters and batches, in float32 and in
+    bf16 (bounds at LM_BF16_MULTIPLE)."""
+    from repro_torch.core import model_objectives as mobj
+    from repro_torch.models.model import forward
+    from repro_torch.sharding import ShardingPolicy
+
+    pol = ShardingPolicy(remat=False)
+    for arch in LM_FULL:
+        for dtype in ("float32", "bfloat16"):
+            cfg, params, cobjs, _, _, value, _ = build_lm(arch, "cpu", "smoke", dtype)
+            x = torch.rand((LM_CLIENTS, 4, cfg.d_model), generator=torch.Generator().manual_seed(5))
+            x[:, 0] = 0.5
+            tokens = cobjs.batches_tokens.reshape(-1, cobjs.batches_tokens.shape[-1])
+            on_card = {k: v.to(dev) for k, v in params.items()}
+            got = {"logits": forward(on_card, cfg, {"tokens": tokens.to(dev)}, pol)[0].cpu(),
+                   "values": mobj.make_lm_query(cfg, on_card)[3](mobj.to(cobjs, dev),
+                                                                  x.to(dev)).cpu()}
+            cpu = {"logits": forward(params, cfg, {"tokens": tokens}, pol)[0],
+                   "values": value(cobjs, x)}
+            cfg64 = dataclasses.replace(cfg, dtype="float64")
+            p64 = {k: v.double() for k, v in params.items()}
+            gains = mobj.lm_gains(params["final_norm"], cobjs.scale, x)
+            truth = {"logits": forward(p64, cfg64, {"tokens": tokens}, pol)[0],
+                     "values": mobj.lm_values(cfg64, p64, cobjs, gains.double())}
+            for what in ("logits", "values"):
+                g, c, t = got[what].double(), cpu[what].double(), truth[what]
+                scale = t.abs().max().item()
+                gap = (g - c).abs().max().item() / scale
+                e_card, e_cpu = ((g - t).abs().max().item() / scale,
+                                 (c - t).abs().max().item() / scale)
+                if dtype == "float32":
+                    ok = gap <= 1e-4
+                else:
+                    ok = e_card <= max(LM_BF16_MULTIPLE * e_cpu, LM_BF16_FLOOR)
+                print(f"[small lm] {cfg.name} {dtype} {what}: card vs CPU {gap:.3e}; from the "
+                      f"CPU's float64: card {e_card:.3e}, CPU {e_cpu:.3e} (shares of "
+                      f"{scale:.3e}); {'ok' if ok else 'FAILED'}", flush=True)
+                if not ok:
+                    fail(f"small lm: {cfg.name} {dtype} {what}: the card is off the CPU")
 
 
 def check_per_client(cobjs, dev) -> dict:
@@ -2383,6 +2657,7 @@ def main() -> int:
     check_faults(cfg, cobjs, dev)
     check_rollback(cfg, cobjs, dev)
     check_pool(cfg, cobjs, dev, straight, straight_draws)
+    check_lm(dev)
     profile_round(cfg, cobjs, dev)
 
     ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)

@@ -23,8 +23,14 @@ from repro_torch.optim.optimizers import AdamState
 
 
 def tensor(a, device) -> torch.Tensor:
-    """A numpy array (or array-like) as a tensor of the same dtype."""
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """A numpy array (or array-like) as a tensor of the same dtype.  A
+    bfloat16 array (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses) arrives bit for bit as ``torch.bfloat16``, through its 16-bit
+    integer view."""
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _fields(src, cls, device):
@@ -61,6 +67,21 @@ def metric_objective(src, device) -> mobj.MetricObjective:
         base=mlp_params(src.base, device), xs=tensor(src.xs, device),
         ys=tensor(src.ys, device).long(), scale=tensor(src.scale, device),
         noise_std=tensor(src.noise_std, device), n_classes=tensor(src.n_classes, device))
+
+
+def lm_params(src, device) -> dict:
+    """A reference model's flat parameter dict (``repro.models.init_params``)
+    as the port's, leaf by leaf under the same names, in the same dtypes."""
+    return {name: tensor(a, device) for name, a in src.items()}
+
+
+def lm_objective(src, device) -> mobj.LMObjective:
+    """A stacked reference ``LMObjective``; the tokens and labels as int64,
+    the port's index type."""
+    return mobj.LMObjective(
+        batches_tokens=tensor(src.batches_tokens, device).long(),
+        batches_labels=tensor(src.batches_labels, device).long(),
+        scale=tensor(src.scale, device), noise_std=tensor(src.noise_std, device))
 
 
 def rff(src, device) -> rfflib.RFFParams:

@@ -12,6 +12,11 @@ of ``repro.core.model_objectives``).
    1 - precision on each client's label subset (Covertype stand-in:
    synthetic 7-class tabular data).
 
+3. LM-backbone objective (framework integration, DESIGN.md Sec. 5): the ZOO
+   input shifts the final-norm gains of a zoo model (``repro_torch.models``;
+   gains = final_norm + scale * (x - 1/2) in the model's dtype) and the
+   local function is the client's own token-batch loss / 10.
+
 The functions follow ``core/objectives.py``: the stacked objective carries
 a leading client axis N on every leaf, points are (N, ..., d) with one
 batch of points per client, the query noise is an argument z of shape
@@ -20,10 +25,10 @@ Every tensor a maker returns has ``requires_grad=False``, so no query
 records an autograd graph (the engine's chunks are captured on the card).
 
 The makers draw from explicit generators seeded from their ``seed``
-(``algorithms.stream_seed``): the data from ``(seed, 0)``, the label
-partition from ``(seed, 1)`` and the initial parameters from ``(seed, 2,
-...)``, all on the CPU, so the card and the CPU train from the same
-numbers.  Torch cannot replay the reference's threefry keys; parity with
+(``algorithms.stream_seed``): the data (the LM's tokens too) from ``(seed,
+0)``, the label partition from ``(seed, 1)`` and the initial parameters
+from ``(seed, 2, ...)``, all on the CPU, so the card and the CPU train
+from the same numbers.  Torch cannot replay the reference's threefry keys; parity with
 the reference comes from carrying its trained objectives across
 (``repro_torch.convert``).
 """
@@ -42,7 +47,10 @@ from repro_torch.core.algorithms import stream_seed
 from repro_torch.core.objectives import _lead
 from repro_torch.data.partition import label_subset_partition
 from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import check_ported, forward, token_nll
 from repro_torch.optim.optimizers import adam_init, adam_update
+from repro_torch.sharding.rules import ShardingPolicy
 
 # ---------------------------------------------------------------------------
 # shared tiny-MLP machinery (victims + metric model)
@@ -352,3 +360,97 @@ def metric_query(cps: MetricObjective, x_unit: torch.Tensor, z: torch.Tensor) ->
 def metric_global_value(cps: MetricObjective, x_unit: torch.Tensor) -> torch.Tensor:
     """F(x) = mean_i f_i(x) at one point x (d,) -> ()."""
     return torch.mean(metric_value(cps, x_unit.expand(cps.xs.shape[0], -1)))
+
+
+# ---------------------------------------------------------------------------
+# 3) LM-backbone objective: FZooS x architecture zoo
+# ---------------------------------------------------------------------------
+
+
+class LMObjective(NamedTuple):
+    """Perturb the final-norm gains of a zoo model; f_i = client-batch loss."""
+
+    batches_tokens: torch.Tensor  # (N, b, l) int64
+    batches_labels: torch.Tensor  # (N, b, l) int64
+    scale: torch.Tensor  # (N,)
+    noise_std: torch.Tensor  # (N,)
+
+
+def make_lm_objective(
+    seed: int,
+    cfg: ModelConfig,
+    n_clients: int,
+    batch: int = 2,
+    seq: int = 32,
+    scale: float = 0.5,
+    noise_std: float = 0.001,
+    device: str | torch.device = "cuda",
+) -> LMObjective:
+    """Each client's token batch, uniform over the vocabulary, drawn on the
+    CPU from ``(seed, 0)``: sequences of ``seq + 1`` tokens, the first
+    ``seq`` the inputs and the last ``seq`` the labels."""
+    device = resolve_device(device)
+    toks = torch.randint(0, cfg.vocab_size, (n_clients, batch, seq + 1),
+                         generator=_cpu_generator(seed, 0))
+    rep = lambda v: torch.full((n_clients,), v, dtype=torch.float32, device=device)
+    return LMObjective(
+        batches_tokens=toks[..., :-1].contiguous().to(device),
+        batches_labels=toks[..., 1:].contiguous().to(device),
+        scale=rep(scale),
+        noise_std=rep(noise_std),
+    )
+
+
+def lm_gains(final_norm: torch.Tensor, scale: torch.Tensor, x_unit: torch.Tensor
+             ) -> torch.Tensor:
+    """The final-norm gains of per-client points (N, K, d): final_norm +
+    (scale_i * (x - 1/2)), the shift computed in float32 and cast to the
+    gains' dtype, as the reference's (so bf16 gains match it bit for bit)."""
+    return final_norm + (scale[:, None, None] * (x_unit - 0.5)).to(final_norm.dtype)
+
+
+def lm_values(cfg: ModelConfig, params: dict, cps: LMObjective, gains: torch.Tensor,
+              policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
+    """f_i at K sets of gains a client (N, K, d) -> (N, K): one forward pass
+    of N*K*b sequences, every sequence of client i's batch with its set's
+    gains; f_i is the batch's mean token NLL (plus the router's auxiliary
+    loss) / 10."""
+    policy = policy or ShardingPolicy(remat=False)
+    n, k, d = gains.shape
+    b, l = cps.batches_tokens.shape[1:]
+    every = lambda t: t[:, None].expand(n, k, b, l).reshape(n * k * b, l)
+    final = gains[:, :, None, None, :].expand(n, k, b, 1, d).reshape(n * k * b, 1, d)
+    logits, aux = forward(dict(params, final_norm=final), cfg,
+                          {"tokens": every(cps.batches_tokens)}, policy)
+    nll, valid = token_nll(logits, every(cps.batches_labels))
+    loss = (nll.reshape(n, k, b * l).sum(-1)
+            / torch.clamp_min(valid.reshape(n, k, b * l).sum(-1), 1))
+    return (loss + cfg.router_aux_weight * aux) / 10.0
+
+
+def make_lm_query(cfg: ModelConfig, params: dict, policy: Optional[ShardingPolicy] = None):
+    """Returns (query_fn, global_value_fn, dim, value_fn) of the model
+    ``cfg`` with ``params`` (``repro_torch.models.init_params``, or the
+    reference's carried across by ``convert.lm_params``).  The ZOO input x
+    (in [0,1]^d, d = d_model) shifts the final-norm gains (``lm_gains``).
+    ``value(cps, x)`` takes per-client points (N, ..., d) and returns
+    (N, ...); the points of a call run as one forward pass
+    (``lm_values``)."""
+    check_ported(cfg)
+    policy = policy or ShardingPolicy(remat=False)
+    base = params["final_norm"]
+
+    def value(cps: LMObjective, x_unit: torch.Tensor) -> torch.Tensor:
+        n, d = x_unit.shape[0], x_unit.shape[-1]
+        gains = lm_gains(base, cps.scale, x_unit.reshape(n, -1, d))
+        return lm_values(cfg, params, cps, gains, policy).reshape(x_unit.shape[:-1])
+
+    def query(cps: LMObjective, x_unit: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Noisy query y = f_i(x) + sigma_i z with z ~ N(0, 1): (N, ..., d) -> (N, ...)."""
+        return value(cps, x_unit) + _lead(cps.noise_std, z) * z
+
+    def global_value(cps: LMObjective, x_unit: torch.Tensor) -> torch.Tensor:
+        """F(x) = mean_i f_i(x) at one point x (d,) -> ()."""
+        return torch.mean(value(cps, x_unit.expand(cps.scale.shape[0], -1)))
+
+    return query, global_value, cfg.d_model, value

@@ -12,6 +12,9 @@ by default.
     # non-differentiable metric optimization (Sec. 6.3)
     python -m repro_torch.launch.fedzoo --objective metric --clients 7
 
+    # FZooS over an architecture-zoo backbone (its SMOKE variant)
+    python -m repro_torch.launch.fedzoo --objective lm --arch mamba2-370m
+
     # checkpoint every chunk boundary; the same command again resumes
     python -m repro_torch.launch.fedzoo --rounds 10 --chunk 5 --ckpt-dir ckpt
 
@@ -34,14 +37,20 @@ draws and ``(seed, 1)`` the run's ``ClientDraws``, as the reference
 splits one key into the objective's and the run's.
 
 The attack and the metric train their victims on the run's device and
-ignore ``--dim`` and ``--het``, as the reference's do.  ``--pool-size``
-overrides ``--clients``: the objective and the config are built for the
-pool, and ``--cohort`` clients of it run each chunk.  The run's identity
-holds the seed and the objective's arguments, so a resume with another
-``--seed``, ``--het``, ``--noise-std`` or ``--p-shared`` raises instead
-of joining two runs.  The objective ``lm`` (ROADMAP Queue A, A13) and
-``--distributed`` (A11) keep their places in the command line and exit,
-naming their item, until they are ported.
+ignore ``--dim`` and ``--het``, as the reference's do.  ``--objective lm``
+builds the SMOKE variant of ``--arch`` with random parameters on the run's
+device (``models.init_params`` from the objective's seed) and runs at
+d = d_model; the dense and ssm families run, the moe, hybrid and vlm ones
+exit naming ROADMAP Queue A, A13b, and whisper (encoder-decoder) exits
+naming the reference's gap (its forward needs encoder frames the
+objective never makes).  ``--arch`` takes the reference's ids and also the
+configs' published names (``qwen1.5-0.5b``).  ``--pool-size`` overrides
+``--clients``: the objective and the config are built for the pool, and
+``--cohort`` clients of it run each chunk.  The run's identity holds the
+seed and the objective's arguments, so a resume with another ``--seed``,
+``--het``, ``--noise-std``, ``--p-shared`` or ``--arch`` raises instead
+of joining two runs.  ``--distributed`` (ROADMAP Queue A, A11) keeps its
+place in the command line and exits, naming its item, until it is ported.
 """
 
 from __future__ import annotations
@@ -51,36 +60,27 @@ import time
 
 import numpy as np
 
+from repro_torch.configs import ARCH_IDS, _norm, get_config
 from repro_torch.core import algorithms as alg
 from repro_torch.core import model_objectives as mobj
 from repro_torch.core import objectives as obj
 from repro_torch.device import resolve_device
 from repro_torch.launch import common
+from repro_torch.models.model import check_ported
+from repro_torch.models.params import init_params
 
-#: The architecture ids of the reference's registry (``repro.configs``),
-#: the choices of ``--arch``.
-ARCH_IDS = (
-    "llama4_maverick_400b_a17b",
-    "llama4_scout_17b_16e",
-    "mamba2_370m",
-    "jamba_1_5_large_398b",
-    "gemma_7b",
-    "whisper_base",
-    "yi_34b",
-    "minitron_8b",
-    "qwen2_vl_7b",
-    "qwen1_5_0_5b",
-)
 
-#: Objectives of the command line that are not ported yet, and their item.
-_UNPORTED = {"lm": "A13"}
+class _ArchChoices(list):
+    """The choices of ``--arch``: the reference's ids, with dashes or
+    underscores; membership also admits a config's published name
+    (``qwen1.5-0.5b``), which names the same module."""
+
+    def __contains__(self, arch) -> bool:
+        return list.__contains__(self, arch) or _norm(str(arch)) in ARCH_IDS
 
 
 def build_objective(args, seed: int, device):
     """(client objectives, query_fn, global_value_fn, dim) of ``--objective``."""
-    if args.objective in _UNPORTED:
-        raise SystemExit(f"--objective {args.objective} is not ported yet "
-                         f"(ROADMAP Queue A, {_UNPORTED[args.objective]})")
     if args.objective == "quadratic":
         cobjs = obj.make_quadratic(seed, args.clients, args.dim, args.het, args.noise_std,
                                    device=device)
@@ -97,6 +97,16 @@ def build_objective(args, seed: int, device):
         cobjs, d = mobj.make_metric_objective(seed, args.clients, p_shared=args.p_shared,
                                               device=device)
         return cobjs, mobj.metric_query, mobj.metric_global_value, d
+    if args.objective == "lm":
+        # the SMOKE variant of --arch, as the reference's launcher builds it
+        cfg = get_config(args.arch, "smoke")
+        try:
+            check_ported(cfg)
+        except NotImplementedError as e:
+            raise SystemExit(f"--objective lm --arch {args.arch}: {e}") from None
+        query, global_value, d, _ = mobj.make_lm_query(cfg, init_params(seed, cfg, device))
+        cobjs = mobj.make_lm_objective(seed, cfg, args.clients, device=device)
+        return cobjs, query, global_value, d
     raise ValueError(args.objective)
 
 
@@ -105,7 +115,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--objective", default="quadratic",
                     choices=["quadratic", "sinquad", "attack", "metric", "lm"])
     ap.add_argument("--arch", default="qwen1_5_0_5b",
-                    choices=[a.replace("_", "-") for a in ARCH_IDS] + list(ARCH_IDS))
+                    choices=_ArchChoices([a.replace("_", "-") for a in ARCH_IDS]
+                                         + list(ARCH_IDS)))
     ap.add_argument("--dim", type=int, default=300)
     ap.add_argument("--clients", type=int, default=5)
     ap.add_argument("--het", type=float, default=5.0, help="C for synthetic objectives")
@@ -125,13 +136,15 @@ def parser() -> argparse.ArgumentParser:
 
 def run_identity(args) -> dict:
     """The command line's part of the run identity: the seed and the
-    objective's arguments (those ``build_objective`` reads)."""
-    objective = {"objective": args.objective, "clients": args.clients,
-                 "noise_std": args.noise_std}
+    objective's arguments (those ``build_objective`` reads; for ``lm`` the
+    architecture, by its module name)."""
+    objective = {"objective": args.objective, "clients": args.clients}
     if args.objective in ("quadratic", "sinquad"):
-        objective.update(dim=args.dim, het=args.het)
+        objective.update(noise_std=args.noise_std, dim=args.dim, het=args.het)
+    elif args.objective == "lm":
+        objective.update(arch=_norm(args.arch))
     else:
-        objective.update(p_shared=args.p_shared)
+        objective.update(noise_std=args.noise_std, p_shared=args.p_shared)
     return {"seed": args.seed, "objective": objective}
 
 
