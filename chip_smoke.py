@@ -130,11 +130,23 @@ Phases, each a hard check (any failure exits non-zero):
    their bound at the bf16 peak, B1, B3, B5, B6 and B9 on two loop rounds'
    inputs against float64 (``check_engine_inputs``), the peak of
    ``torch.cuda.max_memory_allocated``; Mamba2-370m ``FULL`` (48 layers)
-   2 rounds in the loop and 2 in a captured chunk, bit for bit; the SMOKE
-   forward and objective of both on the card against the CPU (float32
-   within 1e-4, bf16 by ``LM_BF16_MULTIPLE``); ``python -m
-   repro_torch.launch.fedzoo --objective lm --arch A --rounds 10`` for both
-   (the SMOKE variant, as the reference's launcher) in a child process;
+   2 rounds in the loop and 2 in a captured chunk, bit for bit;
+   Qwen2-VL-7B ``FULL`` whole (28 layers, d_model=3584, M-RoPE) and
+   Llama-4-Scout at full width with its depth cut to 4 layers (d_model=
+   5120, 16 experts of d_ff 8192, top-1 and a shared expert; parameters
+   drawn on the card), 2 rounds in the loop and 4 in captured chunks of 2,
+   bit for bit; for each one replay profiled beside its forward passes'
+   device time and bound (Scout's experts' E x C slots a query counted),
+   B2, B4, B5, B6 and B9 (the tuner tiles the cap at these widths) on two
+   loop rounds' inputs at d=3584 and 5120, and Scout's share of slots
+   dropped in an active-query call; the SMOKE forward and
+   objective of every family the objective runs (qwen1.5, mamba2, scout,
+   maverick, jamba, qwen2-vl) on the card against the CPU (float32 within
+   1e-4, bf16 by ``LM_BF16_MULTIPLE``; a bf16 MoE stack on the tokens it
+   routes as its float64 run, ``well_posed_tokens``); ``python -m
+   repro_torch.launch.fedzoo --objective lm --arch A --rounds 10`` for
+   each (the SMOKE variant, as the reference's launcher) in child
+   processes started together;
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -169,6 +181,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -878,15 +891,17 @@ def check_engine_inputs(dev, label="engine inputs", objective="quadratic", run=N
         "rff_grad_rows": ref.rff_grad_rows,
         "sqexp": ref.sqexp,
         # the block pins (block_n, block_cap) choose a route, not the function;
-        # a pinned cap tile below cap is held against the tiled route's plain
-        # version, the same sum in its tiles
+        # a cap tile below cap (pinned, or the tuner's at a wide d) is held
+        # against the tiled route's plain version, the same sum in its tiles
         "uncertainty_scores_clients": lambda *a, lengthscale, prior, block_cap=None, **_:
-            gp_score.scores_tiled_plain(*a, lengthscale, prior, block_cap)
-            if block_cap and block_cap < a[1].shape[-2]
+            gp_score.scores_tiled_plain(*a, lengthscale, prior, tile)
+            if (tile := route_cap("score_clients", a[0].shape[-2], a[1].shape[-2],
+                                  a[0].shape[-1], block_cap)) < a[1].shape[-2]
             else ref.uncertainty_scores_clients_fused(*a, lengthscale, prior),
         "grad_mean_clients": lambda *a, lengthscale, block_cap=None, **_:
-            gp_grad.grad_mean_tiled_plain(*a, lengthscale, block_cap)
-            if block_cap and block_cap < a[1].shape[-2]
+            gp_grad.grad_mean_tiled_plain(*a, lengthscale, tile)
+            if (tile := route_cap("grad_clients", a[0].shape[-2], a[1].shape[-2],
+                                  a[0].shape[-1], block_cap)) < a[1].shape[-2]
             else ref.grad_mean_clients(*a, lengthscale),
         "uncertainty_scores": lambda *a, lengthscale, prior, block_cap=None, **_:
             gp_score.scores_tiled_plain(*(t[None] for t in a), lengthscale, prior, block_cap)[0]
@@ -972,15 +987,29 @@ FZ_KERNELS = {"score_cluster_kernel": "score_resident", "grad_cluster_kernel": "
               "proj_rows_kernel": "sqexp"}
 
 
+def route_cap(kind, n, cap, d, block_cap=None) -> int:
+    """The cap tile the kernel wrappers take for ``kind`` at these shapes:
+    ``block_cap`` where pinned, else the tuner's (the resident route when
+    it is ``cap``, the cap-tiled one below it)."""
+    from repro_torch.kernels import autotune
+
+    return block_cap or autotune.select_blocks(kind, n=n, cap=cap, d=d)[1]
+
+
 def deferred_counts(cfg, rounds) -> dict:
     """Launches of ``rounds`` rounds of the deferred engine, factor_init's
-    SE Gram not included: ``fzoos_counts`` less that Gram, the scoring (B1)
-    once per local step and at the round end, the gradient mean (B3) once
+    SE Gram not included: ``fzoos_counts`` less that Gram, the scoring (B1,
+    or B2 where the tuner tiles the cap: d=3584 and 5120 at cap 192) once
+    per local step and at the round end, the gradient mean (B3, or B4) once
     per local step."""
-    t = cfg.local_steps
+    t, cap, d = cfg.local_steps, cfg.traj_capacity, cfg.dim
     counts = fzoos_counts(cfg, rounds)
     counts["sqexp"] -= 1
-    return dict(counts, score_resident=(t + 1) * rounds, grad_resident=t * rounds)
+    tiled = lambda kind, n, pin: route_cap(kind, n, cap, d, pin) < cap
+    score = ("score_tiled" if tiled("score_clients", cfg.active_candidates, cfg.score_block_cap)
+             else "score_resident")
+    grad = "grad_tiled" if tiled("grad_clients", 1, cfg.grad_block_cap) else "grad_resident"
+    return dict(counts, **{score: (t + 1) * rounds, grad: t * rounds})
 
 
 @contextlib.contextmanager
@@ -2291,15 +2320,33 @@ def check_objective_cli(name, args=None) -> None:
         fail(f"the command line ({name}) printed no finite F: {result!r}")
 
 
-#: Phase 4h, the LM objective (A13a: ``models/``, ``configs/``, the third
-#: part of ``core/model_objectives.py``): each published config at full
-#: width (``FULL``, bf16, random parameters from ``models.init_params``),
-#: LM_CLIENTS clients of ``make_lm_objective``'s defaults (batch 2, seq
-#: 32), through ``simulate`` at the command line's engine defaults
-#: (``launcher_config``; d = d_model = 1024), both seeded as the command
-#: line seeds ``--seed 0``; per config (rounds in the loop, rounds in
-#: captured chunks, chunk length, whether a replay is profiled).
-LM_FULL = {"qwen1.5-0.5b": (3, 10, 5, True), "mamba2-370m": (2, 2, 2, False)}
+class LMRun(NamedTuple):
+    """How phase 4h runs one published config."""
+    loop: int  # rounds in the loop
+    captured: int  # rounds in captured chunks
+    chunk: int  # their chunk length
+    profiled: bool  # a replay profiled, the forward's bound, the engine's inputs
+    layers: Optional[int] = None  # the depth cut (None: the published depth)
+    device_draws: bool = False  # init_params draws on the card
+
+
+#: Phase 4h, the LM objective (A13a, A13b: ``models/``, ``configs/``, the
+#: third part of ``core/model_objectives.py``): each published config at
+#: full width (``FULL``, bf16, random parameters from
+#: ``models.init_params``), LM_CLIENTS clients of ``make_lm_objective``'s
+#: defaults (batch 2, seq 32), through ``simulate`` at the command line's
+#: engine defaults (``launcher_config``; d = d_model), both seeded as the
+#: command line seeds ``--seed 0``.  Scout's 48 layers (215.5 GB in bf16)
+#: do not fit one 80 GB card: 4 of them do (21.75 GB).  The CPU draws
+#: about 100M numbers a second (Qwen1.5-0.5B's 464M in 4.1-5.0 s), so the
+#: two largest draw on the card.
+LM_FULL = {"qwen1.5-0.5b": LMRun(3, 10, 5, True), "mamba2-370m": LMRun(2, 2, 2, False),
+           "qwen2-vl-7b": LMRun(2, 4, 2, True, device_draws=True),
+           "llama4-scout-17b-16e": LMRun(2, 4, 2, True, layers=4, device_draws=True)}
+#: The SMOKE variants phase 4h holds on the card against the CPU and runs
+#: through the command line: every family the LM objective runs.
+LM_SMOKE = ("qwen1.5-0.5b", "mamba2-370m", "llama4-scout-17b-16e", "llama4-maverick-400b-a17b",
+            "jamba-1.5-large-398b", "qwen2-vl-7b")
 LM_CLIENTS = 5
 #: Peak bf16 rate of the tensor cores (NVIDIA data sheet, H100 SXM, dense):
 #: the bound of a round's forward passes.
@@ -2311,6 +2358,12 @@ BF16_FLOPS_S = 989e12
 #: within LM_BF16_FLOOR of the largest magnitude (one bf16 spacing: cuBLAS
 #: may reduce bf16 products in bf16 and sums in another order).
 LM_BF16_MULTIPLE, LM_BF16_FLOOR = 2.0, 2.0 ** -8
+#: A bf16 MoE stack's top-k choice may differ from its float64 run's only
+#: at a near-tie of the float64 run: its k-th and (k+1)-th probabilities
+#: within this share of the k-th.  Each bf16 GEMM rounds its sums to 2^-8
+#: (two libraries round a few elements in a thousand differently), and a
+#: stack carries such errors through its layers into the router's input.
+NEAR_TIE = 2.0 ** -4
 
 
 def sync(dev) -> None:
@@ -2318,12 +2371,12 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def build_lm(arch, dev, variant="full", dtype=None):
+def build_lm(arch, dev, variant="full", dtype=None, layers=None, device_draws=False):
     """The LM objective of ``arch`` as the command line builds it at ``--seed
-    0`` (``build_lm`` and ``make_lm_objective`` on ``stream_seed(0, 0)``),
+    0`` (``init_params`` and ``make_lm_objective`` on ``stream_seed(0, 0)``),
     on ``dev``: (config, params, objective, query, global value, value,
     build seconds between two synchronizations).  ``dtype`` replaces the
-    config's."""
+    config's, ``layers`` its depth; ``device_draws`` as ``init_params``'."""
     from repro_torch import configs
     from repro_torch.core import algorithms as alg
     from repro_torch.core import model_objectives as mobj
@@ -2332,10 +2385,12 @@ def build_lm(arch, dev, variant="full", dtype=None):
     cfg = configs.get_config(arch, variant)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     seed = alg.stream_seed(0, 0)
     sync(dev)
     t0 = time.perf_counter()
-    params = init_params(seed, cfg, dev)
+    params = init_params(seed, cfg, dev, device_draws=device_draws)
     cobjs = mobj.make_lm_objective(seed, cfg, LM_CLIENTS, device=dev)
     sync(dev)
     secs = time.perf_counter() - t0
@@ -2343,28 +2398,93 @@ def build_lm(arch, dev, variant="full", dtype=None):
     return cfg, params, cobjs, query, value, per_point, secs
 
 
+@contextlib.contextmanager
+def recorded_routings():
+    """Every ``models.layers.moe_route`` result, in call order, while open
+    (the module's function is put back on exit)."""
+    from repro_torch.models import layers
+
+    calls, real = [], layers.moe_route
+
+    def record(*args):
+        calls.append(real(*args))
+        return calls[-1]
+
+    layers.moe_route = record
+    try:
+        yield calls
+    finally:
+        layers.moe_route = real
+
+
+def well_posed_tokens(calls, calls64, length) -> torch.Tensor:
+    """The tokens (B*L,) of a bf16 MoE stack that it routes as its float64
+    run does (``calls`` and ``calls64``, layer by layer, from
+    ``recorded_routings``), with every earlier token of their sequence:
+    attention and the SSM carry a token's change to the later positions,
+    and a group's drops to its other tokens.  A token first routed
+    otherwise must be a near-tie of the float64 run (``NEAR_TIE``), and a
+    changed drop must follow a changed choice in its group, or this
+    raises."""
+    bad = torch.zeros(calls[0].expert.shape[:2], dtype=torch.bool).reshape(-1, length)
+    for r, r64 in zip(calls, calls64, strict=True):
+        expert, keep, expert64, keep64 = (t.cpu() for t in (r.expert, r.keep, r64.expert,
+                                                              r64.keep))
+        g, t, k = expert.shape
+        flip = (expert.sort(-1).values != expert64.sort(-1).values).any(-1)
+        dropped = (keep != keep64).reshape(g, t, k).any(-1)
+        if not bool(flip.any(-1)[dropped.any(-1)].all()):
+            raise AssertionError("a drop moved with no choice moved in its group")
+        p = r64.probs.cpu().sort(-1, descending=True).values
+        margin = ((p[..., k - 1] - p[..., k]) / p[..., k - 1]).reshape(-1, length)
+        fresh = flip.reshape(-1, length) & ~bad  # not carried from an earlier change
+        if not bool((margin[fresh] <= NEAR_TIE).all()):
+            raise AssertionError(f"a choice moved off a near-tie: margins {margin[fresh]}")
+        bad = torch.cummax((bad | (flip | dropped).reshape(-1, length)).int(),
+                           dim=1).values.bool()
+    return ~bad.reshape(-1)
+
+
 def lm_round_work(cfg, ecfg, cobjs) -> dict:
-    """What one round's forward passes compute, from the shapes: the
-    sequences (the queries of every local step and of the round end, and
-    F's evaluation, each point a client's batch), their tokens, the
-    operations (2 per parameter of the blocks and of the vocabulary
-    projection per token, and the attention's scores and values), the
-    bound at the bf16 peak, and the float32 logits of the largest query
-    (the active queries)."""
+    """What one round's forward passes compute, from the shapes: the forward
+    calls (the iterate's and the active queries of every local step, the
+    round end's active queries, F), their sequences (each point a client's
+    batch) and tokens; the operations: 2 per parameter of the blocks and of
+    the vocabulary projection per token, the attention's scores and values,
+    and for a MoE config the experts' GEMMs over the E x C slots of every
+    (client, point) group (the router and the shared expert are block
+    parameters every token runs), with the share of those operations the
+    tokens' top-k slots need; the bytes (every parameter read once a call);
+    the bound, the larger of the operations at the bf16 peak and the bytes
+    at HBM's rate; and the float32 logits of the largest query (the active
+    queries)."""
+    from repro_torch.models.layers import moe_capacity
+    from repro_torch.models.params import param_defs
+
     n, (b, l) = ecfg.n_clients, cobjs.batches_tokens.shape[1:]
     points = ecfg.local_steps * (1 + ecfg.active_per_iter) + ecfg.active_round_end + 1
+    calls = 2 * ecfg.local_steps + (ecfg.active_round_end > 0) + 1
     seqs = points * n * b
     tokens = seqs * l
     dense = 2 * cfg.d_model * cfg.vocab_size  # the vocabulary projection, per token
-    from repro_torch.models.params import param_defs
-
-    blocks = sum(int(np.prod(pd.shape)) for k, pd in param_defs(cfg).items()
-                 if k.startswith("blocks/"))
+    defs = param_defs(cfg)
+    experts = {k for k in defs if k.startswith("blocks/") and ".we_" in k}
+    blocks = sum(int(np.prod(pd.shape)) for k, pd in defs.items()
+                 if k.startswith("blocks/") and k not in experts)
     attn = 0 if cfg.arch_type == "ssm" else 2 * 2 * cfg.n_layers * cfg.q_dim * (l + 1) // 2
     flops = tokens * (2 * blocks + dense + attn)
+    useful = flops
+    if cfg.is_moe_mlp:  # every layer has a MoE MLP
+        per_slot = 6 * cfg.d_model * cfg.d_ff * cfg.n_layers
+        slots = points * n * cfg.n_experts * moe_capacity(cfg, b * l)
+        flops += slots * per_slot
+        useful += tokens * cfg.moe_top_k * per_slot
+    n_bytes = calls * sum(int(np.prod(pd.shape)) for pd in defs.values()) * cfg.torch_dtype.itemsize
     active = n * max(ecfg.active_per_iter, ecfg.active_round_end) * b * l * cfg.vocab_size * 4
-    return {"sequences": seqs, "tokens": tokens, "TFLOP": flops / 1e12,
-            "bound_ms": 1e3 * flops / BF16_FLOPS_S, "active_logits_GB": active / 1e9}
+    return {"calls": calls, "sequences": seqs, "tokens": tokens, "TFLOP": flops / 1e12,
+            "useful": useful / flops, "GB": n_bytes / 1e9,
+            "bound_ms": 1e3 * max(flops / BF16_FLOPS_S, n_bytes / HBM_BYTES_S),
+            "active_logits_GB": active / 1e9}
 
 
 def lm_model_ms(ecfg, cobjs, query, value, dev, label) -> float:
@@ -2404,29 +2524,47 @@ def lm_model_ms(ecfg, cobjs, query, value, dev, label) -> float:
     return total
 
 
+def dropped_share(ecfg, cobjs, query, dev) -> tuple[int, int]:
+    """(dropped slots, slots) over the MoE layers of one active-query call
+    (N x ``active_per_iter`` points, each its own group), on the card."""
+    n, d, k = ecfg.n_clients, ecfg.dim, ecfg.active_per_iter
+    x = torch.rand((n, k, d), generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    with recorded_routings() as calls:
+        query(cobjs, x, torch.zeros(n, k, device=dev))
+    return (sum(int((~r.keep).sum()) for r in calls), sum(r.keep.numel() for r in calls))
+
+
 def check_lm(dev) -> None:
-    """Phase 4h: each config of LM_FULL at full width through ``simulate``:
-    the loop (F finite, exact queries, the deferred engine's launches, min
-    F over the rounds not above F(x_0)), the parameters' build seconds and
-    bytes, ms/round; captured chunks bit for bit the loop
+    """Phase 4h: each config of LM_FULL at full width (its depth cut where
+    LM_FULL says so) through ``simulate``: the loop (F finite, exact
+    queries, the deferred engine's launches, min F over the rounds not
+    above F(x_0)), the parameters' build seconds, bytes and the build's
+    peak memory, ms/round; captured chunks bit for bit the loop
     (``check_objective_captured``), ms/round over the replays; where
-    LM_FULL says so (qwen1.5) one replayed chunk profiled beside the device time of the
-    round's forward passes (``lm_model_ms``) and their bound
-    (``lm_round_work``), and B1, B3, B5, B6 and B9 on two loop rounds'
-    inputs against float64 (``check_engine_inputs``); the peak of
-    ``torch.cuda.max_memory_allocated`` of each config's loop and
-    captured runs (before that check's recordings); then the SMOKE
-    forward and objective on the card against the CPU
-    (``check_lm_small``) and the command line on both architectures."""
+    LM_FULL says so (all but mamba2) one replayed chunk profiled beside the
+    device time of the round's forward passes (``lm_model_ms``) and their
+    bound (``lm_round_work``), for a MoE config the share of slots an
+    active-query call drops, and the scoring (B1, or B2 where the tuner
+    tiles the cap), the gradient mean (B3, or B4), B5, B6 and B9 on two
+    loop rounds' inputs against float64 (``check_engine_inputs``); the peak of
+    ``torch.cuda.max_memory_allocated`` of each config's loop and captured
+    runs (before that check's recordings); then the SMOKE forward and
+    objective on the card against the CPU (``check_lm_small``) and the
+    command line on every architecture of LM_SMOKE."""
+    from repro_torch import configs
     from repro_torch.core import algorithms as alg
+    from repro_torch.models.layers import moe_capacity
 
     card = card_name()
-    for arch, (loop_rounds, cap_rounds, chunk, profiled) in LM_FULL.items():
+    for arch, how in LM_FULL.items():
         gc.collect()  # the previous config's graphs and tensors
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # by the earlier phases
-        cfg, params, cobjs, query, value, per_point, build_secs = build_lm(arch, dev)
+        cfg, params, cobjs, query, value, per_point, build_secs = build_lm(
+            arch, dev, layers=how.layers, device_draws=how.device_draws)
+        build_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         n_params = sum(t.numel() for t in params.values())
         n_bytes = sum(t.numel() * t.element_size() for t in params.values())
         ecfg = launcher_config(cfg.d_model, LM_CLIENTS)
@@ -2436,84 +2574,134 @@ def check_lm(dev) -> None:
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = run(loop_rounds)
+        res = run(how.loop)
         torch.cuda.synchronize()
         secs, counts = time.perf_counter() - t0, read_counts()
-        print(f"[{label}] {card}: {cfg.n_layers} layers, d_model={cfg.d_model}, vocab "
-              f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, {n_bytes} bytes, built "
-              f"in {build_secs:.3f} s; N={LM_CLIENTS} batch {cobjs.batches_tokens.shape[1]} x "
+        cut = (f" (cut from {configs.get_config(arch).n_layers} layers)" if how.layers
+               else "")
+        moe = (f", {cfg.n_experts} experts of d_ff {cfg.d_ff} top-{cfg.moe_top_k}"
+               f"{' and a shared expert' if cfg.n_shared_experts else ''}"
+               if cfg.is_moe_mlp else "")
+        print(f"[{label}] {card}: {cfg.n_layers} layers{cut}, d_model={cfg.d_model}{moe}, "
+              f"vocab {cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, {n_bytes} bytes, "
+              f"built in {build_secs:.3f} s (drawn on the "
+              f"{'card' if how.device_draws else 'CPU'}; the build's peak {build_peak} bytes); "
+              f"N={LM_CLIENTS} batch {cobjs.batches_tokens.shape[1]} x "
               f"{cobjs.batches_tokens.shape[2]} tokens, d={ecfg.dim} M={ecfg.n_features} "
-              f"cap={ecfg.traj_capacity} T={ecfg.local_steps}; {loop_rounds} rounds (loop) in "
-              f"{secs:.3f} s, {1e3 * secs / loop_rounds:.3f} ms/round; launches {counts}",
+              f"cap={ecfg.traj_capacity} T={ecfg.local_steps}; {how.loop} rounds (loop) in "
+              f"{secs:.3f} s, {1e3 * secs / how.loop:.3f} ms/round; launches {counts}",
               flush=True)
-        check_result(res, ecfg, loop_rounds, label, must_fall=False)
-        loop_counts = deferred_counts(ecfg, loop_rounds)
+        check_result(res, ecfg, how.loop, label, must_fall=False)
+        loop_counts = deferred_counts(ecfg, how.loop)
         want = expect(**dict(loop_counts, sqexp=loop_counts["sqexp"] + 1))
         if counts != want:
             fail(f"{label}: launches {counts}, expected {want}")
         f = res.f_values.cpu()
-        print(f"[{label}] F(x_0) {f[0].item():.7f}, min F over rounds 1-{loop_rounds} "
+        print(f"[{label}] F(x_0) {f[0].item():.7f}, min F over rounds 1-{how.loop} "
               f"{f[1:].min().item():.7f}", flush=True)
         if not f[1:].min() <= f[0]:
-            fail(f"{label}: min F over rounds 1-{loop_rounds} is above F(x_0)")
+            fail(f"{label}: min F over rounds 1-{how.loop} is above F(x_0)")
         ms_round, busy_ms = check_objective_captured(label, ecfg, cobjs, query, value, 0, dev,
-                                                     rounds=cap_rounds, chunk=chunk,
-                                                     profile=profiled)
-        if profiled:
+                                                     rounds=how.captured, chunk=how.chunk,
+                                                     profile=how.profiled)
+        if how.profiled:
             work = lm_round_work(cfg, ecfg, cobjs)
             model_ms = lm_model_ms(ecfg, cobjs, query, value, dev, label)
-            print(f"[{label} profile] a round's forward passes: {work['sequences']} sequences, "
-                  f"{work['tokens']} tokens, {work['TFLOP']:.3f} TFLOP, bound "
-                  f"{work['bound_ms']:.3f} ms at {BF16_FLOPS_S / 1e12:.0f} TFLOP/s bf16; "
-                  f"float32 logits of an active-query call {work['active_logits_GB']:.3f} GB; "
-                  f"their device time {model_ms:.3f} ms a round (eager calls of the round's "
-                  f"shapes, profiled), {chunk * model_ms:.3f} ms of the replayed chunk's "
-                  f"{busy_ms:.3f} ms busy ({100 * chunk * model_ms / busy_ms:.1f}%), the GP, "
-                  f"RFF and engine the other {busy_ms - chunk * model_ms:.3f} ms; replayed "
+            experts = (f"; the experts' E x C slots a query, {100 * work['useful']:.1f}% of the "
+                       "operations the tokens' top-k slots" if cfg.is_moe_mlp else "")
+            print(f"[{label} profile] a round's forward passes: {work['calls']} calls, "
+                  f"{work['sequences']} sequences, {work['tokens']} tokens, "
+                  f"{work['TFLOP']:.3f} TFLOP{experts}, {work['GB']:.3f} GB of parameters "
+                  f"read, bound {work['bound_ms']:.3f} ms at {BF16_FLOPS_S / 1e12:.0f} TFLOP/s "
+                  f"bf16 and {HBM_BYTES_S / 1e12:.2f} TB/s; float32 logits of an active-query "
+                  f"call {work['active_logits_GB']:.3f} GB; their device time {model_ms:.3f} "
+                  f"ms a round (eager calls of the round's shapes, profiled), "
+                  f"{how.chunk * model_ms:.3f} ms of the replayed chunk's {busy_ms:.3f} ms "
+                  f"busy ({100 * how.chunk * model_ms / busy_ms:.1f}%), the GP, RFF and engine "
+                  f"the other {busy_ms - how.chunk * model_ms:.3f} ms; replayed "
                   f"{ms_round:.3f} ms/round against the bound's {work['bound_ms']:.3f}",
                   flush=True)
+            if cfg.is_moe_mlp:
+                dropped, slots = dropped_share(ecfg, cobjs, query, dev)
+                print(f"[{label} drops] an active-query call ({LM_CLIENTS} x "
+                      f"{ecfg.active_per_iter} points, each its own group of "
+                      f"{cobjs.batches_tokens[0].numel()} tokens, capacity "
+                      f"{moe_capacity(cfg, cobjs.batches_tokens[0].numel())} slots an "
+                      f"expert): {dropped} of {slots} "
+                      f"slots dropped ({100 * dropped / slots:.2f}%) over the "
+                      f"{cfg.n_layers} MoE layers", flush=True)
         peak = torch.cuda.max_memory_allocated()
         print(f"[{label}] peak torch.cuda.max_memory_allocated {peak} bytes over the loop, "
               f"the captured runs and their profile, {peak - held} above the {held} bytes "
               "the earlier phases hold", flush=True)
-        if profiled:
+        if how.profiled:
             # two rounds: the first round's RFF weights are 0, the second's are fitted
             check_engine_inputs(dev, f"{label} engine inputs", run=lambda: run(2))
         del params, cobjs, query, value, per_point, res
     check_lm_small(dev)
-    for arch in LM_FULL:
-        check_objective_cli(f"lm {arch}", ["--objective", "lm", "--arch", arch, "--rounds", "10"])
+    check_lm_clis(LM_SMOKE)
 
 
 def check_lm_small(dev) -> None:
     """Phase 4h: the SMOKE forward's logits and the LM objective's values at
     LM_CLIENTS x 4 points (the base gains and random points), on the card
     and on the CPU from the same parameters and batches, in float32 and in
-    bf16 (bounds at LM_BF16_MULTIPLE)."""
+    bf16 (bounds at LM_BF16_MULTIPLE), for every architecture of LM_SMOKE.
+    A bf16 MoE stack is held on the tokens (the values: the (client, point)
+    groups) that both sides route as the CPU's float64 run does
+    (``well_posed_tokens``)."""
     from repro_torch.core import model_objectives as mobj
     from repro_torch.models.model import forward
     from repro_torch.sharding import ShardingPolicy
 
     pol = ShardingPolicy(remat=False)
-    for arch in LM_FULL:
+    for arch in LM_SMOKE:
         for dtype in ("float32", "bfloat16"):
             cfg, params, cobjs, _, _, value, _ = build_lm(arch, "cpu", "smoke", dtype)
             x = torch.rand((LM_CLIENTS, 4, cfg.d_model), generator=torch.Generator().manual_seed(5))
             x[:, 0] = 0.5
             tokens = cobjs.batches_tokens.reshape(-1, cobjs.batches_tokens.shape[-1])
             on_card = {k: v.to(dev) for k, v in params.items()}
-            got = {"logits": forward(on_card, cfg, {"tokens": tokens.to(dev)}, pol)[0].cpu(),
-                   "values": mobj.make_lm_query(cfg, on_card)[3](mobj.to(cobjs, dev),
-                                                                  x.to(dev)).cpu()}
-            cpu = {"logits": forward(params, cfg, {"tokens": tokens}, pol)[0],
-                   "values": value(cobjs, x)}
+            routes = {}
+            with recorded_routings() as routes["card logits"]:
+                card_logits = forward(on_card, cfg, {"tokens": tokens.to(dev)}, pol)[0].cpu()
+            with recorded_routings() as routes["card values"]:
+                card_values = mobj.make_lm_query(cfg, on_card)[3](mobj.to(cobjs, dev),
+                                                                   x.to(dev)).cpu()
+            with recorded_routings() as routes["cpu logits"]:
+                cpu_logits = forward(params, cfg, {"tokens": tokens}, pol)[0]
+            with recorded_routings() as routes["cpu values"]:
+                cpu_values = value(cobjs, x)
             cfg64 = dataclasses.replace(cfg, dtype="float64")
             p64 = {k: v.double() for k, v in params.items()}
             gains = mobj.lm_gains(params["final_norm"], cobjs.scale, x)
-            truth = {"logits": forward(p64, cfg64, {"tokens": tokens}, pol)[0],
-                     "values": mobj.lm_values(cfg64, p64, cobjs, gains.double())}
+            with recorded_routings() as routes["f64 logits"]:
+                truth_logits = forward(p64, cfg64, {"tokens": tokens}, pol)[0]
+            with recorded_routings() as routes["f64 values"]:
+                truth_values = mobj.lm_values(cfg64, p64, cobjs, gains.double())
+            got = {"logits": card_logits, "values": card_values}
+            cpu = {"logits": cpu_logits, "values": cpu_values}
+            truth = {"logits": truth_logits, "values": truth_values}
+            length = tokens.shape[-1]
             for what in ("logits", "values"):
-                g, c, t = got[what].double(), cpu[what].double(), truth[what]
+                rows = truth[what].reshape(-1, truth[what].shape[-1]) if what == "logits" \
+                    else truth[what].reshape(-1, 1)
+                good = torch.ones(rows.shape[0], dtype=torch.bool)
+                if cfg.is_moe_mlp and dtype == "bfloat16":
+                    good = (well_posed_tokens(routes[f"card {what}"], routes[f"f64 {what}"], length)
+                            & well_posed_tokens(routes[f"cpu {what}"], routes[f"f64 {what}"],
+                                                length))
+                    if what == "values":  # a value's group: one (client, point)'s tokens
+                        good = good.reshape(truth[what].numel(), -1).all(-1)
+                pick = lambda a: a.double().reshape(rows.shape)[good]
+                note = (f"; {int((~good).sum())} of {good.numel()} "
+                        f"{'tokens' if what == 'logits' else 'values'} routed at near-ties"
+                        if cfg.is_moe_mlp and dtype == "bfloat16" else "")
+                if not bool(good.any()):
+                    print(f"[small lm] {cfg.name} {dtype} {what}: every one routed at a "
+                          f"near-tie{note}; ok", flush=True)
+                    continue
+                g, c, t = pick(got[what]), pick(cpu[what]), pick(truth[what])
                 scale = t.abs().max().item()
                 gap = (g - c).abs().max().item() / scale
                 e_card, e_cpu = ((g - t).abs().max().item() / scale,
@@ -2524,9 +2712,47 @@ def check_lm_small(dev) -> None:
                     ok = e_card <= max(LM_BF16_MULTIPLE * e_cpu, LM_BF16_FLOOR)
                 print(f"[small lm] {cfg.name} {dtype} {what}: card vs CPU {gap:.3e}; from the "
                       f"CPU's float64: card {e_card:.3e}, CPU {e_cpu:.3e} (shares of "
-                      f"{scale:.3e}); {'ok' if ok else 'FAILED'}", flush=True)
+                      f"{scale:.3e}){note}; {'ok' if ok else 'FAILED'}", flush=True)
                 if not ok:
                     fail(f"small lm: {cfg.name} {dtype} {what}: the card is off the CPU")
+
+
+def check_lm_clis(archs) -> None:
+    """Phase 4h: ``python -m repro_torch.launch.fedzoo --objective lm --arch A
+    --rounds 10`` for each of ``archs`` (the SMOKE variant, 10 rounds in
+    captured chunks of 16) in child processes started together, each
+    waited for: exit 0, a finite F(x_0), F(x_R) and best.  The seconds are
+    each child's wall time beside the others sharing the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t0 = time.perf_counter()
+    for arch in archs:
+        cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo", "--objective", "lm",
+               "--arch", arch, "--rounds", "10"]
+        procs[arch] = (cmd, subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    for arch, (cmd, proc) in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            for _, other in procs.values():
+                if other.poll() is None:
+                    other.kill()
+            fail(f"the command line (lm {arch}) exited {proc.returncode}:\n{out[-2000:]}\n"
+                 f"{err[-4000:]}")
+        lines = out.splitlines()
+        result = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
+        print(f"[lm {arch} cli] {' '.join(cmd[1:])} done {secs:.1f} s after the {len(archs)} "
+              f"started: {lines[:2]}; {result}", flush=True)
+        fields = result.replace("=", " ").split()
+        values = [float(fields[i + 1]) for i, w in enumerate(fields[:-1])
+                  if w in ("F(x_0)", "F(x_R)", "best")]
+        if len(values) != 3 or not all(np.isfinite(values)):
+            fail(f"the command line (lm {arch}) printed no finite F: {result!r}")
 
 
 def check_per_client(cobjs, dev) -> dict:

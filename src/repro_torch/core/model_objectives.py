@@ -413,19 +413,21 @@ def lm_values(cfg: ModelConfig, params: dict, cps: LMObjective, gains: torch.Ten
               policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
     """f_i at K sets of gains a client (N, K, d) -> (N, K): one forward pass
     of N*K*b sequences, every sequence of client i's batch with its set's
-    gains; f_i is the batch's mean token NLL (plus the router's auxiliary
-    loss) / 10."""
+    gains; f_i is the batch's mean token NLL plus the router's auxiliary
+    loss, over 10.  Each (client, point) is its own group of b sequences
+    (``forward``'s ``groups``): its MoE capacity, drops and aux are those
+    of the reference's forward of that point alone."""
     policy = policy or ShardingPolicy(remat=False)
     n, k, d = gains.shape
     b, l = cps.batches_tokens.shape[1:]
     every = lambda t: t[:, None].expand(n, k, b, l).reshape(n * k * b, l)
     final = gains[:, :, None, None, :].expand(n, k, b, 1, d).reshape(n * k * b, 1, d)
     logits, aux = forward(dict(params, final_norm=final), cfg,
-                          {"tokens": every(cps.batches_tokens)}, policy)
+                          {"tokens": every(cps.batches_tokens)}, policy, groups=n * k)
     nll, valid = token_nll(logits, every(cps.batches_labels))
     loss = (nll.reshape(n, k, b * l).sum(-1)
             / torch.clamp_min(valid.reshape(n, k, b * l).sum(-1), 1))
-    return (loss + cfg.router_aux_weight * aux) / 10.0
+    return (loss + cfg.router_aux_weight * aux.reshape(n, k)) / 10.0
 
 
 def make_lm_query(cfg: ModelConfig, params: dict, policy: Optional[ShardingPolicy] = None):

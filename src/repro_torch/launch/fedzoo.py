@@ -40,10 +40,9 @@ The attack and the metric train their victims on the run's device and
 ignore ``--dim`` and ``--het``, as the reference's do.  ``--objective lm``
 builds the SMOKE variant of ``--arch`` with random parameters on the run's
 device (``models.init_params`` from the objective's seed) and runs at
-d = d_model; the dense and ssm families run, the moe, hybrid and vlm ones
-exit naming ROADMAP Queue A, A13b, and whisper (encoder-decoder) exits
-naming the reference's gap (its forward needs encoder frames the
-objective never makes).  ``--arch`` takes the reference's ids and also the
+d = d_model; the dense, moe, ssm, hybrid and vlm families run, and
+whisper (encoder-decoder) exits naming the reference's gap (its forward
+needs encoder frames the objective never makes).  ``--arch`` takes the reference's ids and also the
 configs' published names (``qwen1.5-0.5b``).  ``--pool-size`` overrides
 ``--clients``: the objective and the config are built for the pool, and
 ``--cohort`` clients of it run each chunk.  The run's identity holds the

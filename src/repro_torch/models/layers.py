@@ -1,7 +1,7 @@
-"""Transformer layer primitives (port of ``repro.models.layers``, the dense
-path): RMSNorm, RoPE, GQA attention (full and query-chunked) and the gated
-MLPs.  M-RoPE and the MoE layer come with the moe and vlm families
-(ROADMAP Queue A, A13b), cached decode with A13c.
+"""Transformer layer primitives (port of ``repro.models.layers``, the
+full-sequence path): RMSNorm, RoPE and M-RoPE, GQA attention (full and
+query-chunked), the gated MLPs and the MoE layer.  Cached decode comes
+with ROADMAP Queue A, A13c.
 
 Conventions, as the reference's:
 * activations are in the config dtype (bf16 for the published configs);
@@ -55,18 +55,35 @@ def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     return positions.to(dtype)[..., None] * inv_freq
 
 
+def _mrope_angles(positions3: torch.Tensor, head_dim: int, theta: float,
+                  sections: tuple[int, ...], dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: positions3 (..., 3) t/h/w -> angles (..., half).  The
+    half-dim frequency slots are split into ``sections`` (t, h, w); each slot
+    rotates by the position component of its section [arXiv:2409.12191].
+    The components are spread over their slots by an expand (static
+    shapes, no index tensor copied from the host)."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    inv_freq = theta ** (-torch.arange(0, half, dtype=dtype, device=positions3.device) / half)
+    pos = positions3.to(dtype)
+    per_slot = torch.cat([pos[..., i:i + 1].expand(*pos.shape[:-1], s)
+                          for i, s in enumerate(sections)], dim=-1)  # (..., half)
+    return per_slot * inv_freq
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               mode: str = "standard") -> torch.Tensor:
-    """x (B, L, H, hd); positions (B, L).  ``mode`` ``standard`` rotates the
-    two halves of each head (``jnp.split``'s halves, not an interleave);
-    ``none`` returns x.  ``mrope`` comes with the vlm family (A13b)."""
+               mode: str = "standard", sections: tuple[int, ...] = (16, 24, 24)) -> torch.Tensor:
+    """x (B, L, H, hd); positions (B, L), or (B, L, 3) for ``mrope``.  The
+    ``standard`` and ``mrope`` modes rotate the two halves of each head
+    (``jnp.split``'s halves, not an interleave) by float32 angles; ``none``
+    returns x."""
     if mode == "none":
         return x
-    if mode != "standard":
-        raise NotImplementedError(f"rope mode {mode!r} comes with the vlm family "
-                                  "(ROADMAP Queue A, A13b)")
     xf = _wide(x)
-    ang = _rope_angles(positions, x.shape[-1], theta, xf.dtype)  # (B, L, half)
+    if mode == "mrope":
+        ang = _mrope_angles(positions, x.shape[-1], theta, sections, xf.dtype)  # (B, L, half)
+    else:
+        ang = _rope_angles(positions, x.shape[-1], theta, xf.dtype)
     cos = torch.cos(ang)[..., None, :]  # (B, L, 1, half)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(xf, 2, dim=-1)
@@ -212,8 +229,8 @@ def attn_block(ap: AttnParams, x: torch.Tensor, cfg: ModelConfig, positions: tor
     query-chunked form when L is a multiple of it and at least twice it.
     Cross-attention comes with the encoder-decoder family."""
     q, k, v = _project_qkv(ap, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_mode)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_mode)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_mode, cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_mode, cfg.mrope_sections)
     if chunk > 0 and q.shape[1] % chunk == 0 and q.shape[1] >= 2 * chunk:
         out = attention_chunked(q, k, v, causal=causal, window=window, chunk=chunk)
     else:
@@ -244,3 +261,96 @@ def mlp_block(p: dict, prefix: str, x: torch.Tensor, cfg: ModelConfig) -> torch.
     up = xn @ p[f"{prefix}w_up"]
     h = _act(cfg.mlp_act, gate) * up
     return h @ p[f"{prefix}w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-based dispatch)
+# ---------------------------------------------------------------------------
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing of G groups of t tokens, k slots a token; the
+    slots run token-major, each token's k slots in top-k order."""
+    probs: torch.Tensor  # (G, t, E) router probabilities, float32 (or wider)
+    expert: torch.Tensor  # (G, t, k) int64: each token's experts, top-k order
+    gate: torch.Tensor  # (G, t, k) the normalized gates, probs' dtype
+    rank: torch.Tensor  # (G, t*k) int64: each slot's place in its expert's queue
+    keep: torch.Tensor  # (G, t*k) bool: rank < capacity (the rest are dropped)
+    capacity: int  # slots an expert, per group
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots an expert for a group of ``tokens`` tokens (Python ints, as
+    the reference's): int(max(cf * t * k / E, 4)) rounded up to a multiple
+    of 4, at most t * k."""
+    k = cfg.moe_top_k
+    capacity = int(max(cfg.moe_capacity_factor * tokens * k / cfg.n_experts, 4))
+    return min(capacity + (-capacity) % 4, tokens * k)
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The router over normed tokens xt (G, t, d), each group on its own:
+    float32 logits, softmax, top-k of the probabilities (a stable
+    descending sort: ties to the lower index, as ``lax.top_k``), the gates
+    normalized by max(sum, 1e-9), and each slot's rank among the slots of
+    its group that chose its expert before it."""
+    g, t, _ = xt.shape
+    k = cfg.moe_top_k
+    probs = torch.softmax(_wide(xt) @ _wide(router), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = vals[..., :k], idx[..., :k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    slot_expert = expert.reshape(g, t * k)
+    onehot = F.one_hot(slot_expert, cfg.n_experts)  # (G, t*k, E)
+    rank = (torch.cumsum(onehot, dim=1) - onehot).gather(-1, slot_expert[..., None])[..., 0]
+    capacity = moe_capacity(cfg, t)
+    return Routing(probs, expert, gate, rank, rank < capacity, capacity)
+
+
+def moe_block(p: dict, prefix: str, x: torch.Tensor, cfg: ModelConfig, *,
+              groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with per-expert capacity and dispatch, on x (B, L, d) split
+    into ``groups`` equal groups of sequences along B: each group is routed,
+    ranked, dropped and balanced on its own, as the reference's block on
+    that group alone.  The kept slots of every group are placed in one
+    (E, G*C, d) buffer, so the three expert GEMMs are one batched product
+    each over all groups; slots beyond an expert's capacity are dropped
+    (Switch-style); the shared experts (llama4) run densely.  Returns (the
+    residual delta, the Switch load-balance loss of each group (G,)): the
+    reference's block with ``return_aux``, as its model calls it."""
+    b, l, d = x.shape
+    xn = rmsnorm(x, p[f"{prefix}ln"], cfg.norm_eps)
+    g = groups
+    t, k, e = b // g * l, cfg.moe_top_k, cfg.n_experts
+    xt = xn.reshape(g, t, d)
+    r = moe_route(p[f"{prefix}router"], xt, cfg)
+    c = r.capacity
+
+    # each slot's row in the buffer: its expert's queue within its group
+    # (a dropped slot reads rank 0, as the reference gathers it, and is
+    # written to a spare last row, so every kept row has one writer)
+    base = (r.expert.reshape(g, t * k) * (g * c)
+            + torch.arange(g, device=x.device)[:, None] * c)
+    row = base + torch.where(r.keep, r.rank, 0)
+    dest = torch.where(r.keep, row, e * g * c)
+    buf = xt.new_zeros((e * g * c + 1, d)).index_copy_(
+        0, dest.reshape(-1), repeat_groups(xt, k, 1).reshape(-1, d))
+    buf = buf[:-1].reshape(e, g * c, d)
+
+    h = _act(cfg.mlp_act, torch.bmm(buf, p[f"{prefix}we_gate"])) * torch.bmm(
+        buf, p[f"{prefix}we_up"])
+    out_e = torch.bmm(h, p[f"{prefix}we_down"]).reshape(e * g * c, d)
+
+    # combine: the gate cast to the activation dtype before the multiply
+    gate = torch.where(r.keep, r.gate.reshape(g, t * k), 0.0).to(xt.dtype)
+    y = (out_e[row] * gate[..., None]).reshape(g * t, k, d).sum(1)
+
+    if cfg.n_shared_experts:
+        xf = xt.reshape(g * t, d)
+        sg = _act(cfg.mlp_act, xf @ p[f"{prefix}ws_gate"])
+        y = y + (sg * (xf @ p[f"{prefix}ws_up"])) @ p[f"{prefix}ws_down"]
+
+    # Switch-style load-balance auxiliary loss, per group
+    frac_tokens = F.one_hot(r.expert[..., 0], e).to(r.probs.dtype).mean(1)
+    frac_probs = r.probs.mean(1)
+    return y.reshape(b, l, d), e * torch.sum(frac_tokens * frac_probs, dim=-1)

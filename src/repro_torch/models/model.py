@@ -1,13 +1,17 @@
 """Model assembly (port of ``repro.models.model``, the full-sequence forward
-and the LM loss of the dense and ssm families).
+and the LM loss of the dense, moe, ssm, hybrid and vlm families).
 
 The stack is a Python loop over the ``blocks/`` leaves, one slice of each
 stacked leaf a block (the reference's ``lax.scan``); with no autograd in
-the port's forward, remat has nothing to do.  The moe, hybrid and vlm
-forwards come with ROADMAP Queue A, A13b; ``train_step``, prefill and
-decode with A13c.  The encoder-decoder family (whisper) is not run: its
-forward needs encoder frames, which the reference's LM objective never
-makes (ROADMAP Queue C).
+the port's forward, remat has nothing to do.  ``train_step``, prefill and
+decode come with ROADMAP Queue A, A13c.  The encoder-decoder family
+(whisper) is not run: its forward needs encoder frames, which the
+reference's LM objective never makes (ROADMAP Queue C).
+
+``forward`` takes a group count: the batch is G equal groups of
+sequences, each group's MoE routing, capacity, drops and auxiliary loss
+its own, as the reference's forward of that group alone (the LM
+objective's points, which the reference evaluates one by one).
 """
 
 from __future__ import annotations
@@ -21,17 +25,10 @@ from repro_torch.sharding.rules import ShardingPolicy
 
 Params = dict[str, torch.Tensor]
 
-#: Families whose forward is still to port, and their item.
-_UNPORTED = {"moe": "A13b", "hybrid": "A13b", "vlm": "A13b"}
-
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raises ``NotImplementedError`` naming the ROADMAP item (or the
-    reference's gap) of a family whose forward the port does not run."""
-    if cfg.arch_type in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type} forward is not ported yet "
-            f"(ROADMAP Queue A, {_UNPORTED[cfg.arch_type]})")
+    """Raises ``NotImplementedError`` naming the reference's gap for the
+    family whose forward the port does not run (the encoder-decoder)."""
     if cfg.arch_type == "encdec":
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder forward needs encoder frames ('frames'), which "
@@ -48,15 +45,44 @@ def _block_params(p: Params, prefix: str = "blocks/") -> Params:
     return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
 
+def _index_sub(bp: Params, prefix: str, i: int) -> Params:
+    """The i-th inner layer of a super-block parameter group."""
+    return {k: v[i] for k, v in bp.items() if k.startswith(prefix)}
+
+
+def _mlp_or_moe(bp: Params, prefix: str, x: torch.Tensor, cfg: ModelConfig,
+                groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (MoE) MLP's residual delta and each group's aux (G,)."""
+    if cfg.is_moe_mlp:
+        return L.moe_block(bp, prefix, x, cfg, groups=groups)
+    return (L.mlp_block(bp, prefix, x, cfg),
+            torch.zeros(groups, dtype=torch.float32, device=x.device))
+
+
 def _full_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                policy: ShardingPolicy, window: int) -> torch.Tensor:
+                policy: ShardingPolicy, window: int,
+                groups: int) -> tuple[torch.Tensor, torch.Tensor]:
     """One block of the stack, full-sequence mode: the ``ssm`` kind (a
-    Mamba2 layer) or the ``attn`` kind (attention, then the gated MLP)."""
+    Mamba2 layer), the ``hybrid`` kind (1 attention layer and its (MoE)
+    MLP, then ``attn_every - 1`` Mamba2 layers, each followed by its (MoE)
+    MLP) or the ``attn`` kind (attention, then the (MoE) MLP).  Returns
+    (x, each group's aux summed over the block's MLPs)."""
     if cfg.block_kind == "ssm":
-        return x + S.ssm_block_train(S.pick_ssm(bp, ""), x, cfg)
+        return (x + S.ssm_block_train(S.pick_ssm(bp, ""), x, cfg),
+                torch.zeros(groups, dtype=torch.float32, device=x.device))
     x = x + L.attn_block(L.pick_attn(bp, "attn."), x, cfg, positions, window=window,
                          chunk=policy.attn_chunk)
-    return x + L.mlp_block(bp, "mlp.", x, cfg)
+    if cfg.block_kind != "hybrid":
+        d, aux = _mlp_or_moe(bp, "mlp.", x, cfg, groups)
+        return x + d, aux
+    d, aux = _mlp_or_moe(_index_sub(bp, "mlp.", 0), "mlp.", x, cfg, groups)
+    x = x + d
+    for i in range(cfg.attn_every - 1):
+        x = x + S.ssm_block_train(S.pick_ssm(_index_sub(bp, "ssm.", i), "ssm."), x, cfg)
+        d, a = _mlp_or_moe(_index_sub(bp, "mlp.", i + 1), "mlp.", x, cfg, groups)
+        x = x + d
+        aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -66,12 +92,27 @@ def _full_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.
 
 def _positions_for(cfg: ModelConfig, batch: dict, bsz: int, length: int,
                    device) -> torch.Tensor:
-    """(B, L) token positions 0..L-1 (M-RoPE's (B, L, 3) comes with A13b)."""
+    """(B, L) token positions 0..L-1; for M-RoPE ``batch["positions"]``
+    (B, L, 3) if given, else the same position in all three components."""
+    if cfg.rope_mode == "mrope":
+        if "positions" in batch:
+            return batch["positions"]
+        return torch.arange(length, device=device)[None, :, None].expand(bsz, length, 3)
     return torch.arange(length, device=device)[None, :].expand(bsz, length)
 
 
 def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return p["embed"][tokens]
+
+
+def _merge_patches(x: torch.Tensor, batch: dict) -> torch.Tensor:
+    """VLM: the first n_patches positions overwritten with the (stub) patch
+    embeddings (B, n_patches, d), the projector output of the vision
+    tower."""
+    patches = batch.get("patches")
+    if patches is None:
+        return x
+    return torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
 
 
 def _unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -87,22 +128,30 @@ def _unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def forward(p: Params, cfg: ModelConfig, batch: dict,
-            policy: ShardingPolicy) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward of ``batch["tokens"]`` (B, L).  Returns
-    (logits (B, L, V) in the config dtype, moe_aux ()); the dense and ssm
-    families' aux is 0."""
+def forward(p: Params, cfg: ModelConfig, batch: dict, policy: ShardingPolicy,
+            groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward of ``batch["tokens"]`` (B, L) (and, for the vlm
+    family, ``"patches"`` and ``"positions"`` where given).  Returns
+    (logits (B, L, V) in the config dtype, moe_aux (groups,)): the router's
+    auxiliary loss of each of ``groups`` equal groups of sequences along
+    B, summed over the blocks (0 for the dense and ssm families)."""
     check_ported(cfg)
     tokens = batch["tokens"]
     bsz, length = tokens.shape
+    if bsz % groups:
+        raise ValueError(f"a batch of {bsz} sequences does not split into {groups} groups")
     x = _embed(p, cfg, tokens)
+    if cfg.arch_type == "vlm":
+        x = _merge_patches(x, batch)
     positions = _positions_for(cfg, batch, bsz, length, tokens.device)
     window = cfg.sliding_window
     blocks = _block_params(p)
+    aux = torch.zeros(groups, dtype=torch.float32, device=x.device)
     for i in range(cfg.n_blocks):
-        x = _full_block({k: v[i] for k, v in blocks.items()}, x, cfg, positions, policy,
-                        window)
-    return _unembed(p, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = _full_block({k: v[i] for k, v in blocks.items()}, x, cfg, positions, policy,
+                           window, groups)
+        aux = aux + a
+    return _unembed(p, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +178,7 @@ def lm_loss(p: Params, cfg: ModelConfig, batch: dict,
     "tokens"}).  The token count stays a tensor (nothing is read on the
     host)."""
     logits, aux = forward(p, cfg, batch, policy)
+    aux = aux.reshape(())
     nll, valid = token_nll(logits, batch["labels"])
     n = torch.clamp_min(valid.sum(), 1)
     loss = nll.sum() / n

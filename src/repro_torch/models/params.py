@@ -13,9 +13,11 @@ A11).
 ``init_params`` draws leaf i of the sorted table from a CPU generator
 seeded from ``(seed, 2, i)`` (``algorithms.stream_seed``), in float32, and
 casts it to ``cfg.dtype`` as the reference's ``_init_leaf`` does; so the
-card and the CPU start from the same numbers.  Torch cannot replay the
-reference's threefry keys: parity comes from carrying its parameters
-across.
+card and the CPU start from the same numbers.  With ``device_draws`` the
+generator of ``(seed, 2, i)`` lives on ``device`` and the leaf is drawn
+there: the card's own numbers, for the full-width models whose CPU draw
+takes minutes.  Torch cannot replay the reference's threefry keys: parity
+comes from carrying its parameters across.
 """
 
 from __future__ import annotations
@@ -148,39 +150,43 @@ def param_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
 
 
 def _init_leaf(gen: torch.Generator, pd: ParamDef, dtype: torch.dtype) -> torch.Tensor:
-    """One leaf drawn from ``gen`` (on the CPU) in float32, cast to ``dtype``."""
-    f32 = torch.float32
+    """One leaf drawn from ``gen`` on its device in float32, cast to
+    ``dtype`` (the draws scaled in place: a full-width expert leaf is
+    gigabytes)."""
+    f32, dev = torch.float32, gen.device
     if pd.init == "zeros":
-        return torch.zeros(pd.shape, dtype=dtype)
+        return torch.zeros(pd.shape, dtype=dtype, device=dev)
     if pd.init == "ones":
-        return torch.ones(pd.shape, dtype=dtype)
+        return torch.ones(pd.shape, dtype=dtype, device=dev)
     if pd.init == "normal":
-        return (0.02 * torch.randn(pd.shape, generator=gen, dtype=f32)).to(dtype)
+        return torch.randn(pd.shape, generator=gen, dtype=f32, device=dev).mul_(0.02).to(dtype)
     if pd.init == "fan_in":
         fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-        return (scale * torch.randn(pd.shape, generator=gen, dtype=f32)).to(dtype)
+        return torch.randn(pd.shape, generator=gen, dtype=f32, device=dev).mul_(scale).to(dtype)
     if pd.init == "a_log":
         # A in [1, 16] as in Mamba2; stored as log(A), used as -exp(a_log).
-        u = 1.0 + 15.0 * torch.rand(pd.shape, generator=gen, dtype=f32)
+        u = 1.0 + 15.0 * torch.rand(pd.shape, generator=gen, dtype=f32, device=dev)
         return torch.log(u).to(dtype)
     if pd.init == "dt_bias":
         # dt in [1e-3, 1e-1] through softplus-inverse.
-        u = 1e-3 + (1e-1 - 1e-3) * torch.rand(pd.shape, generator=gen, dtype=f32)
+        u = 1e-3 + (1e-1 - 1e-3) * torch.rand(pd.shape, generator=gen, dtype=f32, device=dev)
         return torch.log(torch.expm1(u)).to(dtype)
     raise ValueError(pd.init)
 
 
-def init_params(seed: int, cfg: ModelConfig,
-                device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+def init_params(seed: int, cfg: ModelConfig, device: str | torch.device = "cuda",
+                device_draws: bool = False) -> dict[str, torch.Tensor]:
     """Every leaf of ``param_defs(cfg)`` in ``cfg.dtype`` on ``device``; leaf
-    i of the sorted table from the generator of ``(seed, 2, i)``.  No leaf
-    requires a gradient."""
+    i of the sorted table from the generator of ``(seed, 2, i)``, on the
+    CPU (the default: the same numbers on every device) or, with
+    ``device_draws``, on ``device``.  No leaf requires a gradient."""
     device = resolve_device(device)
     dtype = cfg.torch_dtype
+    where = device if device_draws else torch.device("cpu")
     out = {}
     for i, (name, pd) in enumerate(sorted(param_defs(cfg).items())):
-        gen = torch.Generator().manual_seed(stream_seed(seed, 2, i))
+        gen = torch.Generator(device=where).manual_seed(stream_seed(seed, 2, i))
         out[name] = _init_leaf(gen, pd, dtype).to(device)
     return out
 

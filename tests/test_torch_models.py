@@ -6,17 +6,26 @@ The same numpy inputs go through the reference's function and the port's;
 parameters are the reference's ``init_params`` carried across by
 ``convert.lm_params``.  Every module runs on the SMOKE configs of the
 families the port runs: the dense qwen1.5 (QKV bias), gemma (geglu), yi
-and minitron (GQA: 2 KV heads for 4 query heads), and the ssm mamba2.
+and minitron (GQA: 2 KV heads for 4 query heads), the ssm mamba2, the moe
+llama4 scout and maverick (top-1 of 4 experts and a shared expert), the
+hybrid jamba (one super-block: attention and 3 Mamba2 layers, each with a
+top-2 MoE MLP) and the vlm qwen2-vl (M-RoPE, stub patches).
 
 Tolerances (``hold``): the float32 variant of a config
 (``dataclasses.replace(cfg, dtype="float32")``) within 1e-4 of the largest
 magnitude (DESIGN.md Sec. 2.4); bf16 (the published dtype) by each side's
 distance from the port's float64 evaluation of the same inputs, printed,
 the port's no more than ``BF16_MULTIPLE`` times the reference's (or
-within ``BF16_FLOOR`` of the largest magnitude, half a bf16 spacing).
+within ``BF16_FLOOR`` of the largest magnitude, half a bf16 spacing).  A
+bf16 stack of MoE layers is held so on the tokens it routes as its
+float64 run does (``chip_smoke.well_posed_tokens``): elsewhere a top-k
+choice sat at a near-tie, which it shows (ROADMAP Queue C, "bf16 MoE
+stacks at near-ties").
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -55,10 +64,26 @@ BF16_FLOOR = 2.0 ** -9
 
 DENSE = ["qwen1_5_0_5b", "gemma_7b", "yi_34b", "minitron_8b"]
 ALL = DENSE + ["mamba2_370m"]
+MOE = ["llama4_scout_17b_16e", "llama4_maverick_400b_a17b", "jamba_1_5_large_398b"]
+NEW = MOE + ["qwen2_vl_7b"]  # the moe, hybrid and vlm families
 DTYPES = ["float32", "bfloat16"]
 
 to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
 JNP_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _chip_smoke():
+    """chip_smoke.py, for its rule of a bf16 MoE stack's near-ties
+    (``recorded_routings``, ``well_posed_tokens``, ``NEAR_TIE``)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_near_ties", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
+recorded_routings, well_posed_tokens = CS.recorded_routings, CS.well_posed_tokens
 
 
 # The reference's functions jitted once, their static arguments by
@@ -76,6 +101,12 @@ R_SSM = jax.jit(lambda bp, x, cfg: RS.ssm_block_train(RS.pick_ssm(bp, ""), x, cf
                 static_argnums=2)
 R_FORWARD = jax.jit(lambda p, b, cfg, pol: (RM.forward(p, cfg, b, pol),
                                             RM.lm_loss(p, cfg, b, pol)), static_argnums=(2, 3))
+R_MROPE = jax.jit(RL.apply_rope, static_argnums=(2, 3, 4))
+R_MOE = jax.jit(lambda bp, x, cfg: RL.moe_block(bp, "mlp.", x, cfg, return_aux=True),
+                static_argnums=2)
+R_BLOCK = jax.jit(lambda bp, x, pos, cfg: RM._full_block(bp, x, cfg, pos, RPolicy(remat=False),
+                                                         cfg.sliding_window),
+                  static_argnums=3)
 
 
 def hold(got, want, truth, dtype, what):
@@ -94,6 +125,14 @@ def hold(got, want, truth, dtype, what):
         assert gap <= 1e-4, (what, gap)
     else:
         assert e_port <= max(BF16_MULTIPLE * e_ref, BF16_FLOOR), (what, e_port, e_ref)
+
+
+def hold_routed(got, want, truth, dtype, what, good):
+    """``hold`` on the tokens ``good`` (B*L,) of token-major outputs
+    (B, L, ...), printing how many tokens a near-tie took out."""
+    flat = lambda a: np.asarray(a, np.float64).reshape(good.numel(), -1)[good.numpy()]
+    print(f"{what}: {int((~good).sum())} of {good.numel()} tokens routed at near-ties")
+    hold(flat(got), flat(want), flat(truth), dtype, what)
 
 
 def _cfgs(arch, dtype):
@@ -116,7 +155,7 @@ def models():
     """Each SMOKE config's reference parameters (its ``init_params``, key 0)
     in each dtype, and their port."""
     out = {}
-    for arch in ALL:
+    for arch in ALL + NEW:
         rp32 = rinit_params(jax.random.PRNGKey(0), _cfgs(arch, "float32")[0])
         for dtype in DTYPES:
             rcfg, cfg = _cfgs(arch, dtype)
@@ -176,7 +215,7 @@ def test_param_table_matches_reference(variant):
         assert got == want, arch
 
 
-@pytest.mark.parametrize("arch", ALL)
+@pytest.mark.parametrize("arch", ALL + NEW)
 def test_init_params(arch):
     """``init_params``: the reference's names, shapes and dtype; ones and
     zeros where it has them; normal and fan-in leaves with the reference's
@@ -270,6 +309,28 @@ def test_rope_matches_reference(arch, dtype, models):
     hold(got.double(), want, truth, dtype, f"rope {arch} {dtype}")
     if cfg.rope_mode == "none":
         assert got is xt
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mrope_matches_reference(dtype, models):
+    """M-RoPE (qwen2-vl's sections (4, 6, 6) of 16 slots) of (2, 16, H, hd)
+    heads at distinct (t, h, w) triples; with equal triples it is the
+    standard mode bit for bit."""
+    rcfg, cfg, _, _ = models["qwen2_vl_7b", dtype]
+    x, xt = _inputs((2, 16, cfg.n_heads, cfg.resolved_head_dim), dtype, 4)
+    rng = np.random.default_rng(5)
+    pos = np.stack([np.arange(16)[None].repeat(2, 0) + 3,
+                    rng.integers(0, 8, (2, 16)), rng.integers(0, 8, (2, 16)) + 40], axis=-1)
+    want = R_MROPE(x, pos, rcfg.rope_theta, "mrope", rcfg.mrope_sections)
+    args = (cfg.rope_theta, "mrope", cfg.mrope_sections)
+    got = L.apply_rope(xt, torch.from_numpy(pos), *args)
+    truth = L.apply_rope(xt.double(), torch.from_numpy(pos), *args)
+    assert got.dtype == xt.dtype
+    hold(got.double(), want, truth, dtype, f"mrope {dtype}")
+    same = torch.from_numpy(pos[..., 1])
+    torch.testing.assert_close(L.apply_rope(xt, same[..., None].expand(2, 16, 3), *args),
+                               L.apply_rope(xt, same, cfg.rope_theta, "standard"),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("causal, window, offset", [(True, 0, 0), (False, 0, 0), (True, 5, 0),
@@ -416,6 +477,122 @@ def test_ssm_block_train_matches_reference(chunk, dtype, models):
     hold(got.double(), want, truth, dtype, f"ssm_block_train chunk {chunk} {dtype}")
 
 
+# -- moe and the hybrid super-block ---------------------------------------------
+
+
+def _ref_routing(rbp, x, rcfg):
+    """The reference's routing, its moe_block's lines
+    (src/repro/models/layers.py:351-372) on the block's inputs: (expert
+    indices (t, k), keep (t*k,)) as numpy."""
+    xt = RL.rmsnorm(jnp.asarray(x), rbp["mlp.ln"], rcfg.norm_eps).reshape(-1, rcfg.d_model)
+    probs = jax.nn.softmax(xt.astype(jnp.float32) @ rbp["mlp.router"].astype(jnp.float32), -1)
+    _, idx = jax.lax.top_k(probs, rcfg.moe_top_k)
+    t, k, e = xt.shape[0], rcfg.moe_top_k, rcfg.n_experts
+    capacity = int(max(rcfg.moe_capacity_factor * t * k / e, 4))
+    capacity = min(capacity + (-capacity) % 4, t * k)
+    onehot = jax.nn.one_hot(idx.reshape(-1), e, dtype=jnp.int32)
+    rank = (jnp.cumsum(onehot, axis=0) - onehot)[jnp.arange(t * k), idx.reshape(-1)]
+    return np.asarray(idx), np.asarray(rank < capacity)
+
+
+def _moe_params(models, arch, dtype, skew):
+    """The first MoE layer's parameters (jamba's: the super-block's first
+    MLP) on both sides; with ``skew`` the router's column 0 is moved along
+    ``skew`` (the tokens' shared direction), so most tokens pick expert 0
+    and overflow its capacity."""
+    rcfg, cfg, rp, p = models[arch, dtype]
+    pick = (lambda v: v[0][0]) if rcfg.arch_type == "hybrid" else (lambda v: v[0])
+    rbp = {k: pick(v) for k, v in RM._block_params(rp).items() if k.startswith("mlp.")}
+    if skew is not None:
+        router = np.asarray(rbp["mlp.router"], np.float32).copy()
+        router[:, 0] += skew
+        rbp["mlp.router"] = jnp.asarray(router).astype(rbp["mlp.router"].dtype)
+    bp = convert.lm_params(to_np(rbp), "cpu")
+    return rcfg, cfg, rbp, bp
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_block_matches_reference(arch, dtype, models):
+    """The first MoE layer (top-1 and a shared expert for the llama4 pair;
+    top-2 for jamba) on a (2, 16, d) residual stream: its output and the
+    Switch aux, and the routing (each token's experts and the kept slots)
+    equal to the reference's."""
+    rcfg, cfg, rbp, bp = _moe_params(models, arch, dtype, None)
+    x, xt = _inputs((2, 16, cfg.d_model), dtype, 70)
+    want, raux = R_MOE(rbp, x, rcfg)
+    got, aux = L.moe_block(bp, "mlp.", xt, cfg)
+    bp64 = {k: v.double() for k, v in bp.items()}
+    truth, aux64 = L.moe_block(bp64, "mlp.", xt.double(), cfg)
+    assert got.dtype == xt.dtype and aux.shape == (1,) and aux.dtype == torch.float32
+    hold(got.double(), want, truth, dtype, f"moe_block {arch} {dtype}")
+    hold(aux.double(), np.asarray(raux)[None], aux64, "float32", f"moe aux {arch} {dtype}")
+    idx, keep = _ref_routing(rbp, x, rcfg)
+    r = L.moe_route(bp["mlp.router"], L.rmsnorm(xt, bp["mlp.ln"], cfg.norm_eps).reshape(
+        1, 32, cfg.d_model), cfg)
+    np.testing.assert_array_equal(r.expert[0].numpy(), idx)
+    np.testing.assert_array_equal(r.keep[0].numpy(), keep)
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_16e", "jamba_1_5_large_398b"])
+def test_moe_drops_and_groups_match_reference(arch, models):
+    """A skewed router (float32): most tokens pick expert 0, whose queue
+    overflows its capacity, so slots are dropped; the experts, the drop
+    mask, the output and the aux are the reference's.  Split into two
+    groups (one sequence each), each group is routed, dropped and balanced
+    as the reference's block on that sequence alone."""
+    rcfg, cfg, _, _ = models[arch, "float32"]
+    x, xt = _inputs((2, 16, cfg.d_model), "float32", 71)
+    shared = np.random.default_rng(72).standard_normal(cfg.d_model).astype(np.float32)
+    x = x + shared
+    xt = torch.from_numpy(x)
+    _, _, rbp, bp = _moe_params(models, arch, "float32", 2.0 * shared / np.sqrt(cfg.d_model))
+    idx, keep = _ref_routing(rbp, x, rcfg)
+    r = L.moe_route(bp["mlp.router"], L.rmsnorm(xt, bp["mlp.ln"], cfg.norm_eps).reshape(
+        1, 32, cfg.d_model), cfg)
+    np.testing.assert_array_equal(r.expert[0].numpy(), idx)
+    np.testing.assert_array_equal(r.keep[0].numpy(), keep)
+    assert 0 < (~keep).sum() and (idx[:, 0] == 0).mean() > 0.5, ((~keep).sum(), idx[:, 0])
+    bp64 = {k: v.double() for k, v in bp.items()}
+    want, raux = R_MOE(rbp, x, rcfg)
+    got, aux = L.moe_block(bp, "mlp.", xt, cfg)
+    truth, aux64 = L.moe_block(bp64, "mlp.", xt.double(), cfg)
+    hold(got.double(), want, truth, "float32", f"moe_block {arch} skewed")
+    hold(aux.double(), np.asarray(raux)[None], aux64, "float32", f"moe aux {arch} skewed")
+    got, aux = L.moe_block(bp, "mlp.", xt, cfg, groups=2)
+    truth, aux64 = L.moe_block(bp64, "mlp.", xt.double(), cfg, groups=2)
+    for g in range(2):
+        want, raux = R_MOE(rbp, x[g:g + 1], rcfg)
+        hold(got[g:g + 1].double(), want, truth[g:g + 1], "float32",
+             f"moe_block {arch} skewed, group {g}")
+        hold(aux[g:g + 1].double(), np.asarray(raux)[None], aux64[g:g + 1], "float32",
+             f"moe aux {arch} skewed, group {g}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "llama4_scout_17b_16e"])
+def test_full_block_matches_reference(arch, dtype, models):
+    """One block of the stack on a (2, 29, d) residual stream with its aux:
+    jamba's super-block (attention, then 3 Mamba2 layers, each layer
+    followed by its top-2 MoE MLP) and scout's attention and MoE."""
+    rcfg, cfg, rp, p = models[arch, dtype]
+    rbp = {k: v[0] for k, v in RM._block_params(rp).items()}
+    bp = {k: v[0] for k, v in M._block_params(p).items()}
+    x, xt = _inputs((2, 29, cfg.d_model), dtype, 73)
+    pos = np.tile(np.arange(29), (2, 1))
+    (want, raux) = R_BLOCK(rbp, x, pos, rcfg)
+    args = (cfg, torch.from_numpy(pos), ShardingPolicy(), cfg.sliding_window, 1)
+    with recorded_routings() as calls:
+        got, aux = M._full_block(bp, xt, *args)
+    with recorded_routings() as calls64:
+        truth, aux64 = M._full_block({k: v.double() for k, v in bp.items()}, xt.double(), *args)
+    assert got.dtype == xt.dtype and len(calls) == (4 if arch.startswith("jamba") else 1)
+    good = well_posed_tokens(calls, calls64, 29)
+    hold_routed(got.double(), want, truth, dtype, f"full block {arch} {dtype}", good)
+    if bool(good.all()):
+        hold(aux.double(), np.asarray(raux)[None], aux64, dtype, f"block aux {arch} {dtype}")
+
+
 # -- forward and loss ----------------------------------------------------------
 
 
@@ -427,12 +604,12 @@ def _batch(cfg, length=32, seed=60):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", ALL)
+@pytest.mark.parametrize("arch", ALL + NEW)
 def test_forward_and_lm_loss_match_reference(arch, dtype, models):
-    """The whole forward's logits (2, 32, V) and ``lm_loss`` (with five
-    skipped labels) on every family's SMOKE config; the dense ones in
+    """The whole forward's logits (2, 32, V), its aux and ``lm_loss`` (with
+    five skipped labels) on every family's SMOKE config; the dense ones in
     float32 also with ``attn_chunk`` 8 (the query-chunked attention in
-    every layer)."""
+    every layer).  The dense and ssm families' aux is 0."""
     rcfg, cfg, rp, p = models[arch, dtype]
     p64 = {k: v.double() for k, v in p.items()}
     c64 = dataclasses.replace(cfg, dtype="float64")
@@ -442,29 +619,88 @@ def test_forward_and_lm_loss_match_reference(arch, dtype, models):
     for chunk in ((2048, 8) if arch in DENSE and dtype == "float32" else (2048,)):
         rpol, pol = RPolicy(remat=False, attn_chunk=chunk), ShardingPolicy(attn_chunk=chunk)
         (rlogits, raux), (rtotal, rm) = R_FORWARD(rp, rbatch, rcfg, rpol)
-        logits, aux = M.forward(p, cfg, batch, pol)
+        with recorded_routings() as calls:
+            logits, aux = M.forward(p, cfg, batch, pol)
         assert logits.dtype == cfg.torch_dtype and logits.shape == (2, 32, cfg.vocab_size)
-        assert float(aux) == float(raux) == 0.0
-        truth, _ = M.forward(p64, c64, batch, pol)
-        hold(logits.double(), rlogits, truth, dtype, f"forward {arch} {dtype} chunk {chunk}")
+        with recorded_routings() as calls64:
+            truth, aux64 = M.forward(p64, c64, batch, pol)
+        good = (well_posed_tokens(calls, calls64, 32) if cfg.is_moe_mlp
+                else torch.ones(64, dtype=torch.bool))
+        hold_routed(logits.double(), rlogits, truth, dtype,
+                    f"forward {arch} {dtype} chunk {chunk}", good)
+        assert aux.shape == (1,) and aux.dtype == torch.float32
+        if not cfg.is_moe_mlp:
+            assert float(aux) == float(raux) == 0.0
+        elif bool(good.all()):
+            hold(aux.double(), np.asarray(raux)[None], aux64, dtype, f"forward aux {arch} {dtype}")
         total, m = M.lm_loss(p, cfg, batch, pol)
         assert int(m["tokens"]) == int(rm["tokens"]) == 59
-        assert total.dtype == torch.float32 and float(m["moe_aux"]) == 0.0
-        truth, _ = M.lm_loss(p64, c64, batch, pol)
-        hold(total.double().numpy()[None], np.asarray(rtotal)[None], truth.numpy()[None],
-             dtype, f"lm_loss {arch} {dtype} chunk {chunk}")
+        assert total.dtype == torch.float32 and m["moe_aux"].shape == ()
+        assert float(m["moe_aux"]) == float(aux)
+        if bool(good.all()):  # a near-tie moves a token's NLL and so the mean
+            truth, _ = M.lm_loss(p64, c64, batch, pol)
+            hold(total.double().numpy()[None], np.asarray(rtotal)[None], truth.numpy()[None],
+                 dtype, f"lm_loss {arch} {dtype} chunk {chunk}")
 
 
-@pytest.mark.parametrize("arch, item", [("llama4_scout_17b_16e", "A13b"),
-                                        ("llama4_maverick_400b_a17b", "A13b"),
-                                        ("jamba_1_5_large_398b", "A13b"),
-                                        ("qwen2_vl_7b", "A13b"),
-                                        ("whisper_base", "reference's gap")])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vlm_forward_with_patches_matches_reference(dtype, models):
+    """qwen2-vl's forward and loss on 8 sequences with stub patch embeddings
+    (8, 16, d) over the first 16 positions and distinct M-RoPE (t, h, w)
+    triples: the patches' rows and columns of a 4 x 4 image grid, then the
+    text's positions.  Eight sequences, not two: the largest bf16 distance
+    over two sequences' logits is a noisy statistic of two equally
+    accurate roundings (ROADMAP Queue C, "bf16 MoE stacks at near-ties")."""
+    rcfg, cfg, rp, p = models["qwen2_vl_7b", dtype]
+    toks = np.random.default_rng(60).integers(0, cfg.vocab_size, (8, 33))
+    toks, labels = toks[:, :-1], toks[:, 1:].copy()
+    labels[1, -5:] = -1
+    patches, patches_t = _inputs((8, cfg.n_patches, cfg.d_model), dtype, 61, scale=0.02)
+    grid = np.stack([np.zeros(16), np.arange(16) // 4, np.arange(16) % 4], axis=-1)
+    text = np.arange(16, 32)[:, None] - 12 + np.zeros(3)
+    pos = np.broadcast_to(np.concatenate([grid, text])[None], (8, 32, 3)).astype(np.int64)
+    rbatch = {"tokens": jnp.asarray(toks, jnp.int32), "labels": jnp.asarray(labels, jnp.int32),
+              "patches": patches, "positions": jnp.asarray(pos, jnp.int32)}
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
+             "patches": patches_t, "positions": torch.from_numpy(pos)}
+    pol = ShardingPolicy()
+    (rlogits, _), (rtotal, _) = R_FORWARD(rp, rbatch, rcfg, RPolicy(remat=False))
+    logits, _ = M.forward(p, cfg, batch, pol)
+    p64 = {k: v.double() for k, v in p.items()}
+    c64 = dataclasses.replace(cfg, dtype="float64")
+    truth, _ = M.forward(p64, c64, dict(batch, patches=patches_t.double()), pol)
+    hold(logits.double(), rlogits, truth, dtype, f"vlm forward with patches {dtype}")
+    plain, _ = M.forward(p, cfg, {"tokens": batch["tokens"]}, pol)
+    assert not torch.equal(plain, logits)
+    total, _ = M.lm_loss(p, cfg, batch, pol)
+    truth, _ = M.lm_loss(p64, c64, dict(batch, patches=patches_t.double()), pol)
+    hold(total.double().numpy()[None], np.asarray(rtotal)[None], truth.numpy()[None], dtype,
+         f"vlm lm_loss with patches {dtype}")
+
+
+@pytest.mark.parametrize("arch, item", [("whisper_base", "reference's gap")])
 def test_unported_families_raise_naming_their_item(arch, item):
-    """The moe, hybrid and vlm forwards raise naming A13b; whisper's names
-    the reference's gap (its forward needs encoder frames)."""
+    """Whisper's forward raises naming the reference's gap (its forward
+    needs encoder frames)."""
     cfg = configs.get_config(arch, "smoke")
     p = init_params(0, cfg, "cpu")
     toks = torch.zeros((1, 8), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match=item):
         M.forward(p, cfg, {"tokens": toks}, ShardingPolicy())
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_new_families_run_on_their_own_params(arch):
+    """The moe, hybrid and vlm forwards on the port's own parameters
+    (``init_params``, bf16): finite logits of the batch's shape and a
+    finite aux for each of 2 groups, positive for the MoE families; a
+    batch that does not split into the groups raises."""
+    cfg = configs.get_config(arch, "smoke")
+    p = init_params(0, cfg, "cpu")
+    toks = torch.arange(32, dtype=torch.int64).reshape(4, 8) * 7 % cfg.vocab_size
+    logits, aux = M.forward(p, cfg, {"tokens": toks}, ShardingPolicy(), groups=2)
+    assert logits.shape == (4, 8, cfg.vocab_size) and logits.dtype == torch.bfloat16
+    assert bool(torch.isfinite(logits).all()) and aux.shape == (2,)
+    assert bool((aux > 0).all()) if cfg.is_moe_mlp else bool((aux == 0).all())
+    with pytest.raises(ValueError, match="does not split into 3 groups"):
+        M.forward(p, cfg, {"tokens": toks}, ShardingPolicy(), groups=3)
