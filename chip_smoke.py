@@ -142,8 +142,9 @@ Phases, each a hard check (any failure exits non-zero):
    dropped in an active-query call; the SMOKE forward and
    objective of every family the objective runs (qwen1.5, mamba2, scout,
    maverick, jamba, qwen2-vl) on the card against the CPU (float32 within
-   1e-4, bf16 by ``LM_BF16_MULTIPLE``; a bf16 MoE stack on the tokens it
-   routes as its float64 run, ``well_posed_tokens``); ``python -m
+   1e-4, bf16 by ``LM_BF16_MULTIPLE``; a bf16 MoE stack pinned to its
+   float64 run's routing, its own routing off it only at near-ties,
+   ``layers.flip_margins``); ``python -m
    repro_torch.launch.fedzoo --objective lm --arch A --rounds 10`` for
    each (the SMOKE variant, as the reference's launcher) in child
    processes started together;
@@ -2219,8 +2220,8 @@ def check_objectives(dev) -> None:
                  f"{'below' if name == 'attack' else 'at or below'} F(x_0)")
         if seed == 0:
             check_objective_captured(name, cfg, cobjs, query, value, seed, dev)
-    for name in OBJECTIVE_CLIENTS:
-        check_objective_cli(name)
+    check_objective_clis({name: ["--objective", name, "--clients", str(n)]
+                          for name, n in OBJECTIVE_CLIENTS.items()})
     check_small_against_cpu(dev, "small attack", objective="attack")
     check_engine_inputs(dev, "small attack engine inputs", objective="attack")
     check_engine_inputs(dev, "small metric engine inputs", objective="metric")
@@ -2295,29 +2296,42 @@ def check_objective_captured(name, cfg, cobjs, query, value, seed, dev, rounds=C
     return ms_round, busy_ms
 
 
-def check_objective_cli(name, args=None) -> None:
-    """Phase 4d: ``python -m repro_torch.launch.fedzoo --objective <name>
-    --clients N`` in a child process at the launcher's defaults (50
-    rounds, the default captured chunks of 16): exit 0 and a finite
-    F(x_R) and best.  ``args`` replaces the flags after the module (phase
-    4h: ``--objective lm --arch A --rounds 10``)."""
+def check_objective_clis(commands: dict) -> None:
+    """``python -m repro_torch.launch.fedzoo <flags>`` for each label's flags
+    in ``commands``, in child processes started together, each waited for:
+    exit 0 and a finite F(x_0), F(x_R) and best.  Phase 4d runs the attack
+    and the metric (``--objective <name> --clients N``: 50 rounds, the
+    default captured chunks of 16), phase 4h the LM objective on every
+    architecture of LM_SMOKE.  The seconds are each child's wall time
+    beside the others sharing the card."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo",
-           *(args or ["--objective", name, "--clients", str(OBJECTIVE_CLIENTS[name])])]
+    procs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"the command line ({name}) exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
-             f"{proc.stderr[-4000:]}")
-    lines = proc.stdout.splitlines()
-    result = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
-    print(f"[{name} cli] {' '.join(cmd[1:])} in {secs:.1f} s: {lines[:2]}; {result}", flush=True)
-    fields = result.replace("=", " ").split()
-    values = [float(fields[i + 1]) for i, w in enumerate(fields[:-1])
-              if w in ("F(x_0)", "F(x_R)", "best")]
-    if len(values) != 3 or not all(np.isfinite(values)):
-        fail(f"the command line ({name}) printed no finite F: {result!r}")
+    for label, flags in commands.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo", *flags]
+        procs[label] = (cmd, subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE, text=True))
+    try:
+        for label, (cmd, proc) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"the command line ({label}) exited {proc.returncode}:\n{out[-2000:]}\n"
+                     f"{err[-4000:]}")
+            lines = out.splitlines()
+            result = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
+            print(f"[{label} cli] {' '.join(cmd[1:])} done {secs:.1f} s after the "
+                  f"{len(procs)} started: {lines[:2]}; {result}", flush=True)
+            fields = result.replace("=", " ").split()
+            values = [float(fields[i + 1]) for i, w in enumerate(fields[:-1])
+                      if w in ("F(x_0)", "F(x_R)", "best")]
+            if len(values) != 3 or not all(np.isfinite(values)):
+                fail(f"the command line ({label}) printed no finite F: {result!r}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 class LMRun(NamedTuple):
@@ -2337,9 +2351,9 @@ class LMRun(NamedTuple):
 #: defaults (batch 2, seq 32), through ``simulate`` at the command line's
 #: engine defaults (``launcher_config``; d = d_model), both seeded as the
 #: command line seeds ``--seed 0``.  Scout's 48 layers (215.5 GB in bf16)
-#: do not fit one 80 GB card: 4 of them do (21.75 GB).  The CPU draws
-#: about 100M numbers a second (Qwen1.5-0.5B's 464M in 4.1-5.0 s), so the
-#: two largest draw on the card.
+#: do not fit one 80 GB card: 4 of them do (21.75 GB).  The two largest
+#: draw on the card: an H100 host's CPU draws them in 61 and 89 s
+#: (``scripts/lm_build_seconds.py``), the card in a tenth of a second.
 LM_FULL = {"qwen1.5-0.5b": LMRun(3, 10, 5, True), "mamba2-370m": LMRun(2, 2, 2, False),
            "qwen2-vl-7b": LMRun(2, 4, 2, True, device_draws=True),
            "llama4-scout-17b-16e": LMRun(2, 4, 2, True, layers=4, device_draws=True)}
@@ -2358,12 +2372,6 @@ BF16_FLOPS_S = 989e12
 #: within LM_BF16_FLOOR of the largest magnitude (one bf16 spacing: cuBLAS
 #: may reduce bf16 products in bf16 and sums in another order).
 LM_BF16_MULTIPLE, LM_BF16_FLOOR = 2.0, 2.0 ** -8
-#: A bf16 MoE stack's top-k choice may differ from its float64 run's only
-#: at a near-tie of the float64 run: its k-th and (k+1)-th probabilities
-#: within this share of the k-th.  Each bf16 GEMM rounds its sums to 2^-8
-#: (two libraries round a few elements in a thousand differently), and a
-#: stack carries such errors through its layers into the router's input.
-NEAR_TIE = 2.0 ** -4
 
 
 def sync(dev) -> None:
@@ -2398,53 +2406,6 @@ def build_lm(arch, dev, variant="full", dtype=None, layers=None, device_draws=Fa
     return cfg, params, cobjs, query, value, per_point, secs
 
 
-@contextlib.contextmanager
-def recorded_routings():
-    """Every ``models.layers.moe_route`` result, in call order, while open
-    (the module's function is put back on exit)."""
-    from repro_torch.models import layers
-
-    calls, real = [], layers.moe_route
-
-    def record(*args):
-        calls.append(real(*args))
-        return calls[-1]
-
-    layers.moe_route = record
-    try:
-        yield calls
-    finally:
-        layers.moe_route = real
-
-
-def well_posed_tokens(calls, calls64, length) -> torch.Tensor:
-    """The tokens (B*L,) of a bf16 MoE stack that it routes as its float64
-    run does (``calls`` and ``calls64``, layer by layer, from
-    ``recorded_routings``), with every earlier token of their sequence:
-    attention and the SSM carry a token's change to the later positions,
-    and a group's drops to its other tokens.  A token first routed
-    otherwise must be a near-tie of the float64 run (``NEAR_TIE``), and a
-    changed drop must follow a changed choice in its group, or this
-    raises."""
-    bad = torch.zeros(calls[0].expert.shape[:2], dtype=torch.bool).reshape(-1, length)
-    for r, r64 in zip(calls, calls64, strict=True):
-        expert, keep, expert64, keep64 = (t.cpu() for t in (r.expert, r.keep, r64.expert,
-                                                              r64.keep))
-        g, t, k = expert.shape
-        flip = (expert.sort(-1).values != expert64.sort(-1).values).any(-1)
-        dropped = (keep != keep64).reshape(g, t, k).any(-1)
-        if not bool(flip.any(-1)[dropped.any(-1)].all()):
-            raise AssertionError("a drop moved with no choice moved in its group")
-        p = r64.probs.cpu().sort(-1, descending=True).values
-        margin = ((p[..., k - 1] - p[..., k]) / p[..., k - 1]).reshape(-1, length)
-        fresh = flip.reshape(-1, length) & ~bad  # not carried from an earlier change
-        if not bool((margin[fresh] <= NEAR_TIE).all()):
-            raise AssertionError(f"a choice moved off a near-tie: margins {margin[fresh]}")
-        bad = torch.cummax((bad | (flip | dropped).reshape(-1, length)).int(),
-                           dim=1).values.bool()
-    return ~bad.reshape(-1)
-
-
 def lm_round_work(cfg, ecfg, cobjs) -> dict:
     """What one round's forward passes compute, from the shapes: the forward
     calls (the iterate's and the active queries of every local step, the
@@ -2454,8 +2415,9 @@ def lm_round_work(cfg, ecfg, cobjs) -> dict:
     and for a MoE config the experts' GEMMs over the E x C slots of every
     (client, point) group (the router and the shared expert are block
     parameters every token runs), with the share of those operations the
-    tokens' top-k slots need; the bytes (every parameter read once a call);
-    the bound, the larger of the operations at the bf16 peak and the bytes
+    tokens' top-k slots need; the bytes (every parameter read once a call,
+    but an untied embedding table, of which a call gathers its tokens'
+    rows); the bound, the larger of the operations at the bf16 peak and the bytes
     at HBM's rate; and the float32 logits of the largest query (the active
     queries)."""
     from repro_torch.models.layers import moe_capacity
@@ -2479,7 +2441,10 @@ def lm_round_work(cfg, ecfg, cobjs) -> dict:
         slots = points * n * cfg.n_experts * moe_capacity(cfg, b * l)
         flops += slots * per_slot
         useful += tokens * cfg.moe_top_k * per_slot
-    n_bytes = calls * sum(int(np.prod(pd.shape)) for pd in defs.values()) * cfg.torch_dtype.itemsize
+    size = cfg.torch_dtype.itemsize
+    table = 0 if cfg.tie_embeddings else int(np.prod(defs["embed"].shape))
+    n_bytes = (calls * (sum(int(np.prod(pd.shape)) for pd in defs.values()) - table)
+               + (tokens * cfg.d_model if table else 0)) * size
     active = n * max(ecfg.active_per_iter, ecfg.active_round_end) * b * l * cfg.vocab_size * 4
     return {"calls": calls, "sequences": seqs, "tokens": tokens, "TFLOP": flops / 1e12,
             "useful": useful / flops, "GB": n_bytes / 1e9,
@@ -2524,14 +2489,20 @@ def lm_model_ms(ecfg, cobjs, query, value, dev, label) -> float:
     return total
 
 
-def dropped_share(ecfg, cobjs, query, dev) -> tuple[int, int]:
-    """(dropped slots, slots) over the MoE layers of one active-query call
-    (N x ``active_per_iter`` points, each its own group), on the card."""
+def dropped_share(cfg, params, ecfg, cobjs, dev) -> tuple[int, int]:
+    """(dropped slots, slots) over the MoE layers of one active-query call's
+    values (N x ``active_per_iter`` points, each its own group), on the
+    card."""
+    from repro_torch.core import model_objectives as mobj
+    from repro_torch.models.layers import Routes
+
     n, d, k = ecfg.n_clients, ecfg.dim, ecfg.active_per_iter
     x = torch.rand((n, k, d), generator=torch.Generator(device=dev).manual_seed(7), device=dev)
-    with recorded_routings() as calls:
-        query(cobjs, x, torch.zeros(n, k, device=dev))
-    return (sum(int((~r.keep).sum()) for r in calls), sum(r.keep.numel() for r in calls))
+    routes = Routes()
+    mobj.lm_values(cfg, params, cobjs, mobj.lm_gains(params["final_norm"], cobjs.scale, x),
+                   routes=routes)
+    return (sum(int((~r.keep).sum()) for r in routes.calls),
+            sum(r.keep.numel() for r in routes.calls))
 
 
 def check_lm(dev) -> None:
@@ -2622,7 +2593,7 @@ def check_lm(dev) -> None:
                   f"{ms_round:.3f} ms/round against the bound's {work['bound_ms']:.3f}",
                   flush=True)
             if cfg.is_moe_mlp:
-                dropped, slots = dropped_share(ecfg, cobjs, query, dev)
+                dropped, slots = dropped_share(cfg, params, ecfg, cobjs, dev)
                 print(f"[{label} drops] an active-query call ({LM_CLIENTS} x "
                       f"{ecfg.active_per_iter} points, each its own group of "
                       f"{cobjs.batches_tokens[0].numel()} tokens, capacity "
@@ -2639,7 +2610,8 @@ def check_lm(dev) -> None:
             check_engine_inputs(dev, f"{label} engine inputs", run=lambda: run(2))
         del params, cobjs, query, value, per_point, res
     check_lm_small(dev)
-    check_lm_clis(LM_SMOKE)
+    check_objective_clis({f"lm {arch}": ["--objective", "lm", "--arch", arch, "--rounds", "10"]
+                          for arch in LM_SMOKE})
 
 
 def check_lm_small(dev) -> None:
@@ -2647,65 +2619,61 @@ def check_lm_small(dev) -> None:
     LM_CLIENTS x 4 points (the base gains and random points), on the card
     and on the CPU from the same parameters and batches, in float32 and in
     bf16 (bounds at LM_BF16_MULTIPLE), for every architecture of LM_SMOKE.
-    A bf16 MoE stack is held on the tokens (the values: the (client, point)
-    groups) that both sides route as the CPU's float64 run does
-    (``well_posed_tokens``)."""
+    A bf16 MoE stack runs on both sides with its routing pinned to the
+    CPU's float64 run's (``layers.Routes``), every token and value
+    compared; its own routing on either side differs from the float64
+    run's only at near-ties (``layers.flip_margins`` within
+    ``layers.NEAR_TIE``; the largest margin printed)."""
     from repro_torch.core import model_objectives as mobj
+    from repro_torch.models import layers as L
     from repro_torch.models.model import forward
     from repro_torch.sharding import ShardingPolicy
 
     pol = ShardingPolicy(remat=False)
     for arch in LM_SMOKE:
         for dtype in ("float32", "bfloat16"):
-            cfg, params, cobjs, _, _, value, _ = build_lm(arch, "cpu", "smoke", dtype)
+            cfg, params, cobjs, _, _, _, _ = build_lm(arch, "cpu", "smoke", dtype)
             x = torch.rand((LM_CLIENTS, 4, cfg.d_model), generator=torch.Generator().manual_seed(5))
             x[:, 0] = 0.5
             tokens = cobjs.batches_tokens.reshape(-1, cobjs.batches_tokens.shape[-1])
-            on_card = {k: v.to(dev) for k, v in params.items()}
-            routes = {}
-            with recorded_routings() as routes["card logits"]:
-                card_logits = forward(on_card, cfg, {"tokens": tokens.to(dev)}, pol)[0].cpu()
-            with recorded_routings() as routes["card values"]:
-                card_values = mobj.make_lm_query(cfg, on_card)[3](mobj.to(cobjs, dev),
-                                                                   x.to(dev)).cpu()
-            with recorded_routings() as routes["cpu logits"]:
-                cpu_logits = forward(params, cfg, {"tokens": tokens}, pol)[0]
-            with recorded_routings() as routes["cpu values"]:
-                cpu_values = value(cobjs, x)
-            cfg64 = dataclasses.replace(cfg, dtype="float64")
-            p64 = {k: v.double() for k, v in params.items()}
-            gains = mobj.lm_gains(params["final_norm"], cobjs.scale, x)
-            with recorded_routings() as routes["f64 logits"]:
-                truth_logits = forward(p64, cfg64, {"tokens": tokens}, pol)[0]
-            with recorded_routings() as routes["f64 values"]:
-                truth_values = mobj.lm_values(cfg64, p64, cobjs, gains.double())
-            got = {"logits": card_logits, "values": card_values}
-            cpu = {"logits": cpu_logits, "values": cpu_values}
-            truth = {"logits": truth_logits, "values": truth_values}
             length = tokens.shape[-1]
-            for what in ("logits", "values"):
-                rows = truth[what].reshape(-1, truth[what].shape[-1]) if what == "logits" \
-                    else truth[what].reshape(-1, 1)
-                good = torch.ones(rows.shape[0], dtype=torch.bool)
-                if cfg.is_moe_mlp and dtype == "bfloat16":
-                    good = (well_posed_tokens(routes[f"card {what}"], routes[f"f64 {what}"], length)
-                            & well_posed_tokens(routes[f"cpu {what}"], routes[f"f64 {what}"],
-                                                length))
-                    if what == "values":  # a value's group: one (client, point)'s tokens
-                        good = good.reshape(truth[what].numel(), -1).all(-1)
-                pick = lambda a: a.double().reshape(rows.shape)[good]
-                note = (f"; {int((~good).sum())} of {good.numel()} "
-                        f"{'tokens' if what == 'logits' else 'values'} routed at near-ties"
-                        if cfg.is_moe_mlp and dtype == "bfloat16" else "")
-                if not bool(good.any()):
-                    print(f"[small lm] {cfg.name} {dtype} {what}: every one routed at a "
-                          f"near-tie{note}; ok", flush=True)
-                    continue
-                g, c, t = pick(got[what]), pick(cpu[what]), pick(truth[what])
-                scale = t.abs().max().item()
+            gains = mobj.lm_gains(params["final_norm"], cobjs.scale, x)
+            sides = {"card": ({k: v.to(dev) for k, v in params.items()}, cfg, dev),
+                     "CPU": (params, cfg, torch.device("cpu")),
+                     "float64": ({k: v.double() for k, v in params.items()},
+                                 dataclasses.replace(cfg, dtype="float64"), torch.device("cpu"))}
+            calls = {
+                "logits": lambda p, c, where, routes: forward(
+                    p, c, {"tokens": tokens.to(where)}, pol, routes=routes)[0],
+                "values": lambda p, c, where, routes: mobj.lm_values(
+                    c, p, mobj.to(cobjs, where), gains.to(where, p["final_norm"].dtype), pol,
+                    routes=routes)}
+            pinned = cfg.is_moe_mlp and dtype == "bfloat16"
+            for what, call in calls.items():
+                routes64 = L.Routes()
+                truth = call(*sides["float64"], routes64).double()
+                note = ""
+                if pinned:
+                    firsts, top = 0, 0.0
+                    for side in ("card", "CPU"):
+                        routes = L.Routes()
+                        call(*sides[side], routes)
+                        margins = L.flip_margins(routes, routes64, length)
+                        firsts += margins.numel()
+                        top = max(top, float(margins.max()) if margins.numel() else 0.0)
+                    note = (f"; routed as the float64 run but {firsts} tokens (card and CPU) "
+                            f"first at margins up to {top:.6f} (NEAR_TIE {L.NEAR_TIE}), "
+                            "then pinned to its routing")
+                    if top > L.NEAR_TIE:
+                        fail(f"small lm: {cfg.name} {dtype} {what}: a choice moved off a "
+                             f"near-tie (margin {top})")
+                pin = lambda: L.Routes(pin=routes64) if pinned else None
+                g = call(*sides["card"], pin()).cpu().double()
+                c = call(*sides["CPU"], pin()).double()
+                scale = truth.abs().max().item()
                 gap = (g - c).abs().max().item() / scale
-                e_card, e_cpu = ((g - t).abs().max().item() / scale,
-                                 (c - t).abs().max().item() / scale)
+                e_card, e_cpu = ((g - truth).abs().max().item() / scale,
+                                 (c - truth).abs().max().item() / scale)
                 if dtype == "float32":
                     ok = gap <= 1e-4
                 else:
@@ -2715,44 +2683,6 @@ def check_lm_small(dev) -> None:
                       f"{scale:.3e}){note}; {'ok' if ok else 'FAILED'}", flush=True)
                 if not ok:
                     fail(f"small lm: {cfg.name} {dtype} {what}: the card is off the CPU")
-
-
-def check_lm_clis(archs) -> None:
-    """Phase 4h: ``python -m repro_torch.launch.fedzoo --objective lm --arch A
-    --rounds 10`` for each of ``archs`` (the SMOKE variant, 10 rounds in
-    captured chunks of 16) in child processes started together, each
-    waited for: exit 0, a finite F(x_0), F(x_R) and best.  The seconds are
-    each child's wall time beside the others sharing the card."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    procs = {}
-    t0 = time.perf_counter()
-    for arch in archs:
-        cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo", "--objective", "lm",
-               "--arch", arch, "--rounds", "10"]
-        procs[arch] = (cmd, subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE, text=True))
-    for arch, (cmd, proc) in procs.items():
-        try:
-            out, err = proc.communicate(timeout=600)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            for _, other in procs.values():
-                if other.poll() is None:
-                    other.kill()
-            fail(f"the command line (lm {arch}) exited {proc.returncode}:\n{out[-2000:]}\n"
-                 f"{err[-4000:]}")
-        lines = out.splitlines()
-        result = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
-        print(f"[lm {arch} cli] {' '.join(cmd[1:])} done {secs:.1f} s after the {len(archs)} "
-              f"started: {lines[:2]}; {result}", flush=True)
-        fields = result.replace("=", " ").split()
-        values = [float(fields[i + 1]) for i, w in enumerate(fields[:-1])
-                  if w in ("F(x_0)", "F(x_R)", "best")]
-        if len(values) != 3 or not all(np.isfinite(values)):
-            fail(f"the command line (lm {arch}) printed no finite F: {result!r}")
 
 
 def check_per_client(cobjs, dev) -> dict:

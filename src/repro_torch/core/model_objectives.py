@@ -48,6 +48,7 @@ from repro_torch.core.objectives import _lead
 from repro_torch.data.partition import label_subset_partition
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Routes
 from repro_torch.models.model import check_ported, forward, token_nll
 from repro_torch.optim.optimizers import adam_init, adam_update
 from repro_torch.sharding.rules import ShardingPolicy
@@ -410,20 +411,23 @@ def lm_gains(final_norm: torch.Tensor, scale: torch.Tensor, x_unit: torch.Tensor
 
 
 def lm_values(cfg: ModelConfig, params: dict, cps: LMObjective, gains: torch.Tensor,
-              policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
+              policy: Optional[ShardingPolicy] = None, routes: Optional[Routes] = None
+              ) -> torch.Tensor:
     """f_i at K sets of gains a client (N, K, d) -> (N, K): one forward pass
     of N*K*b sequences, every sequence of client i's batch with its set's
     gains; f_i is the batch's mean token NLL plus the router's auxiliary
     loss, over 10.  Each (client, point) is its own group of b sequences
     (``forward``'s ``groups``): its MoE capacity, drops and aux are those
-    of the reference's forward of that point alone."""
+    of the reference's forward of that point alone.  ``routes`` as
+    ``forward``'s."""
     policy = policy or ShardingPolicy(remat=False)
     n, k, d = gains.shape
     b, l = cps.batches_tokens.shape[1:]
     every = lambda t: t[:, None].expand(n, k, b, l).reshape(n * k * b, l)
     final = gains[:, :, None, None, :].expand(n, k, b, 1, d).reshape(n * k * b, 1, d)
     logits, aux = forward(dict(params, final_norm=final), cfg,
-                          {"tokens": every(cps.batches_tokens)}, policy, groups=n * k)
+                          {"tokens": every(cps.batches_tokens)}, policy, groups=n * k,
+                          routes=routes)
     nll, valid = token_nll(logits, every(cps.batches_labels))
     loss = (nll.reshape(n, k, b * l).sum(-1)
             / torch.clamp_min(valid.reshape(n, k, b * l).sum(-1), 1))

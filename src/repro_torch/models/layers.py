@@ -288,27 +288,89 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
     return min(capacity + (-capacity) % 4, tokens * k)
 
 
-def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
+class Routes:
+    """The routings of a forward's MoE layers in call order, handed in as
+    ``forward``'s ``routes``: each layer appends its ``Routing``.  Given a
+    ``pin`` (another forward's ``Routes`` over the same groups), each layer
+    takes its experts from the pin's layer and computes its own gates,
+    ranks and drops from them: a bf16 forward pinned to its float64 run's
+    choices differs from it by rounding alone."""
+
+    def __init__(self, pin: Optional["Routes"] = None):
+        self.calls: list[Routing] = []
+        self.pin = pin
+
+
+#: The largest share (p_k - p_{k+1}) / p_k of a float64 run's k-th router
+#: probability at which a bf16 run of the same forward may choose other
+#: experts (``flip_margins``): the largest such margin measured over the
+#: SMOKE MoE stacks, 0.0976 (jamba's forward, ``scripts/moe_flip_margins.py``),
+#: raised to a power of two.
+NEAR_TIE = 2.0 ** -3
+
+
+def flip_margins(routes: Routes, routes64: Routes, length: int) -> torch.Tensor:
+    """The margins (p_k - p_{k+1}) / p_k of the float64 run ``routes64`` at
+    each token whose top-k choice the run ``routes`` of the same forward
+    changes first: at no earlier position of its sequence did a layer
+    change a choice or a drop (attention and the SSM carry a change to the
+    later positions, and a group's drops to its other tokens).  A choice
+    may change only at a near-tie (a margin at most ``NEAR_TIE``).  Raises
+    if a drop changed where no choice of its group did."""
+    moved = torch.zeros(routes.calls[0].expert.shape[:2], dtype=torch.bool).reshape(-1, length)
+    margins = []
+    for r, r64 in zip(routes.calls, routes64.calls, strict=True):
+        expert, keep, expert64, keep64 = (a.cpu() for a in (r.expert, r.keep, r64.expert,
+                                                             r64.keep))
+        g, t, k = expert.shape
+        # each token's experts and kept slots in expert order: a swap within
+        # a token's top-k order changes neither (only the aux's top-1)
+        (chosen, order), (chosen64, order64) = expert.sort(-1), expert64.sort(-1)
+        flip = (chosen != chosen64).any(-1)
+        dropped = (keep.reshape(g, t, k).gather(-1, order)
+                   != keep64.reshape(g, t, k).gather(-1, order64)).any(-1)
+        if not bool(flip.any(-1)[dropped.any(-1)].all()):
+            raise AssertionError("a drop moved with no choice moved in its group")
+        p = r64.probs.cpu().double().sort(-1, descending=True).values
+        margin = ((p[..., k - 1] - p[..., k]) / p[..., k - 1]).reshape(-1, length)
+        margins.append(margin[flip.reshape(-1, length) & ~moved])
+        moved = torch.cummax((moved | (flip | dropped).reshape(-1, length)).int(),
+                             dim=1).values.bool()
+    return torch.cat(margins)
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
+              routes: Optional[Routes] = None) -> Routing:
     """The router over normed tokens xt (G, t, d), each group on its own:
     float32 logits, softmax, top-k of the probabilities (a stable
     descending sort: ties to the lower index, as ``lax.top_k``), the gates
     normalized by max(sum, 1e-9), and each slot's rank among the slots of
-    its group that chose its expert before it."""
+    its group that chose its expert before it.  With ``routes`` the
+    routing is appended there, and where it has a pin the experts are the
+    pin's."""
     g, t, _ = xt.shape
     k = cfg.moe_top_k
     probs = torch.softmax(_wide(xt) @ _wide(router), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, expert = vals[..., :k], idx[..., :k]
+    if routes is not None and routes.pin is not None:
+        expert = routes.pin.calls[len(routes.calls)].expert.to(probs.device)
+        gate = probs.gather(-1, expert)
+    else:
+        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate, expert = vals[..., :k], idx[..., :k]
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
     slot_expert = expert.reshape(g, t * k)
     onehot = F.one_hot(slot_expert, cfg.n_experts)  # (G, t*k, E)
     rank = (torch.cumsum(onehot, dim=1) - onehot).gather(-1, slot_expert[..., None])[..., 0]
     capacity = moe_capacity(cfg, t)
-    return Routing(probs, expert, gate, rank, rank < capacity, capacity)
+    routing = Routing(probs, expert, gate, rank, rank < capacity, capacity)
+    if routes is not None:
+        routes.calls.append(routing)
+    return routing
 
 
 def moe_block(p: dict, prefix: str, x: torch.Tensor, cfg: ModelConfig, *,
-              groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+              groups: int = 1, routes: Optional[Routes] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with per-expert capacity and dispatch, on x (B, L, d) split
     into ``groups`` equal groups of sequences along B: each group is routed,
     ranked, dropped and balanced on its own, as the reference's block on
@@ -317,13 +379,14 @@ def moe_block(p: dict, prefix: str, x: torch.Tensor, cfg: ModelConfig, *,
     each over all groups; slots beyond an expert's capacity are dropped
     (Switch-style); the shared experts (llama4) run densely.  Returns (the
     residual delta, the Switch load-balance loss of each group (G,)): the
-    reference's block with ``return_aux``, as its model calls it."""
+    reference's block with ``return_aux``, as its model calls it.
+    ``routes`` as ``moe_route``'s."""
     b, l, d = x.shape
     xn = rmsnorm(x, p[f"{prefix}ln"], cfg.norm_eps)
     g = groups
     t, k, e = b // g * l, cfg.moe_top_k, cfg.n_experts
     xt = xn.reshape(g, t, d)
-    r = moe_route(p[f"{prefix}router"], xt, cfg)
+    r = moe_route(p[f"{prefix}router"], xt, cfg, routes)
     c = r.capacity
 
     # each slot's row in the buffer: its expert's queue within its group

@@ -16,6 +16,8 @@ objective's points, which the reference evaluates one by one).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models import layers as L
@@ -50,18 +52,18 @@ def _index_sub(bp: Params, prefix: str, i: int) -> Params:
     return {k: v[i] for k, v in bp.items() if k.startswith(prefix)}
 
 
-def _mlp_or_moe(bp: Params, prefix: str, x: torch.Tensor, cfg: ModelConfig,
-                groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _mlp_or_moe(bp: Params, prefix: str, x: torch.Tensor, cfg: ModelConfig, groups: int,
+                routes: Optional[L.Routes]) -> tuple[torch.Tensor, torch.Tensor]:
     """The (MoE) MLP's residual delta and each group's aux (G,)."""
     if cfg.is_moe_mlp:
-        return L.moe_block(bp, prefix, x, cfg, groups=groups)
+        return L.moe_block(bp, prefix, x, cfg, groups=groups, routes=routes)
     return (L.mlp_block(bp, prefix, x, cfg),
             torch.zeros(groups, dtype=torch.float32, device=x.device))
 
 
 def _full_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                policy: ShardingPolicy, window: int,
-                groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+                policy: ShardingPolicy, window: int, groups: int,
+                routes: Optional[L.Routes] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One block of the stack, full-sequence mode: the ``ssm`` kind (a
     Mamba2 layer), the ``hybrid`` kind (1 attention layer and its (MoE)
     MLP, then ``attn_every - 1`` Mamba2 layers, each followed by its (MoE)
@@ -73,13 +75,13 @@ def _full_block(bp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.
     x = x + L.attn_block(L.pick_attn(bp, "attn."), x, cfg, positions, window=window,
                          chunk=policy.attn_chunk)
     if cfg.block_kind != "hybrid":
-        d, aux = _mlp_or_moe(bp, "mlp.", x, cfg, groups)
+        d, aux = _mlp_or_moe(bp, "mlp.", x, cfg, groups, routes)
         return x + d, aux
-    d, aux = _mlp_or_moe(_index_sub(bp, "mlp.", 0), "mlp.", x, cfg, groups)
+    d, aux = _mlp_or_moe(_index_sub(bp, "mlp.", 0), "mlp.", x, cfg, groups, routes)
     x = x + d
     for i in range(cfg.attn_every - 1):
         x = x + S.ssm_block_train(S.pick_ssm(_index_sub(bp, "ssm.", i), "ssm."), x, cfg)
-        d, a = _mlp_or_moe(_index_sub(bp, "mlp.", i + 1), "mlp.", x, cfg, groups)
+        d, a = _mlp_or_moe(_index_sub(bp, "mlp.", i + 1), "mlp.", x, cfg, groups, routes)
         x = x + d
         aux = aux + a
     return x, aux
@@ -129,12 +131,15 @@ def _unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(p: Params, cfg: ModelConfig, batch: dict, policy: ShardingPolicy,
-            groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+            groups: int = 1, routes: Optional[L.Routes] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward of ``batch["tokens"]`` (B, L) (and, for the vlm
     family, ``"patches"`` and ``"positions"`` where given).  Returns
     (logits (B, L, V) in the config dtype, moe_aux (groups,)): the router's
     auxiliary loss of each of ``groups`` equal groups of sequences along
-    B, summed over the blocks (0 for the dense and ssm families)."""
+    B, summed over the blocks (0 for the dense and ssm families).  With
+    ``routes`` (``layers.Routes``) each MoE layer's routing is appended
+    there, or taken from its pin."""
     check_ported(cfg)
     tokens = batch["tokens"]
     bsz, length = tokens.shape
@@ -149,7 +154,7 @@ def forward(p: Params, cfg: ModelConfig, batch: dict, policy: ShardingPolicy,
     aux = torch.zeros(groups, dtype=torch.float32, device=x.device)
     for i in range(cfg.n_blocks):
         x, a = _full_block({k: v[i] for k, v in blocks.items()}, x, cfg, positions, policy,
-                           window, groups)
+                           window, groups, routes)
         aux = aux + a
     return _unembed(p, cfg, x), aux
 
@@ -171,13 +176,13 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor,
     return (lse - picked) * valid, valid
 
 
-def lm_loss(p: Params, cfg: ModelConfig, batch: dict,
-            policy: ShardingPolicy) -> tuple[torch.Tensor, dict]:
+def lm_loss(p: Params, cfg: ModelConfig, batch: dict, policy: ShardingPolicy,
+            routes: Optional[L.Routes] = None) -> tuple[torch.Tensor, dict]:
     """Mean next-token NLL over the valid labels (``batch["labels"]``, -1
     to skip) plus the router's auxiliary loss: (total, {"loss", "moe_aux",
     "tokens"}).  The token count stays a tensor (nothing is read on the
-    host)."""
-    logits, aux = forward(p, cfg, batch, policy)
+    host).  ``routes`` as ``forward``'s."""
+    logits, aux = forward(p, cfg, batch, policy, routes=routes)
     aux = aux.reshape(())
     nll, valid = token_nll(logits, batch["labels"])
     n = torch.clamp_min(valid.sum(), 1)

@@ -40,6 +40,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import algorithms as alg
 from repro_torch.core import model_objectives as mobj
 from repro_torch.models import forward
+from repro_torch.models import layers as L
 from repro_torch.models.params import init_params
 from repro_torch.sharding import ShardingPolicy
 
@@ -139,30 +140,27 @@ def test_lm_query_matches_reference_f32(lm32):
 def test_lm_query_matches_reference_bf16(lm16):
     """The published bf16 model at the same points: each side against the
     port's float64 evaluation of the same parameters and gains
-    (``TM.hold``); for the MoE families on the (client, point) values
-    whose tokens the bf16 model routes as the float64 one
-    (``TM.well_posed_tokens``: elsewhere a near-tie)."""
-    d = lm16["cfg"].d_model
-    x = _points(d)
+    (``TM.hold``); for the MoE families with the routing pinned to the
+    float64 run's, every value compared, after the port's own routing is
+    shown to differ from it only at near-ties (``TM.near_ties_only``)."""
+    cfg, params, cps = lm16["cfg"], lm16["params"], lm16["cps"]
+    x = _points(cfg.d_model)
     want = _ref_values(lm16, x)
-    with TM.recorded_routings() as calls:
-        got = lm16["port"][3](lm16["cps"], T(x)).double().numpy()
+    got = lm16["port"][3](cps, T(x))
     # the float64 model with the bf16 model's gains, which the bit-for-bit
     # test below holds to the reference's
-    gains = mobj.lm_gains(lm16["params"]["final_norm"], lm16["cps"].scale, T(x))
-    with TM.recorded_routings() as calls64:
-        truth = mobj.lm_values(dataclasses.replace(lm16["cfg"], dtype="float64"),
-                               {k: v.double() for k, v in lm16["params"].items()},
-                               lm16["cps"], gains.double()).numpy()
-    good = np.ones(got.shape, bool)
-    if calls:
-        b, l = lm16["cps"].batches_tokens.shape[1:]
-        good = TM.well_posed_tokens(calls, calls64, l).reshape(*got.shape, b * l).all(-1).numpy()
-    print(f"{lm16['cfg'].name} bf16 values: {int((~good).sum())} of {good.size} routed at "
-          "near-ties")
-    if good.any():  # jamba's top-2 of 4 meets a near-tie in every value's 64 tokens
-        TM.hold(got[good], want[good], truth[good], torch.bfloat16,
-                f"{lm16['cfg'].name} bf16 values")
+    gains = mobj.lm_gains(params["final_norm"], cps.scale, T(x))
+    routes64 = L.Routes()
+    truth = mobj.lm_values(dataclasses.replace(cfg, dtype="float64"),
+                           {k: v.double() for k, v in params.items()}, cps, gains.double(),
+                           routes=routes64).numpy()
+    what = f"{cfg.name} bf16 values"
+    if cfg.is_moe_mlp:
+        run = lambda routes: mobj.lm_values(cfg, params, cps, gains, routes=routes)
+        assert torch.equal(run(None), got)
+        TM.near_ties_only(run, routes64, cps.batches_tokens.shape[-1], what)
+        got = run(L.Routes(pin=routes64))
+    TM.hold(got.double().numpy(), want, truth, torch.bfloat16, what)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

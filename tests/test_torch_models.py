@@ -17,15 +17,14 @@ magnitude (DESIGN.md Sec. 2.4); bf16 (the published dtype) by each side's
 distance from the port's float64 evaluation of the same inputs, printed,
 the port's no more than ``BF16_MULTIPLE`` times the reference's (or
 within ``BF16_FLOOR`` of the largest magnitude, half a bf16 spacing).  A
-bf16 stack of MoE layers is held so on the tokens it routes as its
-float64 run does (``chip_smoke.well_posed_tokens``): elsewhere a top-k
-choice sat at a near-tie, which it shows (ROADMAP Queue C, "bf16 MoE
-stacks at near-ties").
+bf16 stack of MoE layers is held so with its routing pinned to its
+float64 run's experts (``layers.Routes``), every token compared; its own
+routing differs from the float64 run's only at near-ties
+(``layers.flip_margins`` within ``layers.NEAR_TIE``; ROADMAP Queue C,
+"bf16 MoE stacks at near-ties").
 """
 
 import dataclasses
-import importlib.util
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -72,20 +71,6 @@ to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
 JNP_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
-def _chip_smoke():
-    """chip_smoke.py, for its rule of a bf16 MoE stack's near-ties
-    (``recorded_routings``, ``well_posed_tokens``, ``NEAR_TIE``)."""
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("_chip_smoke_near_ties", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-CS = _chip_smoke()
-recorded_routings, well_posed_tokens = CS.recorded_routings, CS.well_posed_tokens
-
-
 # The reference's functions jitted once, their static arguments by
 # position, so cases with the same shapes share a compile.
 R_RMSNORM = jax.jit(RL.rmsnorm, static_argnums=2)
@@ -109,30 +94,42 @@ R_BLOCK = jax.jit(lambda bp, x, pos, cfg: RM._full_block(bp, x, cfg, pos, RPolic
                   static_argnums=3)
 
 
-def hold(got, want, truth, dtype, what):
+def hold(got, want, truth, dtype, what, witness=None):
     """The port's ``got`` against the reference's ``want``, both measured
     against ``truth`` (the port's float64 evaluation), each distance as a
     share of max|truth|: float32 within 1e-4 of the reference; bf16 by
-    ``BF16_MULTIPLE`` / ``BF16_FLOOR``."""
+    ``BF16_MULTIPLE`` / ``BF16_FLOOR``, the reference's distance the larger
+    of ``want``'s and, where given, ``witness``'s (a second evaluation of
+    the reference: op by op, outside ``jax.jit``)."""
     got, want, truth = (np.asarray(a, np.float64) for a in (got, want, truth))
     assert got.shape == want.shape == truth.shape, (got.shape, want.shape, truth.shape)
     scale = np.abs(truth).max()
     gap = np.abs(got - want).max() / scale
     e_port, e_ref = np.abs(got - truth).max() / scale, np.abs(want - truth).max() / scale
+    second = ""
+    if witness is not None:
+        e_op = np.abs(np.asarray(witness, np.float64) - truth).max() / scale
+        second, e_ref = f", op by op {e_op:.3e}", max(e_ref, e_op)
     print(f"{what}: |port - reference| {gap:.3e}; from float64: port {e_port:.3e}, "
-          f"reference {e_ref:.3e} (shares of max|float64| {scale:.3e})")
+          f"reference {np.abs(want - truth).max() / scale:.3e}{second} (shares of "
+          f"max|float64| {scale:.3e})")
     if dtype in (torch.float32, "float32"):
         assert gap <= 1e-4, (what, gap)
     else:
         assert e_port <= max(BF16_MULTIPLE * e_ref, BF16_FLOOR), (what, e_port, e_ref)
 
 
-def hold_routed(got, want, truth, dtype, what, good):
-    """``hold`` on the tokens ``good`` (B*L,) of token-major outputs
-    (B, L, ...), printing how many tokens a near-tie took out."""
-    flat = lambda a: np.asarray(a, np.float64).reshape(good.numel(), -1)[good.numpy()]
-    print(f"{what}: {int((~good).sum())} of {good.numel()} tokens routed at near-ties")
-    hold(flat(got), flat(want), flat(truth), dtype, what)
+def near_ties_only(run, routes64, length, what):
+    """``run(routes)``, a bf16 MoE call, routes its tokens as its float64 run
+    (``routes64``) does but at near-ties: each first changed choice at a
+    float64 margin within ``L.NEAR_TIE`` (the largest printed)."""
+    routes = L.Routes()
+    run(routes)
+    margins = L.flip_margins(routes, routes64, length)
+    top = float(margins.max()) if margins.numel() else 0.0
+    print(f"{what}: {margins.numel()} tokens first routed otherwise than in float64, the "
+          f"largest float64 margin among them {top:.6f}")
+    assert top <= L.NEAR_TIE, (what, top)
 
 
 def _cfgs(arch, dtype):
@@ -221,7 +218,7 @@ def test_init_params(arch):
     zeros where it has them; normal and fan-in leaves with the reference's
     scale (std within 10%); a_log in log[1, 16], dt_bias the softplus
     inverse of [1e-3, 1e-1]; the same seed gives the same bits, leaf i from
-    the generator of (seed, 2, i)."""
+    the generator of (seed, 2, i), also with ``device_draws``."""
     cfg = configs.get_config(arch, "smoke")
     p = init_params(3, cfg, "cpu")
     want = {k: pd.shape for k, pd in rparam_defs(rget_config(arch, "smoke")).items()}
@@ -243,6 +240,9 @@ def test_init_params(arch):
             assert float(sp.min()) >= 1e-3 * 0.95 and float(sp.max()) <= 0.1 * 1.05
     again = init_params(3, cfg, "cpu")
     assert all(torch.equal(p[k], again[k]) for k in p)
+    # drawn on the device given, here the CPU: the same generators, the same bits
+    drawn = init_params(3, cfg, "cpu", device_draws=True)
+    assert all(torch.equal(p[k], drawn[k]) for k in p)
     assert not torch.equal(init_params(4, cfg, "cpu")["embed"], p["embed"])
     f32 = init_params(3, dataclasses.replace(cfg, dtype="float32"), "cpu")
     assert all(torch.equal(f32[k].to(torch.bfloat16), p[k]) for k in p)
@@ -574,7 +574,8 @@ def test_moe_drops_and_groups_match_reference(arch, models):
 def test_full_block_matches_reference(arch, dtype, models):
     """One block of the stack on a (2, 29, d) residual stream with its aux:
     jamba's super-block (attention, then 3 Mamba2 layers, each layer
-    followed by its top-2 MoE MLP) and scout's attention and MoE."""
+    followed by its top-2 MoE MLP) and scout's attention and MoE; in bf16
+    with the routing pinned to the float64 run's."""
     rcfg, cfg, rp, p = models[arch, dtype]
     rbp = {k: v[0] for k, v in RM._block_params(rp).items()}
     bp = {k: v[0] for k, v in M._block_params(p).items()}
@@ -582,15 +583,19 @@ def test_full_block_matches_reference(arch, dtype, models):
     pos = np.tile(np.arange(29), (2, 1))
     (want, raux) = R_BLOCK(rbp, x, pos, rcfg)
     args = (cfg, torch.from_numpy(pos), ShardingPolicy(), cfg.sliding_window, 1)
-    with recorded_routings() as calls:
-        got, aux = M._full_block(bp, xt, *args)
-    with recorded_routings() as calls64:
-        truth, aux64 = M._full_block({k: v.double() for k, v in bp.items()}, xt.double(), *args)
-    assert got.dtype == xt.dtype and len(calls) == (4 if arch.startswith("jamba") else 1)
-    good = well_posed_tokens(calls, calls64, 29)
-    hold_routed(got.double(), want, truth, dtype, f"full block {arch} {dtype}", good)
-    if bool(good.all()):
-        hold(aux.double(), np.asarray(raux)[None], aux64, dtype, f"block aux {arch} {dtype}")
+    routes64 = L.Routes()
+    truth, aux64 = M._full_block({k: v.double() for k, v in bp.items()}, xt.double(), *args,
+                                 routes=routes64)
+    assert len(routes64.calls) == (4 if arch.startswith("jamba") else 1)
+    pin = None
+    if dtype == "bfloat16":
+        near_ties_only(lambda r: M._full_block(bp, xt, *args, routes=r), routes64, 29,
+                       f"full block {arch} {dtype}")
+        pin = L.Routes(pin=routes64)
+    got, aux = M._full_block(bp, xt, *args, routes=pin)
+    assert got.dtype == xt.dtype
+    hold(got.double(), want, truth, dtype, f"full block {arch} {dtype}")
+    hold(aux.double(), np.asarray(raux)[None], aux64, dtype, f"block aux {arch} {dtype}")
 
 
 # -- forward and loss ----------------------------------------------------------
@@ -619,63 +624,74 @@ def test_forward_and_lm_loss_match_reference(arch, dtype, models):
     for chunk in ((2048, 8) if arch in DENSE and dtype == "float32" else (2048,)):
         rpol, pol = RPolicy(remat=False, attn_chunk=chunk), ShardingPolicy(attn_chunk=chunk)
         (rlogits, raux), (rtotal, rm) = R_FORWARD(rp, rbatch, rcfg, rpol)
-        with recorded_routings() as calls:
-            logits, aux = M.forward(p, cfg, batch, pol)
+        routes64 = L.Routes()
+        truth, aux64 = M.forward(p64, c64, batch, pol, routes=routes64)
+        pin = lambda: None
+        if cfg.is_moe_mlp and dtype == "bfloat16":
+            near_ties_only(lambda r: M.forward(p, cfg, batch, pol, routes=r), routes64, 32,
+                           f"forward {arch} {dtype}")
+            pin = lambda: L.Routes(pin=routes64)
+        pinned = pin()
+        logits, aux = M.forward(p, cfg, batch, pol, routes=pinned)
         assert logits.dtype == cfg.torch_dtype and logits.shape == (2, 32, cfg.vocab_size)
-        with recorded_routings() as calls64:
-            truth, aux64 = M.forward(p64, c64, batch, pol)
-        good = (well_posed_tokens(calls, calls64, 32) if cfg.is_moe_mlp
-                else torch.ones(64, dtype=torch.bool))
-        hold_routed(logits.double(), rlogits, truth, dtype,
-                    f"forward {arch} {dtype} chunk {chunk}", good)
+        if pinned is not None:  # every layer took the float64 run's experts and drops
+            for r, r64 in zip(pinned.calls, routes64.calls, strict=True):
+                assert torch.equal(r.expert, r64.expert) and torch.equal(r.keep, r64.keep)
+        hold(logits.double(), rlogits, truth, dtype, f"forward {arch} {dtype} chunk {chunk}")
         assert aux.shape == (1,) and aux.dtype == torch.float32
         if not cfg.is_moe_mlp:
             assert float(aux) == float(raux) == 0.0
-        elif bool(good.all()):
+        else:
             hold(aux.double(), np.asarray(raux)[None], aux64, dtype, f"forward aux {arch} {dtype}")
-        total, m = M.lm_loss(p, cfg, batch, pol)
+        total, m = M.lm_loss(p, cfg, batch, pol, routes=pin())
         assert int(m["tokens"]) == int(rm["tokens"]) == 59
         assert total.dtype == torch.float32 and m["moe_aux"].shape == ()
         assert float(m["moe_aux"]) == float(aux)
-        if bool(good.all()):  # a near-tie moves a token's NLL and so the mean
-            truth, _ = M.lm_loss(p64, c64, batch, pol)
-            hold(total.double().numpy()[None], np.asarray(rtotal)[None], truth.numpy()[None],
-                 dtype, f"lm_loss {arch} {dtype} chunk {chunk}")
+        truth, _ = M.lm_loss(p64, c64, batch, pol)
+        hold(total.double().numpy()[None], np.asarray(rtotal)[None], truth.numpy()[None],
+             dtype, f"lm_loss {arch} {dtype} chunk {chunk}")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_vlm_forward_with_patches_matches_reference(dtype, models):
-    """qwen2-vl's forward and loss on 8 sequences with stub patch embeddings
-    (8, 16, d) over the first 16 positions and distinct M-RoPE (t, h, w)
+    """qwen2-vl's forward and loss on 2 sequences with stub patch embeddings
+    (2, 16, d) over the first 16 positions and distinct M-RoPE (t, h, w)
     triples: the patches' rows and columns of a 4 x 4 image grid, then the
-    text's positions.  Eight sequences, not two: the largest bf16 distance
-    over two sequences' logits is a noisy statistic of two equally
-    accurate roundings (ROADMAP Queue C, "bf16 MoE stacks at near-ties")."""
+    text's positions.  bf16 has two witnesses, the reference jitted and op
+    by op (``jax.disable_jit``: each op rounded to bf16, as the port's): the
+    largest distance over two sequences' logits is a noisy statistic of
+    equally accurate roundings (ROADMAP Queue C, "bf16 witnesses")."""
     rcfg, cfg, rp, p = models["qwen2_vl_7b", dtype]
-    toks = np.random.default_rng(60).integers(0, cfg.vocab_size, (8, 33))
+    toks = np.random.default_rng(60).integers(0, cfg.vocab_size, (2, 33))
     toks, labels = toks[:, :-1], toks[:, 1:].copy()
     labels[1, -5:] = -1
-    patches, patches_t = _inputs((8, cfg.n_patches, cfg.d_model), dtype, 61, scale=0.02)
+    patches, patches_t = _inputs((2, cfg.n_patches, cfg.d_model), dtype, 61, scale=0.02)
     grid = np.stack([np.zeros(16), np.arange(16) // 4, np.arange(16) % 4], axis=-1)
     text = np.arange(16, 32)[:, None] - 12 + np.zeros(3)
-    pos = np.broadcast_to(np.concatenate([grid, text])[None], (8, 32, 3)).astype(np.int64)
+    pos = np.broadcast_to(np.concatenate([grid, text])[None], (2, 32, 3)).astype(np.int64)
     rbatch = {"tokens": jnp.asarray(toks, jnp.int32), "labels": jnp.asarray(labels, jnp.int32),
               "patches": patches, "positions": jnp.asarray(pos, jnp.int32)}
     batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
              "patches": patches_t, "positions": torch.from_numpy(pos)}
-    pol = ShardingPolicy()
-    (rlogits, _), (rtotal, _) = R_FORWARD(rp, rbatch, rcfg, RPolicy(remat=False))
+    pol, rpol = ShardingPolicy(), RPolicy(remat=False)
+    (rlogits, _), (rtotal, _) = R_FORWARD(rp, rbatch, rcfg, rpol)
+    op_logits = op_total = None
+    if dtype == "bfloat16":
+        with jax.disable_jit():
+            op_logits, _ = RM.forward(rp, rcfg, rbatch, rpol)
+            op_total, _ = RM.lm_loss(rp, rcfg, rbatch, rpol)
+            op_total = np.asarray(op_total)[None]
     logits, _ = M.forward(p, cfg, batch, pol)
     p64 = {k: v.double() for k, v in p.items()}
     c64 = dataclasses.replace(cfg, dtype="float64")
     truth, _ = M.forward(p64, c64, dict(batch, patches=patches_t.double()), pol)
-    hold(logits.double(), rlogits, truth, dtype, f"vlm forward with patches {dtype}")
+    hold(logits.double(), rlogits, truth, dtype, f"vlm forward with patches {dtype}", op_logits)
     plain, _ = M.forward(p, cfg, {"tokens": batch["tokens"]}, pol)
     assert not torch.equal(plain, logits)
     total, _ = M.lm_loss(p, cfg, batch, pol)
     truth, _ = M.lm_loss(p64, c64, dict(batch, patches=patches_t.double()), pol)
     hold(total.double().numpy()[None], np.asarray(rtotal)[None], truth.numpy()[None], dtype,
-         f"vlm lm_loss with patches {dtype}")
+         f"vlm lm_loss with patches {dtype}", op_total)
 
 
 @pytest.mark.parametrize("arch, item", [("whisper_base", "reference's gap")])
