@@ -148,6 +148,23 @@ Phases, each a hard check (any failure exits non-zero):
    repro_torch.launch.fedzoo --objective lm --arch A --rounds 10`` for
    each (the SMOKE variant, as the reference's launcher) in child
    processes started together;
+4i. serving (``check_serve``; ``prefill``, ``decode_step``, the caches,
+   ``launch/serve.py``): Qwen1.5-0.5B and Mamba2-370m ``FULL`` (16 prompts
+   of 512 tokens, 128 generated greedily, ``cache_len`` 641) and
+   whisper-base ``FULL`` (4 prompts of 32 tokens, 1,500 stub frames, 64
+   generated), bf16, random parameters: the build seconds, the prefill's
+   ms against its bound, the decode ms a token eagerly and replayed from
+   one captured graph (``serve.Decoder``) against a step's bound, tokens/s,
+   the capture's seconds, the cache's bytes, the peak memory; the replayed
+   tokens and last logits bit for bit the eager loop's; the first decode
+   step against ``forward`` at L (exact in float32, the bf16 decode no
+   further from the float32 forward than the bf16 forward); every family
+   at SMOKE (LM_SMOKE and whisper) on the card against the CPU, the
+   prefill's logits and cache leaves, 4 decode steps and the final cache;
+   no launch of the port's kernels over the phase; ``python -m
+   repro_torch.launch.serve`` for one SMOKE family of each kind
+   and Qwen1.5-0.5B ``--variant full`` in child processes started
+   together; the phase's seconds;
 5. the other route: 2 rounds with the cap tiles pinned below cap, so the
    cap-tiled kernels run;
 6. one main-path round under ``torch.profiler``: device time by kernel,
@@ -2296,19 +2313,17 @@ def check_objective_captured(name, cfg, cobjs, query, value, seed, dev, rounds=C
     return ms_round, busy_ms
 
 
-def check_objective_clis(commands: dict) -> None:
-    """``python -m repro_torch.launch.fedzoo <flags>`` for each label's flags
-    in ``commands``, in child processes started together, each waited for:
-    exit 0 and a finite F(x_0), F(x_R) and best.  Phase 4d runs the attack
-    and the metric (``--objective <name> --clients N``: 50 rounds, the
-    default captured chunks of 16), phase 4h the LM objective on every
-    architecture of LM_SMOKE.  The seconds are each child's wall time
-    beside the others sharing the card."""
+def run_clis(module: str, commands: dict, result) -> None:
+    """``python -m repro_torch.launch.<module> <flags>`` for each label's
+    flags in ``commands``, in child processes started together, each
+    waited for: exit 0, and ``result(lines)`` (the child's stdout lines)
+    returns the line to print or fails.  The seconds are each child's wall
+    time beside the others sharing the card."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = {}
     t0 = time.perf_counter()
     for label, flags in commands.items():
-        cmd = [sys.executable, "-m", "repro_torch.launch.fedzoo", *flags]
+        cmd = [sys.executable, "-m", f"repro_torch.launch.{module}", *flags]
         procs[label] = (cmd, subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
                                               stderr=subprocess.PIPE, text=True))
     try:
@@ -2319,19 +2334,32 @@ def check_objective_clis(commands: dict) -> None:
                 fail(f"the command line ({label}) exited {proc.returncode}:\n{out[-2000:]}\n"
                      f"{err[-4000:]}")
             lines = out.splitlines()
-            result = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
             print(f"[{label} cli] {' '.join(cmd[1:])} done {secs:.1f} s after the "
-                  f"{len(procs)} started: {lines[:2]}; {result}", flush=True)
-            fields = result.replace("=", " ").split()
-            values = [float(fields[i + 1]) for i, w in enumerate(fields[:-1])
-                      if w in ("F(x_0)", "F(x_R)", "best")]
-            if len(values) != 3 or not all(np.isfinite(values)):
-                fail(f"the command line ({label}) printed no finite F: {result!r}")
+                  f"{len(procs)} started: {result(label, lines)}", flush=True)
     finally:
         for _, proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def check_objective_clis(commands: dict) -> None:
+    """``python -m repro_torch.launch.fedzoo <flags>`` for each label's flags
+    in ``commands`` (``run_clis``): exit 0 and a finite F(x_0), F(x_R) and
+    best.  Phase 4d runs the attack and the metric (``--objective <name>
+    --clients N``: 50 rounds, the default captured chunks of 16), phase 4h
+    the LM objective on every architecture of LM_SMOKE."""
+
+    def result(label, lines):
+        line = next((ln for ln in lines if ln.startswith("F(x_0)")), "")
+        fields = line.replace("=", " ").split()
+        values = [float(fields[i + 1]) for i, w in enumerate(fields[:-1])
+                  if w in ("F(x_0)", "F(x_R)", "best")]
+        if len(values) != 3 or not all(np.isfinite(values)):
+            fail(f"the command line ({label}) printed no finite F: {line!r}")
+        return f"{lines[:2]}; {line}"
+
+    run_clis("fedzoo", commands, result)
 
 
 class LMRun(NamedTuple):
@@ -2685,6 +2713,368 @@ def check_lm_small(dev) -> None:
                     fail(f"small lm: {cfg.name} {dtype} {what}: the card is off the CPU")
 
 
+class ServeRun(NamedTuple):
+    """How phase 4i serves one published config at full width."""
+    batch: int  # sequences
+    prompt: int  # prompt tokens
+    gen: int  # tokens generated greedily
+
+
+#: Phase 4i, serving (A13c-serve: ``prefill``, ``decode_step``, the caches,
+#: ``launch/serve.py``): each published config at full width (``FULL``,
+#: bf16, random parameters from ``models.init_params`` of seed 0), its
+#: prompts from ``serve.stub_batch``, ``cache_len`` = prompt + gen + 1 as
+#: the command line's.
+SERVE_FULL = {"qwen1.5-0.5b": ServeRun(16, 512, 128), "mamba2-370m": ServeRun(16, 512, 128),
+              "whisper-base": ServeRun(4, 32, 64)}
+#: The SMOKE variants phase 4i holds on the card against the CPU: every
+#: family the port serves.
+SERVE_SMOKE = LM_SMOKE + ("whisper-base",)
+#: The reference's decode-versus-forward bounds (``tests/test_models.py``,
+#: measured on its 2-layer SMOKE configs): the first decode step's logits
+#: against ``forward``'s at position L, as a share of the largest forward
+#: logit.  Printed beside the full-width bf16 distance; the check is
+#: ``decode_against_forward``'s.
+DECODE_TOL = {"qwen1.5-0.5b": 1e-2, "mamba2-370m": 0.05, "whisper-base": 0.02}
+
+
+def decode_against_forward(params, cfg, batch, full_batch, token, first, cache_len, length,
+                           label) -> str:
+    """The reference's decode-versus-forward property at full width: the
+    float32 run of the same parameters (bf16 values widened) decodes
+    ``token`` at position ``length`` within 1e-4 of its own ``forward``'s
+    logits there (the largest forward logit the scale), and the bf16 first
+    decode step ``first`` is no further from that float32 forward than
+    LM_BF16_MULTIPLE times the bf16 forward is (or within LM_BF16_FLOOR).
+    The bf16 decode and forward round differently (an L-token and a
+    1-token product path), and at 24 layers their distance may pass the
+    reference's SMOKE bound (DECODE_TOL), which is printed beside it.
+    Returns the line's text."""
+    from repro_torch.models.model import decode_step, forward, prefill
+    from repro_torch.sharding import ShardingPolicy
+
+    pol = ShardingPolicy(remat=False)
+    fwd, _ = forward(params, cfg, full_batch, pol)
+    fwd = fwd[:, length].float()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    wide = lambda b: {k: v.float() if v.is_floating_point() else v for k, v in b.items()}
+    truth, _ = forward(p32, c32, wide(full_batch), pol)
+    scale = truth.abs().max().item()
+    truth = truth[:, length].clone()
+    _, cache32 = prefill(p32, c32, wide(batch), pol, cache_len=cache_len)
+    dec32, _ = decode_step(p32, c32, cache32, token, pol)
+    del p32, cache32
+    dist = lambda a, b: (a.float() - b).abs().max().item() / scale
+    e32, e_dec, e_fwd, gap = dist(dec32, truth), dist(first, truth), dist(fwd, truth), dist(first,
+                                                                                            fwd)
+    tol = DECODE_TOL.get(cfg.name)
+    ok = e32 <= 1e-4 and e_dec <= max(LM_BF16_MULTIPLE * e_fwd, LM_BF16_FLOOR)
+    text = (f"the first decode step at position {length} against forward there (shares of "
+            f"the largest float32 forward logit, {scale:.3e}): float32 decode vs float32 "
+            f"forward {e32:.3e} (bound 1e-4); from the float32 forward, bf16 decode {e_dec:.3e}, "
+            f"bf16 forward {e_fwd:.3e}; bf16 decode vs bf16 forward {gap:.3e} (the reference's "
+            f"SMOKE bound {tol}); {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{label}: {text}")
+    return text
+
+
+def serve_work(cfg, bsz: int, prompt: int, cache_len: int) -> dict:
+    """The least time the card could take for a prefill of ``bsz`` prompts
+    of ``prompt`` tokens and for one decode step of ``bsz`` tokens against
+    a ``cache_len`` cache, from the shapes (dense, ssm and encdec configs).
+    Prefill: 2 operations a parameter a token (the decoder's on its tokens,
+    the encoder's and the cross K/V projections on the frames), the causal
+    attention's scores and values (L(L+1)/2 pairs; the encoder's all pairs,
+    the cross-attention's L x enc_seq), the SSD's within-chunk pairs and
+    states, the last token's vocabulary projection; bytes: every parameter
+    read once (an untied embedding by its gathered rows) and the cache
+    written.  Decode: the decoder's parameters read once (the encoder's
+    not) and the whole cache read, as the reference's masked attention
+    reads every slot, the SSM states written back; operations 2 a
+    parameter and the attention over every slot.  Each bound the larger of
+    the operations at the bf16 peak and the bytes at HBM's rate."""
+    from repro_torch.models.params import param_defs
+
+    assert not cfg.is_moe_mlp, cfg.name
+    defs = {k: int(np.prod(pd.shape)) for k, pd in param_defs(cfg).items()}
+    size = cfg.torch_dtype.itemsize
+    d, q, kv, v = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.vocab_size
+    nb, tokens = cfg.n_blocks, bsz * prompt
+    enc = sum(n for k, n in defs.items() if k.startswith("enc_blocks/"))
+    cross_kv = sum(n for k, n in defs.items()
+                   if k.startswith("blocks/cross.") and k[-2:] in ("wk", "wv"))
+    blocks = sum(n for k, n in defs.items() if k.startswith("blocks/")) - cross_kv
+    attn_layers = 0 if cfg.arch_type == "ssm" else nb
+    flops = 2 * blocks * tokens + 2 * d * v * bsz
+    flops += 2 * q * prompt * (prompt + 1) * attn_layers * bsz
+    ssm_state = 0
+    if cfg.arch_type == "ssm":
+        h, hp, n, chunk = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+        flops += h * (min(chunk, prompt) * (n + hp) + 4 * hp * n) * nb * tokens
+        ssm_state = nb * bsz * (h * hp * n * 4 + (cfg.ssm_conv - 1) * cfg.ssm_conv_channels * size)
+    frames = 0
+    if cfg.arch_type == "encdec":
+        frames = bsz * cfg.enc_seq
+        flops += (2 * enc + 2 * cross_kv) * frames
+        flops += 2 * 2 * q * cfg.enc_seq * (cfg.enc_seq * cfg.n_enc_layers + prompt * nb) * bsz
+    table = 0 if cfg.tie_embeddings else defs["embed"]
+    dec_params = (blocks + cross_kv + defs["final_norm"] + defs["embed"] - table
+                  + defs.get("lm_head", 0))
+    attn_cache = 2 * attn_layers * bsz * cache_len * kv * size
+    cross_cache = 2 * nb * frames * kv * size
+    dec_pos = d if cfg.arch_type == "encdec" else 0  # a learned position's row
+    pre_bytes = ((dec_params + enc + defs.get("enc_pos", 0) + defs.get("enc_norm", 0)
+                  + prompt * dec_pos) * size + (tokens * d * size if table else 0)
+                 + attn_cache + cross_cache + ssm_state)
+    dec_bytes = ((dec_params + dec_pos) * size + (bsz * d * size if table else 0)
+                 + attn_cache + cross_cache + 2 * ssm_state)
+    dec_flops = (2 * (blocks + d * v) * bsz
+                 + 2 * 2 * q * (cache_len * attn_layers + cfg.enc_seq * nb * (frames > 0)) * bsz)
+    bound = lambda f, b: (1e3 * max(f / BF16_FLOPS_S, b / HBM_BYTES_S),
+                          "operations" if f / BF16_FLOPS_S > b / HBM_BYTES_S else "bytes")
+    return {"prefill_TFLOP": flops / 1e12, "prefill_GB": pre_bytes / 1e9,
+            "prefill": bound(flops, pre_bytes), "decode_GFLOP": dec_flops / 1e9,
+            "decode_GB": dec_bytes / 1e9, "decode": bound(dec_flops, dec_bytes)}
+
+
+def serve_outputs(params, cfg, batch, tokens, routes=None) -> dict:
+    """{name: tensor} of a prefill of ``batch`` (its logits and every cache
+    leaf) and of a decode step of each column of ``tokens`` from it (the
+    step's logits and position), then the cache's leaves after the last
+    step; ``routes`` threads every call's MoE routing (pinned or
+    recorded)."""
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.sharding import ShardingPolicy
+
+    pol = ShardingPolicy(remat=False)
+    leaves = lambda c: {"attn.k": c.attn.k, "attn.v": c.attn.v, "ssm.conv": c.ssm.conv,
+                        "ssm.state": c.ssm.state, "cross.k": c.cross.k, "cross.v": c.cross.v}
+    logits, cache = prefill(params, cfg, batch, pol, cache_len=batch["tokens"].shape[1] + 8,
+                            routes=routes)
+    out = {"prefill logits": logits}
+    out.update({f"prefill {k}": t.clone() for k, t in leaves(cache).items() if t.numel()})
+    for i in range(tokens.shape[1]):
+        logits, cache = decode_step(params, cfg, cache, tokens[:, i:i + 1], pol, routes=routes)
+        out[f"decode {i} logits"] = logits
+        out[f"decode {i} pos"] = cache.pos.clone()
+    out.update({f"decode {k}": t for k, t in leaves(cache).items() if t.numel()})
+    return out
+
+
+def decode_profile(params, cfg, cache, token, label) -> None:
+    """One eager decode step from a clone of ``cache`` under
+    ``torch.profiler``: its device time, its kernels and the torch
+    operators with the most device time (a replay runs the same
+    kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import graphs
+    from repro_torch.models.model import decode_step
+    from repro_torch.sharding import ShardingPolicy
+
+    cache = graphs.clone(cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_step(params, cfg, cache, token, ShardingPolicy(remat=False))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = sorted((e for e in events if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[{label} profile] one eager decode step: device "
+          f"{sum(e.self_device_time_total for e in kernels) / 1e3:.3f} ms, "
+          f"{sum(e.count for e in kernels)} kernels; the operators with the most device time: "
+          + "; ".join(f"{e.key} x{e.count} {e.self_device_time_total / 1e3:.3f} ms" for e in ops),
+          flush=True)
+
+
+def check_serve_small(dev) -> None:
+    """Phase 4i: every architecture of SERVE_SMOKE at SMOKE, in float32 and
+    bf16, on the card and on the CPU from the same parameters and inputs
+    (8 stub prompts of 20 tokens, qwen2-vl's patches and whisper's frames
+    among them): the prefill's logits and every cache leaf, then 4 decode
+    steps from each side's own cache (each step's logits and position),
+    then every cache leaf.  float32 within 1e-4 of the largest magnitude;
+    bf16 by each side's distance from the CPU's float64 run, the card's
+    within LM_BF16_MULTIPLE of the CPU's or LM_BF16_FLOOR; a bf16 MoE
+    stack pinned on both sides to the float64 run's routing."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+
+    for arch in SERVE_SMOKE:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.get_config(arch, "smoke"), dtype=dtype)
+            params = init_params(0, cfg, "cpu")
+            gen = torch.Generator().manual_seed(5)
+            batch = serve.stub_batch(cfg, 8, 20, gen)
+            tokens = torch.randint(0, cfg.vocab_size, (8, 4), generator=gen)
+            to = lambda b, where, wide=False: {
+                k: (t.double() if wide and t.is_floating_point() else t).to(where)
+                for k, t in b.items()}
+            pinned = cfg.is_moe_mlp and dtype == "bfloat16"
+            routes64 = L.Routes() if pinned else None
+            truth = serve_outputs({k: t.double() for k, t in params.items()},
+                                  dataclasses.replace(cfg, dtype="float64"),
+                                  to(batch, "cpu", True), tokens, routes64)
+            pin = lambda: L.Routes(pin=routes64) if pinned else None
+            card = serve_outputs({k: t.to(dev) for k, t in params.items()}, cfg,
+                                 to(batch, dev), tokens.to(dev), pin())
+            cpu = serve_outputs(params, cfg, batch, tokens, pin())
+            worst = None
+            for name, t in truth.items():
+                g, c = card[name].cpu(), cpu[name]
+                if name.endswith("pos"):
+                    if not int(g) == int(c) == int(t):
+                        fail(f"small serve: {cfg.name} {dtype} {name}: {int(g)}, {int(c)}, "
+                             f"{int(t)}")
+                    continue
+                g, c, t = g.double(), c.double(), t.double()
+                scale = t.abs().max().item()
+                gap = (g - c).abs().max().item() / scale
+                e_card = (g - t).abs().max().item() / scale
+                e_cpu = (c - t).abs().max().item() / scale
+                ok = (gap <= 1e-4 if dtype == "float32"
+                      else e_card <= max(LM_BF16_MULTIPLE * e_cpu, LM_BF16_FLOOR))
+                if not ok:
+                    fail(f"small serve: {cfg.name} {dtype} {name}: card vs CPU {gap:.3e}; from "
+                         f"the CPU's float64: card {e_card:.3e}, CPU {e_cpu:.3e}")
+                rank = gap if dtype == "float32" else e_card / max(e_cpu, LM_BF16_FLOOR)
+                if worst is None or rank > worst[0]:
+                    worst = (rank, gap, e_card, e_cpu, name)
+            _, gap, e_card, e_cpu, name = worst
+            print(f"[small serve] {cfg.name} {dtype}: {len(truth)} outputs (prefill, 4 decode "
+                  f"steps{', pinned to the float64 routing' if pinned else ''}), the tightest "
+                  f"{name}: card vs CPU {gap:.3e}; from the CPU's float64: card "
+                  f"{e_card:.3e}, CPU {e_cpu:.3e}; ok", flush=True)
+
+
+def check_serve(dev) -> None:
+    """Phase 4i: serving.  Each config of SERVE_FULL at full width (bf16,
+    ``init_params`` of seed 0 drawn on the CPU, ``serve.stub_batch``): the
+    build seconds; ``prefill`` twice (the first call's and the second's
+    ms) beside its bound (``serve_work``); ``gen`` greedy decode steps
+    eagerly (``serve.Decoder(eager=True)``) and replayed from one captured
+    graph, from clones of one prefilled cache: ms a token each, tokens/s,
+    the capture's seconds, the replayed tokens and last logits bit for bit
+    the eager loop's; the first step's logits against ``forward``'s at
+    position L (``decode_against_forward``: exact in float32, and in bf16
+    no further from the float32 forward than the bf16 forward is); the
+    cache's bytes, a decode step's bound, the peak of
+    ``torch.cuda.max_memory_allocated`` above what the earlier phases
+    hold; one eager decode step profiled (``decode_profile``).  Then the
+    SMOKE card-vs-CPU checks (``check_serve_small``), no launch of the
+    port's kernels over the phase (none lies on the path), and ``python -m
+    repro_torch.launch.serve`` on one SMOKE family of each kind and on
+    Qwen1.5-0.5B ``--variant full``, started together."""
+    from repro_torch import configs
+    from repro_torch.core import graphs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import cache_bytes, forward, prefill
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import ShardingPolicy
+
+    card, pol = card_name(), ShardingPolicy(remat=False)
+    reset_counts()
+    for arch, how in SERVE_FULL.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cfg = configs.get_config(arch)
+        label = f"serve {cfg.name}"
+        sync(dev)
+        t0 = time.perf_counter()
+        params = init_params(0, cfg, dev)
+        sync(dev)
+        build_secs = time.perf_counter() - t0
+        batch = serve.stub_batch(cfg, how.batch, how.prompt,
+                                 torch.Generator(device=dev).manual_seed(0))
+        cache_len = how.prompt + how.gen + 1
+        prefill_ms = []
+        for _ in range(2):
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, cfg, batch, pol, cache_len=cache_len)
+            sync(dev)
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        token = serve.sample_token(logits, 0.0)
+        work = serve_work(cfg, how.batch, how.prompt, cache_len)
+
+        eager = serve.Decoder(cfg, params, graphs.clone(cache), token, pol, eager=True)
+        sync(dev)
+        t0 = time.perf_counter()
+        first_tokens = eager.run(1)
+        first = eager.logits.clone()
+        eager_tokens = torch.cat([first_tokens, eager.run(how.gen - 1)], dim=1)
+        sync(dev)
+        eager_ms = 1e3 * (time.perf_counter() - t0) / how.gen
+        before = dict(serve.COUNTS)
+        replayed = serve.Decoder(cfg, params, graphs.clone(cache), token, pol)
+        sync(dev)
+        t0 = time.perf_counter()
+        replay_tokens = replayed.run(how.gen)
+        sync(dev)
+        replay_secs = time.perf_counter() - t0
+        counts = {k: serve.COUNTS[k] - before[k] for k in before}
+        same = {"tokens": torch.equal(replay_tokens, eager_tokens),
+                "last logits": torch.equal(replayed.logits, eager.logits)}
+        if counts != {"captures": 1, "replays": how.gen}:
+            fail(f"{label}: {counts}, expected one capture and {how.gen} replays")
+        if not all(same.values()):
+            fail(f"{label}: the replayed decode is not the eager loop's bit for bit: {same}")
+
+        decode_profile(params, cfg, cache, token, label)
+        full_batch = dict(batch, tokens=torch.cat([batch["tokens"], token], dim=1))
+        held_to = decode_against_forward(params, cfg, batch, full_batch, token, first,
+                                         cache_len, how.prompt, label)
+        peak = torch.cuda.max_memory_allocated()
+        n_bytes = cache_bytes(cache)
+        (pre_bound, pre_by), (dec_bound, dec_by) = work["prefill"], work["decode"]
+        replay_ms = 1e3 * replay_secs / how.gen
+        frames = f", {cfg.enc_seq} stub frames each" if cfg.arch_type == "encdec" else ""
+        print(f"[{label}] {card}: {cfg.n_layers} layers, d_model={cfg.d_model}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}, built in {build_secs:.3f} s; {how.batch} prompts "
+              f"of {how.prompt} tokens{frames}, cache_len {cache_len}, {how.gen} tokens "
+              f"generated greedily; prefill {prefill_ms[0]:.3f} ms (first call), "
+              f"{prefill_ms[1]:.3f} ms (second) against its bound {pre_bound:.3f} ms "
+              f"({work['prefill_TFLOP']:.3f} TFLOP, {work['prefill_GB']:.3f} GB; {pre_by}); "
+              f"decode eager {eager_ms:.3f} ms/token, replayed {replay_ms:.3f} ms/token over "
+              f"{how.gen} replays against a step's bound {dec_bound:.4f} ms "
+              f"({work['decode_GB']:.4f} GB: the parameters and the whole cache; "
+              f"{work['decode_GFLOP']:.3f} GFLOP; {dec_by}), "
+              f"{how.batch * how.gen / replay_secs:.1f} tokens/s replayed; capture "
+              f"{replayed.capture_secs:.3f} s; cache {n_bytes} bytes; peak "
+              f"torch.cuda.max_memory_allocated {peak - held} bytes above the {held} the "
+              f"earlier phases hold", flush=True)
+        print(f"[{label}] replayed against the eager loop, bit for bit: {same}; {counts}; "
+              f"{held_to}; first sequence's first tokens {replay_tokens[0, :8].tolist()}",
+              flush=True)
+        del params, batch, logits, cache, eager, replayed, first, full_batch
+    check_serve_small(dev)
+    launched = {k: n for k, n in read_counts().items() if n}
+    print(f"[serve] launches of the port's kernels over the phase: {launched or 'none'}",
+          flush=True)
+    if launched:
+        fail(f"serving launched the port's kernels: {launched}")
+
+    def result(label, lines):
+        if (len(lines) != 2 or not lines[0].startswith("generated (")
+                or "tok/s incl. compile)" not in lines[0]
+                or not lines[1].startswith("first sequence: [")):
+            fail(f"the command line ({label}) printed {lines!r}")
+        return "; ".join(lines)
+
+    smoke = ("qwen1.5-0.5b", "mamba2-370m", "llama4-scout-17b-16e", "jamba-1.5-large-398b",
+             "qwen2-vl-7b", "whisper-base")
+    commands = {f"serve {arch}": ["--arch", arch] for arch in smoke}
+    commands["serve qwen1.5-0.5b full"] = ["--arch", "qwen1.5-0.5b", "--variant", "full"]
+    run_clis("serve", commands, result)
+
+
 def check_per_client(cobjs, dev) -> dict:
     """Phase 7: the per-client engine at the main path's width; returns the
     launch counts of its resident and tiled runs."""
@@ -2814,6 +3204,9 @@ def main() -> int:
     check_rollback(cfg, cobjs, dev)
     check_pool(cfg, cobjs, dev, straight, straight_draws)
     check_lm(dev)
+    t0 = time.perf_counter()
+    check_serve(dev)
+    print(f"[serve] phase 4i in {time.perf_counter() - t0:.1f} s", flush=True)
     profile_round(cfg, cobjs, dev)
 
     ocfg = main_config(score_block_cap=TILE, grad_block_cap=TILE)

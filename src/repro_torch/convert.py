@@ -19,6 +19,7 @@ from repro_torch.core import gp_surrogate as gp
 from repro_torch.core import model_objectives as mobj
 from repro_torch.core import objectives as obj
 from repro_torch.core import rff as rfflib
+from repro_torch.models.model import AttnCache, DecodeCache, SsmStack
 from repro_torch.optim.optimizers import AdamState
 
 
@@ -73,6 +74,17 @@ def lm_params(src, device) -> dict:
     """A reference model's flat parameter dict (``repro.models.init_params``)
     as the port's, leaf by leaf under the same names, in the same dtypes."""
     return {name: tensor(a, device) for name, a in src.items()}
+
+
+def decode_cache(src, device) -> DecodeCache:
+    """A reference ``DecodeCache`` (``repro.models.model``: its K/V, conv
+    and state stacks, its cross K/V, its int32 position) as the port's:
+    the same layouts leaf for leaf, in the same dtypes, ``pos`` a 0-d
+    int64 tensor."""
+    pair = lambda c: AttnCache(tensor(c.k, device), tensor(c.v, device))
+    return DecodeCache(attn=pair(src.attn),
+                       ssm=SsmStack(tensor(src.ssm.conv, device), tensor(src.ssm.state, device)),
+                       cross=pair(src.cross), pos=tensor(src.pos, device).long().reshape(()))
 
 
 def lm_objective(src, device) -> mobj.LMObjective:

@@ -10,6 +10,7 @@
   ``--ckpt-dir``, ``--ckpt-every``, ``--sync-ckpt``, ``--eval-every``) and
   the pool and fault flags.
 
+``add_arch_flag`` installs ``--arch`` (the serving launcher's too).
 Every flag keeps the reference's name, type and default.
 ``pool_from_args`` and ``faults_from_args`` read the pool flags
 (``--pool-size``, ``--cohort``, ``--cohort-seed``) and the fault flags
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch.configs import ARCH_IDS, _norm
 from repro_torch.core import algorithms as alg
 
 #: argparse flag -> AlgoConfig field for the plain value flags.
@@ -36,6 +38,20 @@ _FLAG_FIELDS = {
     "gamma_mode": "gamma_mode",
     "gamma_const": "gamma_const",
 }
+
+
+class ArchChoices(list):
+    """The choices of ``--arch``: the reference's ids, with dashes or
+    underscores; membership also admits a config's published name
+    (``qwen1.5-0.5b``), which names the same module."""
+
+    def __contains__(self, arch) -> bool:
+        return list.__contains__(self, arch) or _norm(str(arch)) in ARCH_IDS
+
+
+def add_arch_flag(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--arch", default="qwen1_5_0_5b",
+                    choices=ArchChoices([a.replace("_", "-") for a in ARCH_IDS] + list(ARCH_IDS)))
 
 
 def add_algo_flags(ap: argparse.ArgumentParser) -> None:

@@ -59,7 +59,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import ARCH_IDS, _norm, get_config
+from repro_torch.configs import _norm, get_config
 from repro_torch.core import algorithms as alg
 from repro_torch.core import model_objectives as mobj
 from repro_torch.core import objectives as obj
@@ -67,15 +67,6 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import common
 from repro_torch.models.model import check_ported
 from repro_torch.models.params import init_params
-
-
-class _ArchChoices(list):
-    """The choices of ``--arch``: the reference's ids, with dashes or
-    underscores; membership also admits a config's published name
-    (``qwen1.5-0.5b``), which names the same module."""
-
-    def __contains__(self, arch) -> bool:
-        return list.__contains__(self, arch) or _norm(str(arch)) in ARCH_IDS
 
 
 def build_objective(args, seed: int, device):
@@ -113,9 +104,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.fedzoo")
     ap.add_argument("--objective", default="quadratic",
                     choices=["quadratic", "sinquad", "attack", "metric", "lm"])
-    ap.add_argument("--arch", default="qwen1_5_0_5b",
-                    choices=_ArchChoices([a.replace("_", "-") for a in ARCH_IDS]
-                                         + list(ARCH_IDS)))
+    common.add_arch_flag(ap)
     ap.add_argument("--dim", type=int, default=300)
     ap.add_argument("--clients", type=int, default=5)
     ap.add_argument("--het", type=float, default=5.0, help="C for synthetic objectives")

@@ -1,7 +1,6 @@
-"""Transformer layer primitives (port of ``repro.models.layers``, the
-full-sequence path): RMSNorm, RoPE and M-RoPE, GQA attention (full and
-query-chunked), the gated MLPs and the MoE layer.  Cached decode comes
-with ROADMAP Queue A, A13c.
+"""Transformer layer primitives (port of ``repro.models.layers``): RMSNorm,
+RoPE and M-RoPE, GQA attention (full, query-chunked, cross and cached
+one-token decode), the gated MLPs and the MoE layer.
 
 Conventions, as the reference's:
 * activations are in the config dtype (bf16 for the published configs);
@@ -206,13 +205,18 @@ def pick_attn(p: dict, prefix: str) -> AttnParams:
     )
 
 
-def _project_qkv(ap: AttnParams, x: torch.Tensor, cfg: ModelConfig):
+def _project_qkv(ap: AttnParams, x: torch.Tensor, cfg: ModelConfig, kv: bool = True):
+    """The normed stream's query heads and, with ``kv``, its key and value
+    heads (cross-attention takes the encoder's: (q, None, None))."""
     xn = rmsnorm(x, ap.ln, cfg.norm_eps)
     q = xn @ ap.wq
-    k = xn @ ap.wk
-    v = xn @ ap.wv
     if ap.bq is not None:
         q = q + ap.bq
+    if not kv:
+        return _split_heads(q, cfg.n_heads), None, None
+    k = xn @ ap.wk
+    v = xn @ ap.wv
+    if ap.bk is not None:
         k = k + ap.bk
         v = v + ap.bv
     return (
@@ -223,22 +227,65 @@ def _project_qkv(ap: AttnParams, x: torch.Tensor, cfg: ModelConfig):
 
 
 def attn_block(ap: AttnParams, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, *,
-               causal: bool = True, window: int = 0, chunk: int = 0) -> torch.Tensor:
-    """Full-sequence self-attention on the residual stream x (B, L, d).
-    Returns the residual delta (the caller adds).  ``chunk > 0`` takes the
-    query-chunked form when L is a multiple of it and at least twice it.
-    Cross-attention comes with the encoder-decoder family."""
-    q, k, v = _project_qkv(ap, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_mode, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_mode, cfg.mrope_sections)
-    if chunk > 0 and q.shape[1] % chunk == 0 and q.shape[1] >= 2 * chunk:
-        out = attention_chunked(q, k, v, causal=causal, window=window, chunk=chunk)
-    else:
-        mask = _attn_mask(q.shape[1], k.shape[1], causal=causal, window=window,
-                          device=x.device)
+               causal: bool = True, window: int = 0,
+               cross_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None, chunk: int = 0,
+               return_kv: bool = False):
+    """Full-sequence attention on the residual stream x (B, L, d) (train,
+    prefill, the encoder).  Returns the residual delta (the caller adds);
+    with ``return_kv`` also the layer's key heads after RoPE and its value
+    heads (B, L, KV, hd), the K/V a prefill caches.  ``cross_kv`` (the
+    encoder's key and value heads (B, S, KV, hd)) makes it cross-attention:
+    no RoPE and every key visible.  ``chunk > 0`` takes the query-chunked
+    form when L is a multiple of it and at least twice it."""
+    q, k, v = _project_qkv(ap, x, cfg, kv=cross_kv is None)
+    if cross_kv is not None:
+        k, v = cross_kv
+        mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool, device=x.device)
         out = attention_core(q, k, v, mask)
-    out = out.reshape(out.shape[0], out.shape[1], -1)
-    return out @ ap.wo
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_mode, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_mode, cfg.mrope_sections)
+        if chunk > 0 and q.shape[1] % chunk == 0 and q.shape[1] >= 2 * chunk:
+            out = attention_chunked(q, k, v, causal=causal, window=window, chunk=chunk)
+        else:
+            mask = _attn_mask(q.shape[1], k.shape[1], causal=causal, window=window,
+                              device=x.device)
+            out = attention_core(q, k, v, mask)
+    out = out.reshape(out.shape[0], out.shape[1], -1) @ ap.wo
+    return (out, k, v) if return_kv else out
+
+
+def attn_decode(ap: AttnParams, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, pos: torch.Tensor, *, window: int = 0,
+                cross: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token cached attention: x (B, 1, d), caches (B, S, KV, hd), pos a
+    0-d integer tensor (the token's position).  Returns (delta, k_cache,
+    v_cache).  Self-attention applies RoPE at ``pos`` (M-RoPE: ``pos`` in
+    all three components), writes the token's K/V into the caches in place
+    at ``pos`` and attends to keys ``ki <= pos`` (and ``ki > pos - window``);
+    the write index is clamped to S-1, as the reference's
+    ``dynamic_update_slice`` clamps its start, the mask is not.  With
+    ``cross`` the caches hold the encoder's K/V: every key visible, nothing
+    written.  No host read: it runs inside a captured graph."""
+    q, k, v = _project_qkv(ap, x, cfg, kv=not cross)
+    s = k_cache.shape[1]
+    if cross:
+        mask = torch.ones((1, s), dtype=torch.bool, device=x.device)
+    else:
+        b = x.shape[0]
+        posb = pos.expand(b, 1) if cfg.rope_mode != "mrope" else pos.expand(b, 1, 3)
+        q = apply_rope(q, posb, cfg.rope_theta, cfg.rope_mode, cfg.mrope_sections)
+        k = apply_rope(k, posb, cfg.rope_theta, cfg.rope_mode, cfg.mrope_sections)
+        at = pos.clamp(0, s - 1).reshape(1)
+        k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+        ki = torch.arange(s, device=x.device)
+        mask = ki <= pos
+        if window > 0:
+            mask &= ki > pos - window
+        mask = mask[None, :]
+    out = attention_core(q, k_cache, v_cache, mask)
+    return out.reshape(out.shape[0], 1, -1) @ ap.wo, k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

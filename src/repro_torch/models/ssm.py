@@ -1,11 +1,12 @@
 """Mamba2 / SSD (state-space duality) blocks [arXiv:2405.21060] (port of
-``repro.models.ssm``, the full-sequence path).
+``repro.models.ssm``).
 
 The sequence runs through the chunked SSD algorithm: within-chunk
 quadratic (attention-dual) products and an inter-chunk linear recurrence
 over chunk states, O(L) in the sequence length.  The recurrence is a loop
 over the chunks, whose count is static (the reference's ``lax.scan``).
-Decode, the O(1) recurrent update, comes with A13c (ROADMAP Queue A).
+Decode is the O(1) recurrent update h <- exp(dt*A) h + dt * B x^T on a
+cache of the last K-1 conv inputs and the state, updated in place.
 
 Layout: H = expand*d/headdim heads; B and C use ``ssm_groups`` groups
 broadcast across heads (G=1 for mamba2).  As in ``layers``, the SSD
@@ -19,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _wide, repeat_groups, rmsnorm
 
@@ -143,13 +145,17 @@ def ssd_scan(
     return y.to(x.dtype), hcur
 
 
-def ssm_block_train(sp: SsmParams, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence Mamba2 block.  x (B, L, d) -> residual delta."""
+def ssm_block_full(sp: SsmParams, x: torch.Tensor, cfg: ModelConfig
+                   ) -> tuple[torch.Tensor, "SsmCache"]:
+    """Full-sequence Mamba2 block.  x (B, L, d) -> (residual delta, the
+    cache a decode continues from: the last K-1 conv inputs, zero-padded
+    on the left where L < K-1, and the SSD's final state)."""
     bsz, l, _ = x.shape
     h, p, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     xn = rmsnorm(x, sp.ln, cfg.norm_eps)
     zxbcdt = xn @ sp.in_proj
     z, xbc, dt = _split_in_proj(cfg, zxbcdt)
+    conv_tail = F.pad(xbc, (0, 0, cfg.ssm_conv - 1, 0))[:, l:]
     xbc = _causal_conv_train(xbc, sp.conv_w, sp.conv_b)
     xs, bmat, cmat = torch.split(xbc, [cfg.ssm_inner, g * n, g * n], dim=-1)
     xs = xs.reshape(bsz, l, h, p)
@@ -157,9 +163,70 @@ def ssm_block_train(sp: SsmParams, x: torch.Tensor, cfg: ModelConfig) -> torch.T
     cmat = cmat.reshape(bsz, l, g, n)
     dtv = F.softplus(_wide(dt) + sp.dt_bias)  # (B, L, H)
     a = -torch.exp(_wide(sp.a_log))  # (H,)
-    y, _ = ssd_scan(cfg, xs, dtv, a, bmat, cmat)
+    y, hfin = ssd_scan(cfg, xs, dtv, a, bmat, cmat)
     y = y + xs * sp.d_skip[None, None, :, None].to(y.dtype)
     y = y.reshape(bsz, l, cfg.ssm_inner)
     y = y * F.silu(z)  # gated output
     y = rmsnorm(y, sp.out_norm, cfg.norm_eps)
-    return y @ sp.out_proj
+    return y @ sp.out_proj, SsmCache(conv=conv_tail, state=hfin)
+
+
+def ssm_block_train(sp: SsmParams, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence Mamba2 block.  x (B, L, d) -> residual delta."""
+    return ssm_block_full(sp, x, cfg)[0]
+
+
+class SsmCache(NamedTuple):
+    conv: torch.Tensor  # (B, K-1, conv_channels) rolling conv inputs
+    state: torch.Tensor  # (B, H, P, N) SSD recurrent state, float32 (or wider)
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.float32,
+                   device="cuda") -> SsmCache:
+    device = resolve_device(device)
+    return SsmCache(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, cfg.ssm_conv_channels), dtype=dtype,
+                         device=device),
+        state=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                          dtype=dtype, device=device))
+
+
+def ssm_block_decode(sp: SsmParams, x: torch.Tensor, cfg: ModelConfig, cache: SsmCache
+                     ) -> tuple[torch.Tensor, SsmCache]:
+    """One-token recurrent update.  x (B, 1, d) -> (residual delta, cache).
+    The conv window rolls in the cache's conv dtype (the config dtype in
+    ``model.init_cache``); the state update, the C read-out and the D skip
+    run in the state's float32 (or wider).  The cache's two tensors are
+    updated in place and returned, so a captured decode step keeps static
+    buffers."""
+    bsz = x.shape[0]
+    h, p, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    xn = rmsnorm(x[:, 0, :], sp.ln, cfg.norm_eps)  # (B, d)
+    zxbcdt = xn @ sp.in_proj
+    z, xbc, dt = _split_in_proj(cfg, zxbcdt)
+
+    # rolling causal conv: the K-1 cached inputs and this one; the depthwise
+    # sum of products rounded once to the window's dtype
+    wdt = torch.promote_types(cache.conv.dtype, xbc.dtype)
+    window = torch.cat([cache.conv.to(wdt), xbc[:, None, :].to(wdt)], dim=1)  # (B, K, C)
+    conv_out = torch.einsum("bkc,kc->bc", _wide(window), _wide(sp.conv_w)).to(wdt) + sp.conv_b
+    xbc = F.silu(conv_out)
+    cache.conv.copy_(window[:, 1:, :])
+
+    xs, bmat, cmat = torch.split(xbc, [cfg.ssm_inner, g * n, g * n], dim=-1)
+    xs = _wide(xs.reshape(bsz, h, p))
+    bmat = _wide(repeat_groups(bmat.reshape(bsz, g, n), h // g, 1))  # (B, H, N)
+    cmat = _wide(repeat_groups(cmat.reshape(bsz, g, n), h // g, 1))
+    dtv = F.softplus(_wide(dt) + sp.dt_bias)  # (B, H)
+    a = -torch.exp(_wide(sp.a_log))
+    decay = torch.exp(dtv * a)  # (B, H)
+
+    sdt = cache.state.dtype
+    dbx = (dtv[:, :, None] * xs)[..., None] * bmat[:, :, None, :]  # (B, H, P, N)
+    cache.state.copy_(cache.state * decay[:, :, None, None].to(sdt) + dbx.to(sdt))
+    y = torch.einsum("bhpn,bhn->bhp", cache.state, cmat.to(sdt))
+    y = y + xs.to(sdt) * _wide(sp.d_skip)[None, :, None].to(sdt)
+    y = y.reshape(bsz, cfg.ssm_inner).to(x.dtype)
+    y = y * F.silu(z)
+    y = rmsnorm(y, sp.out_norm, cfg.norm_eps)
+    return (y @ sp.out_proj)[:, None, :], cache
